@@ -1,0 +1,89 @@
+"""Carrying parameters and fitted state across from the reference.
+
+Both functions take plain numpy arrays, so this module needs nothing of the
+reference implementation: the caller turns a reference state into numpy
+(``np.asarray`` on each field) and its config into a dict
+(``dataclasses.asdict``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .core.state import LKGPConfig, LKGPParams, LKGPState
+from .core.transforms import TTransform, XTransform, YTransform
+
+__all__ = ["params_from_numpy", "state_from_reference"]
+
+_PARAM_FIELDS = LKGPParams._fields
+
+
+def params_from_numpy(arrays: Mapping[str, Any], *,
+                      dtype: torch.dtype = torch.float64,
+                      device=None) -> LKGPParams:
+    """Build :class:`LKGPParams` from a mapping of its four raw fields."""
+    dev = resolve_device(device)
+    missing = [f for f in _PARAM_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"params arrays are missing {missing}")
+    fields = {f: torch.as_tensor(np.asarray(arrays[f]), dtype=dtype, device=dev)
+              for f in _PARAM_FIELDS}
+    if fields["raw_x_lengthscale"].ndim != 1:
+        raise ValueError("raw_x_lengthscale must have shape (d,)")
+    for f in _PARAM_FIELDS[1:]:
+        fields[f] = fields[f].reshape(())
+    return LKGPParams(**fields)
+
+
+def state_from_reference(arrays: Mapping[str, Any],
+                         config: Mapping[str, Any] | LKGPConfig | None = None,
+                         *, dtype: torch.dtype = torch.float64,
+                         device=None) -> LKGPState:
+    """Build an :class:`LKGPState` from a reference state's numpy arrays.
+
+    ``arrays`` is a flat mapping with the keys ``params.<field>`` (the four
+    raw fields), ``X``, ``t``, ``Y``, ``mask``, ``x_tf.lo`` / ``x_tf.hi``,
+    ``t_tf.log_t1`` / ``t_tf.log_tm`` and ``y_tf.shift`` / ``y_tf.scale``.
+    ``config`` is a dict of ``LKGPConfig`` fields (unknown keys are an
+    error). ``device=None`` means the GPU.
+    """
+    dev = resolve_device(device)
+    if config is None:
+        config = LKGPConfig()
+    elif not isinstance(config, LKGPConfig):
+        known = {f.name for f in dataclasses.fields(LKGPConfig)}
+        unknown = sorted(set(config) - known)
+        if unknown:
+            raise ValueError(f"unknown LKGPConfig fields {unknown}")
+        config = LKGPConfig(**config)
+
+    def tensor(key):
+        if key not in arrays:
+            raise KeyError(f"state arrays are missing {key!r}")
+        return torch.as_tensor(np.asarray(arrays[key]), dtype=dtype,
+                               device=dev)
+
+    params = params_from_numpy(
+        {f: arrays[f"params.{f}"] for f in _PARAM_FIELDS
+         if f"params.{f}" in arrays},
+        dtype=dtype, device=dev)
+    X, t, Y, mask = tensor("X"), tensor("t"), tensor("Y"), tensor("mask")
+    n, d = X.shape
+    m = t.shape[0]
+    if Y.shape != (n, m) or mask.shape != (n, m):
+        raise ValueError(f"Y and mask must have shape {(n, m)}, got "
+                         f"{tuple(Y.shape)} and {tuple(mask.shape)}")
+    if params.raw_x_lengthscale.shape != (d,):
+        raise ValueError(f"raw_x_lengthscale must have shape {(d,)}")
+    return LKGPState(
+        params=params, X=X, t=t, Y=Y, mask=mask,
+        x_tf=XTransform(lo=tensor("x_tf.lo"), hi=tensor("x_tf.hi")),
+        t_tf=TTransform(log_t1=tensor("t_tf.log_t1"),
+                        log_tm=tensor("t_tf.log_tm")),
+        y_tf=YTransform(shift=tensor("y_tf.shift"),
+                        scale=tensor("y_tf.scale")),
+        config=config)

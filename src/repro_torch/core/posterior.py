@@ -1,0 +1,294 @@
+"""Lazy posterior over the latent grid, behind one ``PosteriorLike`` API.
+
+Counterpart of ``repro.core.posterior`` (the lazy :class:`Posterior`; the
+batched exact posterior is not ported yet).
+
+A :class:`Posterior` is cheap to construct: nothing is computed until a
+property is read. The expensive CG solve of ``alpha = K^{-1} (Y * mask)``
+is computed once and cached, then shared between
+
+* the exact posterior mean  ``K1[:, :n] @ alpha @ K2``  and
+* Matheron-rule samples: by linearity,
+  ``K^{-1}(Y - F - eps) = alpha - K^{-1}(F + eps)``, so each sampling call
+  only solves for the (F + eps) part and reuses the cached ``alpha``.
+
+Solves are consolidated: if samples are requested before ``alpha`` exists,
+the posterior stacks ``[Y * mask | Matheron residuals]`` into ONE multi-RHS
+block solve, so a full posterior evaluation (``final()``: exact mean +
+Matheron variance) costs a single batched operator sweep instead of two.
+The block solver's per-column diagnostics from the most recent solve are
+exposed as :attr:`Posterior.solve_info`; :attr:`Posterior.solve_count`
+counts the engine solves this posterior has performed.
+
+Caching is *state-keyed*: :func:`posterior` attaches the lazy posterior to
+the state instance itself, so repeated ``posterior(state)`` calls on an
+unchanged state return the SAME object and reuse its resident solves.
+
+Randomness: where the reference takes a PRNG key, this module takes a
+``torch.Generator`` on the state's device. The default sample stream and
+``final()``'s fallback stream are two distinct generators seeded from
+``(config.seed, 1)`` and ``(config.seed, 2)``.
+"""
+from __future__ import annotations
+
+import threading
+from functools import cached_property
+from typing import Any, Protocol, runtime_checkable
+
+import torch
+
+from .._device import check_on_device, resolve_device
+from . import gp_kernels as gk
+from .engines import get_engine
+from .matheron import kronecker_correction, prior_residual_draws
+from .state import LKGPState, resolve_backend
+
+__all__ = ["PosteriorLike", "Posterior", "posterior", "joint_grams"]
+
+
+@runtime_checkable
+class PosteriorLike(Protocol):
+    """One posterior interface for lazy and batched implementations.
+
+    ``mean`` / ``variance`` cover the full grid (original y units);
+    ``samples`` draws posterior functions; ``final`` returns the
+    final-progression (mean, var) per config; ``solve_info`` surfaces the
+    most recent solver diagnostics (None for exact paths that have none).
+    """
+
+    @property
+    def mean(self) -> torch.Tensor: ...
+
+    @property
+    def variance(self) -> torch.Tensor: ...
+
+    @property
+    def solve_info(self) -> Any: ...
+
+    def samples(self, generator, n_samples: int | None = None) -> torch.Tensor: ...
+
+    def final(self, generator=None, n_samples: int | None = None): ...
+
+
+def _stream(seed: int, tag: int, device: torch.device) -> torch.Generator:
+    """A generator on ``device`` for the random stream ``(seed, tag)``."""
+    g = torch.Generator(device=device)
+    g.manual_seed((int(seed) << 8) + int(tag))
+    return g
+
+
+def joint_grams(state: LKGPState, Xs=None):
+    """K1 over [X_train; X_test] (transformed) and K2 over t (jittered).
+
+    Matches the training-time Gram construction: K2 carries the jitter, the
+    joint K1 does not (its train block is only used inside the noisy
+    operator; Cholesky call sites add jitter themselves).
+    """
+    cfg = state.config
+    p = state.params
+    Xn = state.x_tf(state.X)
+    tn = state.t_tf(state.t)
+    K2 = gk.KERNELS_1D[cfg.t_kernel](
+        tn, tn, torch.exp(p.raw_t_lengthscale), torch.exp(p.raw_outputscale))
+    K2 = K2 + cfg.jitter * torch.eye(tn.shape[0], dtype=K2.dtype,
+                                     device=K2.device)
+    if Xs is None:
+        Xa = Xn
+    else:
+        Xs = torch.as_tensor(Xs, dtype=Xn.dtype, device=Xn.device)
+        Xa = torch.cat([Xn, state.x_tf(Xs)], 0)
+    K1a = gk.rbf_ard(Xa, Xa, torch.exp(p.raw_x_lengthscale))
+    return K1a, K2
+
+
+class Posterior:
+    """Lazy LKGP posterior over the full (train [+ test]) x t grid.
+
+    Rows ``[:n]`` of every product are curve continuations for the training
+    configs; if ``Xs`` was given, rows ``[n:]`` are predictions for the new
+    configs. All outputs are in original y units, on the state's device.
+    """
+
+    def __init__(self, state: LKGPState, Xs=None, engine=None):
+        self._state = state
+        self._Xs = Xs
+        if engine is None:
+            n_obs = int(state.mask.sum().item())
+            engine = get_engine(resolve_backend(state.config, n_obs))
+        self._engine = engine
+        self._alpha: torch.Tensor | None = None   # cached K^{-1}(Y*mask)
+        self._solve_info: Any = None  # CGResult of most recent engine solve
+        self._n_solves = 0            # engine solves performed (sweeps run)
+
+    # -- cached pieces -----------------------------------------------------
+    @cached_property
+    def _grams(self):
+        return joint_grams(self._state, self._Xs)
+
+    @cached_property
+    def _noise(self) -> torch.Tensor:
+        return torch.exp(self._state.params.raw_noise)
+
+    @cached_property
+    def _operator(self):
+        """A = P (K1 (x) K2) P^T + sigma^2 I over the training block."""
+        K1a, K2 = self._grams
+        n = self._state.n
+        return self._engine.operator_from_grams(
+            K1a[:n, :n], K2, self._state.mask, self._noise)
+
+    def _solve(self, rhs):
+        """Engine solve capturing the block solver's diagnostics."""
+        x = self._engine.solve(self._operator, rhs, self._state.config)
+        self._solve_info = getattr(self._operator, "last_result", None)
+        self._n_solves += 1
+        return x
+
+    @property
+    def alpha(self):
+        """Cached K^{-1} (Y * mask) in transformed space (grid form)."""
+        if self._alpha is None:
+            st = self._state
+            Ym = st.y_tf(st.Y) * st.mask
+            self._alpha = self._solve(Ym)
+        return self._alpha
+
+    @property
+    def solve_info(self):
+        """Diagnostics (:class:`repro_torch.core.solvers.CGResult`) of the
+        most recent solve through this posterior - per-column iterations,
+        true residuals, and breakdown flags - or None before any solve (or
+        for engines that do not report them, e.g. the exact dense solve)."""
+        return self._solve_info
+
+    @property
+    def solve_count(self) -> int:
+        """Number of engine solves (batched operator sweeps) this posterior
+        has run. A state-cache hit returns the same posterior object, so a
+        repeated evaluation leaves this counter unchanged."""
+        return self._n_solves
+
+    # -- products ----------------------------------------------------------
+    @property
+    def mean(self) -> torch.Tensor:
+        """Exact posterior mean over the grid: (n(+n*), m), y units."""
+        K1a, K2 = self._grams
+        n = self._state.n
+        mean_t = K1a[:, :n] @ self.alpha @ K2
+        return self._state.y_tf.inverse(mean_t)
+
+    def samples(self, generator, n_samples: int | None = None, *,
+                normals=None) -> torch.Tensor:
+        """Matheron-rule posterior samples: (s, n(+n*), m), y units.
+
+        If ``alpha`` is not cached yet, ``[Y * mask | residuals]`` are
+        stacked into ONE multi-RHS block solve (a single batched operator
+        sweep yields the exact mean's alpha AND every sample); afterwards
+        samples reuse the cached alpha and only solve the residual part.
+        ``normals=(Z, E)`` supplies the standard-normal draws instead of
+        ``generator`` (see :func:`prior_residual_draws`).
+        """
+        st = self._state
+        cfg = st.config
+        n_samples = n_samples or cfg.posterior_samples
+        K1a, K2 = self._grams
+        n = st.n
+        F, eps = prior_residual_draws(generator, K1a, K2, n, self._noise,
+                                      n_samples, jitter=cfg.jitter,
+                                      normals=normals)
+        resid = st.mask * (F[:, :n, :] + eps)
+        if self._alpha is None:
+            Ym = st.y_tf(st.Y) * st.mask
+            sol = self._solve(torch.cat([Ym[None], resid], dim=0))
+            self._alpha = sol[0]
+            u = sol[0][None] - sol[1:]
+        else:
+            # Linearity: K^{-1}(Y - F - eps) = alpha - K^{-1}(F + eps).
+            u = self._alpha[None] - self._solve(resid)
+        raw = F + kronecker_correction(K1a, u, K2, n)
+        return st.y_tf.inverse(raw)
+
+    @cached_property
+    def _default_samples(self):
+        # Stream tag 1: the cached default-sample stream. final()'s
+        # explicit-count fallback uses tag 2 so the two paths never share
+        # randomness.
+        st = self._state
+        return self.samples(_stream(st.config.seed, 1, st.device))
+
+    @property
+    def variance(self) -> torch.Tensor:
+        """Predictive variance (Matheron MC estimate + observation noise)."""
+        st = self._state
+        var_f = self._default_samples.var(dim=0, unbiased=False)
+        return var_f + st.y_tf.inverse_var(self._noise)
+
+    def final(self, generator=None, n_samples: int | None = None, *,
+              normals=None):
+        """(mean, var) of the final-progression value per config.
+
+        Mean is exact (cached CG solve); variance is estimated from Matheron
+        samples plus observation noise - the Fig. 4 protocol.
+        """
+        st = self._state
+        # Samples first: on a fresh posterior this folds the alpha solve and
+        # the Matheron residual solves into ONE stacked operator sweep; the
+        # mean below then reads the alpha cached by that same solve.
+        if generator is None and n_samples is None and normals is None:
+            s = self._default_samples[:, :, -1]   # cached; same default stream
+        else:
+            if generator is None and normals is None:
+                # tag 2: distinct from the _default_samples stream (tag 1).
+                generator = _stream(st.config.seed, 2, st.device)
+            s = self.samples(generator, n_samples, normals=normals)[:, :, -1]
+        mean = self.mean[:, -1]
+        var_f = s.var(dim=0, unbiased=False)
+        var_y = var_f + st.y_tf.inverse_var(self._noise)
+        return mean, var_y
+
+
+# -- state-keyed solve cache -----------------------------------------------
+# The cached posterior lives ON the state instance, so its lifetime is exactly
+# the state's: a new state object starts cold, dropping a state drops its
+# solves with it. The lock only guards the get-or-create so concurrent
+# serving threads share one posterior.
+_CACHE_ATTR = "_posterior_cache"
+_CACHE_LOCK = threading.Lock()
+
+
+def _state_cached(state, attr: str, build):
+    with _CACHE_LOCK:
+        post = getattr(state, attr, None)
+        if post is None:
+            post = build()
+            object.__setattr__(state, attr, post)
+        return post
+
+
+def posterior(state: LKGPState, Xs=None, engine=None,
+              cache: bool | None = None, *, device=None) -> Posterior:
+    """Lazy posterior for a fitted state (optionally at new configs Xs).
+
+    ``device=None`` means the GPU: the state must live there, and with no
+    CUDA device this raises. A state built on the CPU is served only when
+    ``device="cpu"`` says so.
+
+    ``cache=None`` (default) consults ``state.config.posterior_cache``:
+    when on, repeated calls on the same state object return ONE shared
+    :class:`Posterior` whose solves are resident - the second call performs
+    zero additional operator sweeps. Explicit ``Xs`` / ``engine`` arguments
+    always bypass the cache (their results are not state-determined);
+    ``cache=False`` forces a fresh posterior; ``cache=True`` demands the
+    cached one and raises if the call is not cacheable.
+    """
+    check_on_device(resolve_device(device), X=state.X, Y=state.Y,
+                    mask=state.mask, t=state.t)
+    cacheable = Xs is None and engine is None
+    if cache is None:
+        cache = cacheable and state.config.posterior_cache
+    elif cache and not cacheable:
+        raise ValueError("cache=True requires the state-determined "
+                         "posterior: no explicit Xs or engine")
+    if not cache:
+        return Posterior(state, Xs=Xs, engine=engine)
+    return _state_cached(state, _CACHE_ATTR, lambda: Posterior(state))

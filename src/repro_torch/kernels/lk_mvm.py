@@ -1,0 +1,203 @@
+"""Fused masked latent-Kronecker MVM: the GPU kernel's wrapper and its plain
+version.
+
+Computes   out = mask * (K1 @ (mask * U) @ K2) + noise * (mask * U)
+
+the inner loop of every CG iteration in the paper (Section 2). Composed from
+library calls it is two matrix products plus separate masking passes, with
+the (B, n, m) intermediate going through device memory between them.
+
+:func:`lk_mvm_fused`
+    One launch of the hand-written CUDA kernel ``csrc/lk_mvm_fused.cu`` (it
+    takes the place of the reference's TPU kernel of the same name in
+    ``repro/kernels/lk_mvm.py``). The intermediate ``T = (mask * U) @ K2``
+    lives only in shared memory. The kernel is bound by operations, not
+    bytes, on an H100 (about 1000 flops per byte at n = 8192, m = 64); its
+    design - one block per output tile looping over K1's column blocks, T
+    recomputed per row block at m / 128 extra work, no padding copies - is
+    set out at the top of the source. A CUDA tensor launches the kernel or
+    raises; a CPU tensor runs the plain version.
+
+:func:`lk_mvm_fused_plain`
+    The same function in plain PyTorch with the same rounding points. The
+    tests and CPU tensors use it; with a GPU present nothing on the serving
+    path does.
+
+:func:`lk_mvm_cuda`
+    The dispatcher in the slot of the reference's ``lk_mvm_pallas``:
+    ``fused=True`` is the kernel above, ``fused=False`` (the two-stage
+    kernels with the intermediate in device memory) is not ported yet.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import load_library
+
+__all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain"]
+
+_PRECISIONS = ("f32", "bf16")
+_LIB = None
+
+
+def _library():
+    """Build/load the kernel's library and declare its C signatures."""
+    global _LIB
+    if _LIB is None:
+        lib = load_library("lk_mvm_fused")
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        # (K1, ldk1, K2, ldk2, mask, U, noise, out, B, n, m, bf16, stream)
+        lib.lk_mvm_fused_launch.argtypes = [p, ll, p, ll, p, p, p, p,
+                                            i, i, i, i, p]
+        lib.lk_mvm_fused_launch.restype = i
+        lib.lk_mvm_fused_error_string.argtypes = [i]
+        lib.lk_mvm_fused_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check_args(K1, K2, mask, u, precision):
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
+    if mask.ndim != 2:
+        raise ValueError(f"mask must be (n, m), got {tuple(mask.shape)}")
+    n, m = mask.shape
+    if n == 0 or m == 0:
+        raise ValueError("empty grid")
+    if tuple(K1.shape) != (n, n) or tuple(K2.shape) != (m, m):
+        raise ValueError(f"K1 must be {(n, n)} and K2 {(m, m)}, got "
+                         f"{tuple(K1.shape)} and {tuple(K2.shape)}")
+    if u.ndim < 2 or tuple(u.shape[-2:]) != (n, m):
+        raise ValueError(f"u must be (..., {n}, {m}), got {tuple(u.shape)}")
+    if u.numel() == 0:
+        raise ValueError("u has an empty batch dimension")
+    for name, x in (("K1", K1), ("K2", K2), ("mask", mask)):
+        if x.device != u.device:
+            raise ValueError(f"{name} lives on {x.device}, u on {u.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 (a 0/1 float mask, not "
+                            f"bool), got {x.dtype}; cast it once where the "
+                            "operator is built")
+    if u.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"u must be float32 or float64, got {u.dtype}")
+    if K1.stride(1) != 1 or K2.stride(1) != 1:
+        raise ValueError("K1 and K2 must have unit stride along their rows")
+    if not mask.is_contiguous() or not u.is_contiguous():
+        raise ValueError("mask and u must be contiguous")
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (K1, K2, mask, u)):
+        raise NotImplementedError(
+            "lk_mvm_fused has no backward yet (ROADMAP queue 2 item K5); "
+            "call it under torch.no_grad() or on detached tensors")
+    return n, m
+
+
+def _noise_scalar(noise, device) -> torch.Tensor:
+    """``noise`` as a 0-d float32 tensor on ``device`` (no host sync)."""
+    if isinstance(noise, torch.Tensor):
+        if noise.numel() != 1:
+            raise ValueError("noise must be a scalar")
+        if noise.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "lk_mvm_fused has no backward yet (ROADMAP queue 2 item K5)")
+        return noise.detach().reshape(()).to(device=device, dtype=torch.float32)
+    return torch.tensor(float(noise), dtype=torch.float32, device=device)
+
+
+def lk_mvm_fused_plain(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
+                       u: torch.Tensor, noise=0.0, *,
+                       precision: str = "f32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`lk_mvm_fused`, same rounding points.
+
+    Everything is cast to float32; with ``precision="bf16"`` K1, K2, U and
+    the intermediate T are additionally rounded to bfloat16 (and multiplied
+    as float32, i.e. with float32 accumulation of exact bf16 products). The
+    mask/noise epilogue is float32 and the result is cast to ``u.dtype``.
+    """
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
+    f32 = torch.float32
+    if precision == "bf16":
+        rnd = lambda x: x.to(torch.bfloat16).to(f32)
+    else:
+        rnd = lambda x: x
+    mk = mask.to(f32)
+    u32 = rnd(u.to(f32))
+    um = mk * u32
+    t = rnd(um @ rnd(K2.to(f32)))
+    s = rnd(K1.to(f32)) @ t
+    out = mk * s + _noise_scalar(noise, u.device) * um
+    return out.to(u.dtype)
+
+
+def lk_mvm_fused(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
+                 u: torch.Tensor, noise=0.0, *, block_n: int | None = None,
+                 block_m: int | None = None,
+                 precision: str = "f32") -> torch.Tensor:
+    """Single-pass masked Kronecker MVM. u: (..., n, m) -> same shape.
+
+    ``K1`` (n, n), ``K2`` (m, m) and the 0/1 ``mask`` (n, m) are float32;
+    ``u`` is float32 or float64 with any leading batch dims and is computed
+    on in float32, the result cast back to ``u.dtype``. ``noise`` is a
+    Python number or, better, a 0-d tensor on the device: the kernel reads it
+    through a pointer, so no host sync is paid. ``precision="bf16"`` rounds
+    K1, K2, U and the intermediate to bfloat16 and accumulates in float32.
+
+    On a CUDA tensor this launches the kernel on the current stream without
+    synchronising, or raises (wrong dtype/shape/layout, build failure, launch
+    error). It never falls back to the plain version. On a CPU tensor it
+    runs :func:`lk_mvm_fused_plain`. ``lk_mvm_fused.launches`` counts kernel
+    launches.
+
+    ``block_n`` / ``block_m`` are accepted for signature parity with the
+    reference and ignored: tile sizes are the kernel's own (compile-time
+    constants); a tuner with a shared-memory budget model is ROADMAP K6.
+    """
+    del block_n, block_m
+    n, m = _check_args(K1, K2, mask, u, precision)
+    if u.device.type == "cpu":
+        return lk_mvm_fused_plain(K1, K2, mask, u, noise, precision=precision)
+    if u.device.type != "cuda":
+        raise ValueError(f"lk_mvm_fused runs on cuda or cpu tensors, not "
+                         f"{u.device}")
+
+    u3 = u.detach().reshape(-1, n, m).to(torch.float32)
+    B = u3.shape[0]
+    if max(B, n, m) >= 2**31:
+        raise ValueError("B, n and m must fit in 32-bit integers")
+    noise_t = _noise_scalar(noise, u.device)
+    out = torch.empty_like(u3)
+    lib = _library()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lk_mvm_fused_launch(
+            K1.data_ptr(), K1.stride(0), K2.data_ptr(), K2.stride(0),
+            mask.data_ptr(), u3.data_ptr(), noise_t.data_ptr(),
+            out.data_ptr(), B, n, m, int(precision == "bf16"), stream)
+    if rc != 0:
+        what = lib.lk_mvm_fused_error_string(rc).decode()
+        raise RuntimeError(f"lk_mvm_fused launch failed at (B, n, m) = "
+                           f"{(B, n, m)}: CUDA error {rc} ({what})")
+    lk_mvm_fused.launches += 1
+    return out.to(u.dtype).reshape(u.shape)
+
+
+lk_mvm_fused.launches = 0
+
+
+def lk_mvm_cuda(K1, K2, mask, u, noise=0.0, *, block_n: int | None = None,
+                block_m: int | None = None, fused: bool = True,
+                precision: str = "f32") -> torch.Tensor:
+    """Masked Kronecker MVM through a hand-written kernel.
+
+    ``fused=True`` is :func:`lk_mvm_fused`. ``fused=False`` names the
+    reference's two-stage kernels, which are not ported yet and raise.
+    """
+    if not fused:
+        raise NotImplementedError(
+            "the two-stage MVM kernels (intermediate in device memory) are "
+            "not ported yet: ROADMAP queue 2 item K2")
+    return lk_mvm_fused(K1, K2, mask, u, noise, block_n=block_n,
+                        block_m=block_m, precision=precision)

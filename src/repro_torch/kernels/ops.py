@@ -1,0 +1,42 @@
+"""Public wrappers that dispatch between the GPU kernels and the plain oracles.
+
+Counterpart of ``repro.kernels.ops``. The rule is by device, never by what
+happens to be installed: tensors on a CUDA device go through the kernel (or
+raise), tensors on the CPU go to the oracle - or, with ``force_kernel=True``,
+through the kernel wrapper's plain version, which keeps the kernel's float32
+rounding points.
+"""
+from __future__ import annotations
+
+from .._device import check_on_device, resolve_device
+from .lk_mvm import lk_mvm_cuda
+from .ref import lk_mvm_ref, rbf_gram_ref
+
+__all__ = ["lk_mvm_op", "rbf_gram_op"]
+
+
+def lk_mvm_op(K1, K2, mask, u, noise=0.0, *, force_kernel: bool = False,
+              block_n: int | None = None, block_m: int | None = None,
+              fused: bool = True, precision: str = "f32", device=None):
+    """A(u) = mask * (K1 @ (mask*u) @ K2) + noise * (mask*u).
+
+    ``device=None`` means the GPU; the tensors must live on the device named.
+    """
+    dev = resolve_device(device)
+    check_on_device(dev, K1=K1, K2=K2, mask=mask, u=u)
+    if dev.type == "cuda" or force_kernel:
+        return lk_mvm_cuda(K1, K2, mask, u, noise, block_n=block_n,
+                           block_m=block_m, fused=fused, precision=precision)
+    return lk_mvm_ref(K1, K2, mask, u, noise)
+
+
+def rbf_gram_op(x1, x2, lengthscale, outputscale=1.0, *,
+                force_kernel: bool = False, device=None):
+    """RBF-ARD Gram matrix. The GPU kernel for it is not ported yet."""
+    dev = resolve_device(device)
+    check_on_device(dev, x1=x1, x2=x2, lengthscale=lengthscale)
+    if dev.type == "cuda" or force_kernel:
+        raise NotImplementedError(
+            "the RBF Gram kernel is not ported yet: ROADMAP queue 2 item K4 "
+            "(gram_matrices / joint_grams call gp_kernels.rbf_ard directly)")
+    return rbf_gram_ref(x1, x2, lengthscale, outputscale)

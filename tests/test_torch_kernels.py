@@ -1,0 +1,286 @@
+"""PyTorch port, kernel layer: the fused MVM's plain version against the
+reference's Pallas kernel (interpret mode on CPU), the tensor oracles against
+the reference's, and the dispatch rules of ``lk_mvm_op``.
+
+Inputs are made with numpy from a seed and handed to both frameworks.
+"""
+import jax
+
+jax.config.update("jax_enable_x64", True)
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import gp_kernels as ref_gk
+from repro.core import mvm as ref_mvm
+from repro.kernels import lk_mvm_fused as ref_lk_mvm_fused
+from repro.kernels import lk_mvm_ref as ref_lk_mvm_ref
+from repro_torch.core import gp_kernels as gk
+from repro_torch.core import mvm
+from repro_torch.kernels import (lk_mvm_cuda, lk_mvm_fused,
+                                 lk_mvm_fused_plain, lk_mvm_op, lk_mvm_ref,
+                                 rbf_gram_op, rbf_gram_ref)
+from repro_torch.kernels import _build
+
+# (B, n, m): n < 8, non-multiples of 8, B > 1, m spanning several blocks.
+AWKWARD_SHAPES = [(1, 5, 3), (1, 7, 19), (3, 32, 16), (2, 30, 21),
+                  (4, 16, 24), (2, 13, 32)]
+
+
+def _problem(B, n, m, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n))
+    K1 = A @ A.T / n + 0.5 * np.eye(n)
+    Bm = rng.standard_normal((m, m))
+    K2 = Bm @ Bm.T / m + 0.5 * np.eye(m)
+    lens = rng.integers(1, m + 1, n)
+    mask = (np.arange(m)[None, :] < lens[:, None]).astype(np.float64)
+    u = rng.standard_normal((B, n, m)) * mask
+    return tuple(x.astype(dtype) for x in (K1, K2, mask, u))
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+
+
+# --------------------------------------------------------------------------
+# lk_mvm_fused_plain  vs  the reference's Pallas kernel
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", AWKWARD_SHAPES)
+@pytest.mark.parametrize("precision,rel_tol", [("f32", 1e-5), ("bf16", 2e-2)])
+def test_fused_plain_matches_reference_kernel(shape, precision, rel_tol):
+    """f32: only the order of summation differs (<= 1e-5 * scale). bf16: the
+    reference rounds f32 -> bf16 at the same points, but sums in another
+    order before rounding T, so single bf16 ulps flip (<= 2e-2 * scale)."""
+    K1, K2, mask, u = _problem(*shape)
+    ref = np.asarray(ref_lk_mvm_fused(
+        jnp.asarray(K1), jnp.asarray(K2), jnp.asarray(mask), jnp.asarray(u),
+        0.37, block_n=16, block_m=16, precision=precision, interpret=True))
+    out = lk_mvm_fused_plain(*_t(K1, K2, mask, u), 0.37, precision=precision)
+    assert out.dtype == torch.float32 and out.shape == u.shape
+    scale = np.abs(ref).max()
+    assert np.abs(out.numpy() - ref).max() <= rel_tol * scale
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 19), (3, 12, 10)])
+def test_fused_float64_u_matches_reference_kernel(shape):
+    """A float64 u is computed in float32 and returned as float64, as the
+    reference kernel does; <= 1e-5 * scale (summation order)."""
+    K1, K2, mask, u = _problem(*shape)
+    u64 = u.astype(np.float64)
+    ref = ref_lk_mvm_fused(jnp.asarray(K1), jnp.asarray(K2), jnp.asarray(mask),
+                           jnp.asarray(u64), 0.1, block_n=16, block_m=16,
+                           interpret=True)
+    assert ref.dtype == jnp.float64
+    out = lk_mvm_fused(*_t(K1, K2, mask, u64), 0.1)   # CPU tensor -> plain
+    assert out.dtype == torch.float64
+    ref = np.asarray(ref)
+    assert np.abs(out.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_fused_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
+    K1, K2, mask, u = _t(*_problem(3, 9, 11))
+    before = lk_mvm_fused.launches
+    for precision in ("f32", "bf16"):
+        a = lk_mvm_fused(K1, K2, mask, u, 0.2, precision=precision)
+        b = lk_mvm_fused_plain(K1, K2, mask, u, 0.2, precision=precision)
+        assert torch.equal(a, b)
+    # the counter moves only where the CUDA kernel is launched
+    assert lk_mvm_fused.launches == before
+
+
+def test_fused_leading_batch_dims_and_tensor_noise():
+    K1, K2, mask, u = _t(*_problem(6, 16, 12))
+    u4 = u.reshape(2, 3, 16, 12)
+    out = lk_mvm_fused(K1, K2, mask, u4, torch.tensor(0.1, dtype=torch.float64))
+    assert out.shape == (2, 3, 16, 12)
+    ref = lk_mvm_ref(K1.double(), K2.double(), mask.double(), u4.double(), 0.1)
+    torch.testing.assert_close(out.double(), ref, rtol=2e-5, atol=2e-5)
+
+
+def test_bf16_mode_actually_rounds():
+    K1, K2, mask, u = _t(*_problem(2, 24, 20))
+    f32 = lk_mvm_fused_plain(K1, K2, mask, u, 0.1)
+    bf16 = lk_mvm_fused_plain(K1, K2, mask, u, 0.1, precision="bf16")
+    gap = (f32 - bf16).abs().max() / f32.abs().max()
+    assert 1e-5 < gap < 2e-2
+
+
+@pytest.mark.parametrize("case", ["f64_factor", "bool_mask", "bad_K1", "bad_u",
+                                  "strided_u", "strided_K2", "int_u",
+                                  "precision", "requires_grad", "empty"])
+def test_fused_wrapper_rejects_what_the_kernel_does_not_take(case):
+    K1, K2, mask, u = _t(*_problem(2, 6, 5))
+    kw = {}
+    err = ValueError
+    if case == "f64_factor":
+        K1, err = K1.double(), TypeError
+    elif case == "bool_mask":
+        mask, err = mask.bool(), TypeError
+    elif case == "bad_K1":
+        K1 = K1[:5, :5]
+    elif case == "bad_u":
+        u = u[:, :, :4]
+    elif case == "strided_u":
+        u = torch.cat([u, u], dim=-1)[..., ::2]
+    elif case == "strided_K2":
+        K2 = torch.stack([K2, K2], -1)[..., 0]
+    elif case == "int_u":
+        u, err = u.to(torch.int32), TypeError
+    elif case == "precision":
+        kw["precision"] = "fp8"
+    elif case == "requires_grad":
+        K1, err = K1.clone().requires_grad_(), NotImplementedError
+    elif case == "empty":
+        u = u[:0]
+    with pytest.raises(err):
+        lk_mvm_fused(K1, K2, mask, u, 0.1, **kw)
+
+
+# --------------------------------------------------------------------------
+# tensor oracles vs the reference at float64
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", AWKWARD_SHAPES)
+def test_lk_mvm_matches_reference_f64(shape):
+    K1, K2, mask, u = _problem(*shape, dtype=np.float64)
+    ref = np.asarray(ref_mvm.lk_mvm(*map(jnp.asarray, (K1, K2, mask, u)), 0.37))
+    for fn in (mvm.lk_mvm, lk_mvm_ref):
+        out = fn(*_t(K1, K2, mask, u), 0.37)
+        assert out.dtype == torch.float64
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12, atol=1e-12)
+    ref2 = np.asarray(ref_lk_mvm_ref(*map(jnp.asarray, (K1, K2, mask, u)), 0.37))
+    np.testing.assert_allclose(ref, ref2, rtol=0, atol=0)
+    op = mvm.lk_operator(*_t(K1, K2, mask), 0.37)
+    np.testing.assert_allclose(op(_t(u)[0]).numpy(), ref, rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("n,p,d", [(5, 5, 3), (13, 7, 4), (30, 30, 7)])
+def test_rbf_ard_and_distances_match_reference_f64(n, p, d):
+    rng = np.random.default_rng(n + p)
+    x1, x2 = rng.uniform(size=(n, d)), rng.uniform(size=(p, d))
+    ls = np.exp(rng.standard_normal(d) * 0.3)
+    ref = np.asarray(ref_gk.rbf_ard(jnp.asarray(x1), jnp.asarray(x2),
+                                    jnp.asarray(ls), 1.7))
+    tx1, tx2, tls = _t(x1, x2, ls)
+    for fn in (gk.rbf_ard, rbf_gram_ref):
+        np.testing.assert_allclose(fn(tx1, tx2, tls, 1.7).numpy(), ref,
+                                   rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        gk.sq_dist(tx1, tx2).numpy(),
+        np.asarray(ref_gk.sq_dist(jnp.asarray(x1), jnp.asarray(x2))),
+        rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        rbf_gram_op(tx1, tx2, tls, 1.7, device="cpu").numpy(), ref,
+        rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["matern12", "matern32", "matern52"])
+def test_matern_kernels_match_reference_f64(name):
+    rng = np.random.default_rng(3)
+    t1, t2 = np.sort(rng.uniform(size=11)), np.sort(rng.uniform(size=7))
+    ref = np.asarray(ref_gk.KERNELS_1D[name](jnp.asarray(t1), jnp.asarray(t2),
+                                             0.3, 1.4))
+    out = gk.KERNELS_1D[name](*_t(t1, t2),
+                              torch.tensor(0.3, dtype=torch.float64), 1.4)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        gk.abs_dist(*_t(t1, t2)).numpy(),
+        np.asarray(ref_gk.abs_dist(jnp.asarray(t1), jnp.asarray(t2))))
+
+
+def test_kron_and_packing_match_reference_f64():
+    K1, K2, mask, u = _problem(2, 6, 5, dtype=np.float64)
+    jK1, jK2, ju = map(jnp.asarray, (K1, K2, u))
+    tK1, tK2, tmask, tu = _t(K1, K2, mask, u)
+    np.testing.assert_allclose(mvm.kron_dense(tK1, tK2).numpy(),
+                               np.asarray(ref_mvm.kron_dense(jK1, jK2)),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        mvm.joint_cov_packed(tK1, tK2, tmask).numpy(),
+        np.asarray(ref_mvm.joint_cov_packed(jK1, jK2, mask)),
+        rtol=1e-12, atol=1e-12)
+    packed = mvm.grid_to_packed(tu, tmask)
+    np.testing.assert_array_equal(
+        packed.numpy(), np.asarray(ref_mvm.grid_to_packed(ju, mask)))
+    np.testing.assert_array_equal(
+        mvm.packed_to_grid(packed, tmask).numpy(),
+        np.asarray(ref_mvm.packed_to_grid(jnp.asarray(packed.numpy()), mask)))
+    # the packed operator is the dense matrix the grid MVM applies
+    Kp = mvm.joint_cov_packed(tK1, tK2, tmask)
+    got = mvm.grid_to_packed(mvm.lk_mvm(tK1, tK2, tmask, tu, 0.0), tmask)
+    torch.testing.assert_close(got, packed @ Kp.T, rtol=1e-12, atol=1e-12)
+
+
+# --------------------------------------------------------------------------
+# dispatch: by device, and raising instead of falling back
+# --------------------------------------------------------------------------
+def test_lk_mvm_op_cpu_routes():
+    K1, K2, mask, u = _t(*_problem(2, 9, 7, dtype=np.float64))
+    # CPU tensors, no force: the float64 oracle
+    out = lk_mvm_op(K1, K2, mask, u, 0.1, device="cpu")
+    assert out.dtype == torch.float64
+    assert torch.equal(out, lk_mvm_ref(K1, K2, mask, u, 0.1))
+    # force_kernel: the kernel wrapper, i.e. float32 factors are demanded ...
+    with pytest.raises(TypeError):
+        lk_mvm_op(K1, K2, mask, u, 0.1, force_kernel=True, device="cpu")
+    # ... and a float64 u comes back float64 after a float32 computation
+    f = lambda x: x.float()
+    forced = lk_mvm_op(f(K1), f(K2), f(mask), u, 0.1, force_kernel=True,
+                       device="cpu")
+    assert forced.dtype == torch.float64
+    assert torch.equal(forced,
+                       lk_mvm_fused_plain(f(K1), f(K2), f(mask), u, 0.1))
+    assert 0 < (forced - out).abs().max() < 1e-4
+
+
+@pytest.mark.parametrize("entry", ["op", "dispatcher"])
+def test_two_stage_slot_raises_not_falls_back(entry):
+    K1, K2, mask, u = _t(*_problem(1, 6, 5))
+    with pytest.raises(NotImplementedError, match="K2"):
+        if entry == "op":
+            lk_mvm_op(K1, K2, mask, u, 0.1, force_kernel=True, fused=False,
+                      device="cpu")
+        else:
+            lk_mvm_cuda(K1, K2, mask, u, 0.1, fused=False)
+
+
+def test_rbf_gram_kernel_slot_raises_not_falls_back():
+    x = torch.rand(5, 3, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="K4"):
+        rbf_gram_op(x, x, torch.ones(3, dtype=torch.float64),
+                    force_kernel=True, device="cpu")
+
+
+def test_ops_default_device_is_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only raise")
+    K1, K2, mask, u = _t(*_problem(1, 6, 5))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lk_mvm_op(K1, K2, mask, u, 0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rbf_gram_op(u[0], u[0], torch.ones(5))
+
+
+def test_ops_reject_tensors_on_another_device():
+    K1, K2, mask, u = _t(*_problem(1, 6, 5))
+    with pytest.raises(ValueError, match="lives on"):
+        lk_mvm_op(K1, K2, mask, u.to("meta"), 0.1, device="cpu")
+
+
+def test_build_failure_is_raised_not_swallowed(tmp_path, monkeypatch):
+    """Without a CUDA compiler the kernel build raises; nothing is built at import."""
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    try:
+        _build._nvcc()
+    except RuntimeError:
+        pass
+    else:
+        pytest.skip("a CUDA toolkit is installed; this checks the raise without")
+    monkeypatch.setattr(_build, "_build_dir", lambda: tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load_library("lk_mvm_fused")
+    assert not list(tmp_path.iterdir())
