@@ -3,19 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from the sources in this checkout, holds
-it against its plain PyTorch version on the card, then drives the port's
-serving path (fitted state -> ``posterior(state)`` -> ``final`` / ``mean`` /
-``samples``) at full width through the ``cuda`` inference engine and checks
-that every CG iteration was one launch of the kernel. Any failed check raises;
-nothing is caught, so the exit code is non-zero. Without a CUDA device the
-script exits non-zero before printing any result.
+Builds the hand-written CUDA kernels from the sources in this checkout (one
+nvcc per source, started together), holds each against its plain PyTorch
+version on the card, then drives the port's two paths at full width and
+checks that they ran through the kernels:
+
+* serving (fitted state -> ``posterior(state)`` -> ``final`` / ``mean`` /
+  ``samples``) through the ``cuda`` engine: every CG iteration one launch of
+  the fused kernel (K1);
+* fitting (``fit`` -> MLL value and gradient -> L-BFGS) at the paper's
+  LCBench shape, through K1 (the ``cuda`` engine) and through the two-stage
+  kernels K2a + K2b (``make_mll_iterative(cfg, KernelMVM(fused=False))``):
+  every objective evaluation costs the stacked solve's CG iterations plus 2
+  launches of each.
+
+Any failed check raises; nothing is caught, so the exit code is non-zero.
+Without a CUDA device the script exits non-zero before printing any result.
 
 Phases, one JSON line each: device, build, kernels, serve (n=8192, m=64),
 serve_lcbench (n=2000, m=52, also against the ``iterative`` engine), exact
-(n=24, m=16 against the ``dense`` engine). Then a summary line
-``{"kernels": [...]}``, the card's name and power limit as ``nvidia-smi``
-gives them, and last ``{"ok": true, "device": {...}}``.
+(n=24, m=16 against the ``dense`` engine), fit (n=2000, m=52, d=7). Then a
+summary line ``{"kernels": [...]}``, the card's name and power limit as
+``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -37,16 +47,24 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import state_from_reference  # noqa: E402
-from repro_torch.core import get_engine, init_params, posterior  # noqa: E402
+from repro_torch.core import (LKGPConfig, fit, get_engine,  # noqa: E402
+                              init_params, log_prior, make_mll,
+                              make_mll_iterative, posterior,
+                              rademacher_probes)
 from repro_torch.core.engines import (IterativeEngine,  # noqa: E402
+                                      KernelEngine, KernelMVM,
                                       LatentKroneckerOperator)
 from repro_torch.core.posterior import joint_grams  # noqa: E402
+from repro_torch.core.state import (_fit_transforms,  # noqa: E402
+                                    _flatten_params, _unflatten_params)
 from repro_torch.core.transforms import (TTransform, XTransform,  # noqa: E402
                                          YTransform)
 from repro_torch.data import sample_task  # noqa: E402
 from repro_torch.kernels._build import build_log, load_library  # noqa: E402
-from repro_torch.kernels.lk_mvm import (lk_mvm_fused,  # noqa: E402
-                                        lk_mvm_fused_plain)
+from repro_torch.kernels.lk_mvm import (  # noqa: E402
+    lk_mvm_fused, lk_mvm_fused_plain, lk_mvm_stage_left,
+    lk_mvm_stage_left_plain, lk_mvm_stage_right, lk_mvm_stage_right_plain,
+    lk_mvm_two_stage, lk_mvm_two_stage_plain)
 from repro_torch.kernels.ref import lk_mvm_ref  # noqa: E402
 
 SEED = 0
@@ -62,12 +80,17 @@ PEAK_BYTES_PER_S = 3.35e12
 # lands on the other side of a bf16 rounding boundary now and then).
 KERNEL_TOL = {"f32": 1e-4, "bf16": 2e-2}     # times max|plain|
 # Ragged small shapes, then the shapes the serving path hands the kernel:
-# B = 65 (y and 64 Matheron residuals), 16 (samples on demand), 1 (mean only).
+# B = 65 (y and 64 Matheron residuals), 16 (samples on demand), 1 (mean
+# only); and the fit path at n = 2000: B = 17 (y and 16 probes, the stacked
+# solve), 16 (A(probes) in the gradient), 1 (A(alpha)).
 KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
-                 (1, 2000, 52), (65, 2000, 52),
+                 (1, 2000, 52), (16, 2000, 52), (17, 2000, 52),
+                 (65, 2000, 52),
                  (1, 8192, 64), (16, 8192, 64), (65, 8192, 64)]
 TIMED_SHAPES = KERNEL_SHAPES[3:]
 MAIN_SHAPE = (65, 8192, 64)
+FIT_MAIN_SHAPE = (17, 2000, 52)
+KERNEL_SOURCES = ("lk_mvm_fused", "lk_mvm_two_stage")
 # Output tile of one thread block (TI, TJ of lk_mvm_fused.cu), for the count
 # of blocks a shape gives the card's 132 SMs.
 KERNEL_TILE = (128, 64)
@@ -77,6 +100,21 @@ KERNEL_TILE = (128, 64)
 # two such solves, which is a few times cg_tol * max|mean|: the phase prints
 # the gap it observed, and shows that it shrinks with cg_tol.
 MEAN_TOL_VS_ITERATIVE = 5.0
+
+
+# The fit phase: the paper's LCBench shape, float64 state, the paper's CG
+# tolerance and SLQ settings, prior-mean init, 10 L-BFGS iterations.
+FIT_SHAPE = dict(n=2000, m=52, d=7)
+FIT_CONFIG = dict(cg_tol=0.01, slq_probes=16, slq_iters=25, seed=SEED)
+FIT_LBFGS_ITERS = 10
+# MLL value and gradient through a float32 kernel against the float64
+# iterative engine, same probes. Each CG solve (y and 16 probes) stops with
+# its true residual within cg_tol, at a different point for each MVM, so the
+# two objectives differ by stopping error, a fraction of cg_tol of each term
+# (rehearse_chip_smoke.py shows it on the CPU). Held to 5 cg_tol * |mll| and
+# 10 cg_tol * max|grad|; fixed before the first run on the card (PERF.md).
+MLL_VALUE_TOL = 5.0     # times cg_tol, relative to |mll|
+MLL_GRAD_TOL = 10.0     # times cg_tol, relative to max|grad|
 
 
 def emit(obj) -> None:
@@ -121,6 +159,34 @@ def bound_ms(B: int, n: int, m: int, precision: str) -> tuple[float, str]:
     t_ops = flops / PEAK_FLOPS[precision] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_two_stage_ms(stage: str, B: int, n: int, m: int) -> tuple[float, str]:
+    """bound_ms of one stage alone; T counts as that stage's output (R) or
+    input (L), each read or written once."""
+    if stage == "R":    # u, mask, K2 in; T out
+        flops = 2.0 * B * n * m * m
+        nbytes = 4.0 * (2 * B * n * m + n * m + m * m)
+    else:               # K1, T, mask, u, noise in; out
+        flops = 2.0 * B * n * n * m
+        nbytes = 4.0 * (n * n + 3 * B * n * m + n * m + 1)
+    t_ops = flops / PEAK_FLOPS["f32"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def launch_counts(since: dict | None = None) -> dict:
+    """Each kernel wrapper's launch count (minus ``since``)."""
+    now = {"lk_mvm_fused": lk_mvm_fused.launches,
+           "lk_mvm_stage_right": lk_mvm_stage_right.launches,
+           "lk_mvm_stage_left": lk_mvm_stage_left.launches}
+    return {k: v - (since or {}).get(k, 0) for k, v in now.items()}
+
+
+def reset_launch_counts() -> None:
+    lk_mvm_fused.launches = 0
+    lk_mvm_stage_right.launches = 0
+    lk_mvm_stage_left.launches = 0
 
 
 def mvm_problem(B: int, n: int, m: int, gen: torch.Generator):
@@ -190,6 +256,7 @@ def phase_kernels() -> list[dict]:
             rows.append(row)
             check(err <= tol, f"lk_mvm_fused {precision} at {(B, n, m)}: "
                               f"max err {err:.3e} > tol {tol:.3e}")
+        rows.extend(two_stage_rows(K1, K2, mask, u, noise))
         # float64 u: computed in float32, returned as float64.
         u64 = u.double()
         out64 = lk_mvm_fused(K1, K2, mask, u64, noise)
@@ -205,6 +272,52 @@ def phase_kernels() -> list[dict]:
                               f"max err {err64:.3e} > tol {tol64:.3e}")
         del K1, K2, mask, u, u64, out, ref, out64, ref64
         torch.cuda.empty_cache()
+    return rows
+
+
+def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
+    """K2a, K2b and the pair against their plain versions (K2b on the plain
+    T, so each kernel is held alone), timed at the main paths' shapes."""
+    B, n, m = u.shape
+    T = lk_mvm_stage_right_plain(u, mask, K2)
+    cases = [
+        ("lk_mvm_stage_right", "src/repro/kernels/lk_mvm.py:170",
+         lambda: lk_mvm_stage_right(u, mask, K2),
+         lambda: lk_mvm_stage_right_plain(u, mask, K2),
+         lambda: torch.matmul(mask * u, K2),
+         bound_two_stage_ms("R", B, n, m)),
+        ("lk_mvm_stage_left", "src/repro/kernels/lk_mvm.py:185",
+         lambda: lk_mvm_stage_left(K1, T, mask, u, noise),
+         lambda: lk_mvm_stage_left_plain(K1, T, mask, u, noise),
+         lambda: mask * torch.matmul(K1, T) + noise * mask * u,
+         bound_two_stage_ms("L", B, n, m)),
+        ("lk_mvm_two_stage", "src/repro/kernels/lk_mvm.py:170,185",
+         lambda: lk_mvm_two_stage(K1, K2, mask, u, noise),
+         lambda: lk_mvm_two_stage_plain(K1, K2, mask, u, noise),
+         lambda: library_mvm(K1, K2, mask, u, noise),
+         bound_ms(B, n, m, "f32")),
+    ]
+    rows = []
+    for name, tpu, kernel, plain, library, (bound, bound_by) in cases:
+        ref = plain()
+        out = kernel()
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and out.dtype == torch.float32,
+              f"{name} output {out.shape}/{out.dtype} at {(B, n, m)}")
+        check(bool(torch.isfinite(out).all()), f"{name} output not finite")
+        scale = float(ref.abs().max())
+        err = float((out - ref).abs().max())
+        tol = KERNEL_TOL["f32"] * scale
+        row = {"name": name, "tpu": tpu, "precision": "f32",
+               "shape": [B, n, m], "max_err": err, "tol": tol,
+               "ref_scale": scale}
+        if (B, n, m) in TIMED_SHAPES:
+            row.update(ms=time_ms(kernel), plain_ms=time_ms(plain),
+                       library_ms=time_ms(library), bound_ms=bound,
+                       bound_by=bound_by)
+        rows.append(row)
+        check(err <= tol, f"{name} at {(B, n, m)}: max err {err:.3e} > "
+                          f"tol {tol:.3e}")
     return rows
 
 
@@ -236,8 +349,7 @@ class PlainFloat32Engine(IterativeEngine):
 
     def operator_from_grams(self, K1, K2, mask, noise):
         A = get_engine("cuda").operator_from_grams(K1, K2, mask, noise)
-        return LatentKroneckerOperator(A.K1, A.K2, A.mask, A.noise,
-                                       mvm=lk_mvm_fused_plain,
+        return LatentKroneckerOperator(*A.fast, mvm=lk_mvm_fused_plain,
                                        accurate=A.accurate)
 
 
@@ -420,6 +532,218 @@ def phase_exact() -> dict:
             "rel_gap_vs_dense": rel, "tol": 1e-2, "launches": req.launches}
 
 
+def solve_summary(res) -> dict:
+    return {"iters": int(res.iters), "replacements": res.replacements,
+            "worst_rel_residual": float(res.rel_residual.max())}
+
+
+class SolveLog:
+    """Mixin for an engine: keeps a summary of every stacked solve (the
+    objective's forward; the gradient solves nothing), not the operators,
+    whose autograd graphs would pile up over a fit."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.solves = []
+
+    def solve_stacked(self, *args, **kwargs):
+        st = super().solve_stacked(*args, **kwargs)
+        self.solves.append(solve_summary(st.result))
+        return st
+
+
+class LoggedIterativeEngine(SolveLog, IterativeEngine):
+    pass
+
+
+class LoggedKernelEngine(SolveLog, KernelEngine):
+    pass
+
+
+class LoggedKernelMVM(KernelMVM):
+    """KernelMVM for make_mll_iterative, keeping a summary of the stacked
+    solve of each operator it built (read off ``last_result``)."""
+
+    def __init__(self, fused: bool):
+        super().__init__(fused=fused)
+        self.built = []
+
+    def operator(self, *args):
+        self.built.append(super().operator(*args))
+        return self.built[-1]
+
+    @property
+    def solves(self) -> list:
+        return [solve_summary(A.last_result) for A in self.built
+                if hasattr(A, "last_result")]
+
+
+def phase_fit(n: int, m: int, d: int) -> dict:
+    """The fit path at full width. (1) MLL value and gradient at the init on
+    one set of probes through three MVMs; (2) fit with 10 L-BFGS iterations
+    on the float64 iterative engine and on the cuda engine (K1), with the
+    probes fit() draws itself, which are the same: the same seeded
+    generator on the same device."""
+    task = sample_task(SEED, n=n, m=m, d=d)
+    cfg = LKGPConfig(backend="iterative", lbfgs_iters=FIT_LBFGS_ITERS,
+                     **FIT_CONFIG)
+    cg_tol = cfg.cg_tol
+    torch.cuda.reset_peak_memory_stats()
+    # The transformed data and the probe draw of fit().
+    X, t, Y, mask = (torch.as_tensor(a, device=DEV)
+                     for a in (task.X, task.t, task.Y, task.mask))
+    Y = torch.where(mask > 0, Y, torch.zeros_like(Y))
+    x_tf, t_tf, y_tf = _fit_transforms(X, t, Y, mask)
+    data = (x_tf(X), t_tf(t), y_tf(Y), mask)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(cfg.seed)
+    probes = rademacher_probes(gen, cfg.slq_probes, mask, torch.float64)
+    N = float(mask.sum())
+    flat0 = _flatten_params(init_params(d, device=DEV))
+    out = {"phase": "fit", **FIT_SHAPE, "n_obs": int(N), "dtype": "float64",
+           "config": dataclasses.asdict(cfg), "mll": {}, "fit": {}}
+
+    def value_and_grad(mll, flat):
+        x = flat.clone().requires_grad_()
+        v = mll(_unflatten_params(x, d), *data, probes)
+        (g,) = torch.autograd.grad(v, x)
+        return float(v.detach()), g
+
+    # (1) the MLL at the init
+    engines = {"iterative": LoggedIterativeEngine(),
+               "cuda": LoggedKernelEngine()}
+    two_stage = LoggedKernelMVM(fused=False)
+    routes = {"iterative": (make_mll(cfg, engines["iterative"]),
+                            engines["iterative"]),
+              "cuda": (make_mll(cfg, engines["cuda"]), engines["cuda"]),
+              "two_stage": (make_mll_iterative(cfg, mvm_impl=two_stage),
+                            two_stage)}
+    values = {}
+    for route, (mll, log) in routes.items():
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        v, g = value_and_grad(mll, flat0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts(since=before)
+        (solve,) = log.solves
+        iters = solve["iters"]
+        want = {"iterative": {},
+                "cuda": {"lk_mvm_fused": iters + 2},
+                "two_stage": {"lk_mvm_stage_right": iters + 2,
+                              "lk_mvm_stage_left": iters + 2}}[route]
+        for name, count in launches.items():
+            check(count == want.get(name, 0),
+                  f"mll via {route}: {count} launches of {name}, expected "
+                  f"{want.get(name, 0)} ({iters} CG iterations + 2)")
+        values[route] = (v, g)
+        out["mll"][route] = {
+            "value": v, "grad": g.tolist(), "seconds": seconds,
+            "cg_iters": iters, "replacements": solve["replacements"],
+            "worst_rel_residual": solve["worst_rel_residual"],
+            "launches": launches}
+        check(np.isfinite(v) and bool(torch.isfinite(g).all()),
+              f"mll via {route} not finite")
+    v64, g64 = values["iterative"]
+    for route in ("cuda", "two_stage"):
+        v, g = values[route]
+        row = out["mll"][route]
+        row["value_gap"] = abs(v - v64) / abs(v64)
+        row["grad_gap"] = float((g - g64).abs().max() / g64.abs().max())
+        row["value_tol"] = MLL_VALUE_TOL * cg_tol
+        row["grad_tol"] = MLL_GRAD_TOL * cg_tol
+        check(row["value_gap"] <= row["value_tol"],
+              f"mll via {route}: value {v} vs float64 {v64}")
+        check(row["grad_gap"] <= row["grad_tol"],
+              f"mll via {route}: gradient off by {row['grad_gap']:.3e} of "
+              f"max|grad|")
+
+    # (2) fit, 10 L-BFGS iterations, from the same init with the same probes
+    objective64 = make_mll(cfg, get_engine("iterative"))
+
+    def f64_objective(params) -> float:
+        with torch.no_grad():
+            mll = objective64(params, *data, probes)
+            return float(-(mll + log_prior(params, d)) / N)
+
+    f_init = f64_objective(_unflatten_params(flat0, d))
+    for backend in ("iterative", "cuda"):
+        engine = (LoggedIterativeEngine() if backend == "iterative"
+                  else LoggedKernelEngine())
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        state = fit(task.X, task.t, task.Y, task.mask,
+                    dataclasses.replace(cfg, backend=backend), engine=engine)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts(since=before)
+        res = state.fit_result
+        solves = engine.solves
+        iters = [sv["iters"] for sv in solves]
+        check(len(solves) == res.n_evals,
+              f"fit via {backend}: {len(solves)} solves, {res.n_evals} evals")
+        want = sum(i + 2 for i in iters) if backend == "cuda" else 0
+        check(launches["lk_mvm_fused"] == want,
+              f"fit via {backend}: {launches['lk_mvm_fused']} launches of "
+              f"lk_mvm_fused, expected {want}")
+        check(launches["lk_mvm_stage_right"] == 0
+              and launches["lk_mvm_stage_left"] == 0,
+              f"fit via {backend} launched the two-stage kernels")
+        flat = _flatten_params(state.params)
+        row = {"seconds": seconds, "n_iters": res.n_iters,
+               "n_evals": res.n_evals, "converged": res.converged,
+               "fun": res.fun, "f_init": f_init,
+               "raw_params": flat.tolist(),
+               "cg_iters_per_eval": statistics.mean(iters),
+               "cg_iters_total": sum(iters),
+               "worst_rel_residual": max(sv["worst_rel_residual"]
+                                         for sv in solves),
+               "launches": launches}
+        if backend == "cuda":
+            # the cuda fit's parameters on the float64 iterative objective
+            row["fun_float64_objective"] = f64_objective(state.params)
+        out["fit"][backend] = row
+        check(np.isfinite(res.fun) and bool(torch.isfinite(flat).all()),
+              f"fit via {backend}: not finite")
+        check(res.fun < f_init and row.get("fun_float64_objective",
+                                           res.fun) < f_init,
+              f"fit via {backend}: objective {res.fun} not below the "
+              f"init's {f_init}")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def build_all() -> dict:
+    """Compile every kernel source at once (one nvcc process each)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        for lib in pool.map(load_library, KERNEL_SOURCES):
+            check(lib is not None, "library did not load")
+    logs = {}
+    for name in KERNEL_SOURCES:
+        log = build_log(name)
+        logs[name] = {
+            "nvcc_seconds": log["seconds"], "cached": log["cached"],
+            "ptxas": [ln for ln in log["compiler_output"].splitlines()
+                      if "registers" in ln or "spill" in ln]}
+    return {"phase": "build", "seconds": time.perf_counter() - t0,
+            "tile": list(KERNEL_TILE), "libraries": logs}
+
+
+def summary_row(rows, name, source, replaces, shape, launches) -> dict:
+    row = next(r for r in rows if r["name"] == name
+               and r["shape"] == list(shape) and r["precision"] == "f32"
+               and "ms" in r)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "shape": list(shape), "precision": "f32",
+            "launches": launches, "max_abs_err": row["max_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain/library: full f32
     t_start = time.perf_counter()
@@ -428,27 +752,21 @@ def main() -> None:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
-    t0 = time.perf_counter()
-    load_library("lk_mvm_fused")        # compiles the source, loads it
-    log = build_log("lk_mvm_fused")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": log["seconds"], "cached": log["cached"],
-          "tile": list(KERNEL_TILE),
-          "ptxas": [ln for ln in log["compiler_output"].splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    emit(build_all())
 
     rows = phase_kernels()
     emit({"phase": "kernels", "kernels": rows})
 
-    # The main path: launches are counted from zero over this phase alone.
-    lk_mvm_fused.launches = 0
+    # Main path 1, serving: launches are counted from zero over this phase.
+    reset_launch_counts()
     serve, sweep_error = phase_serve("serve", n=8192, m=64, d=7, n_new=256,
                                      compare_iterative=False)
-    main_launches = lk_mvm_fused.launches
-    serve["launches"] = main_launches
+    serve_launches = launch_counts()
+    serve["launches"] = serve_launches["lk_mvm_fused"]
     serve["float32_sweep_error"] = sweep_error()
     emit(serve)
-    check(main_launches > 0, "the serving path never launched the kernel")
+    check(serve_launches["lk_mvm_fused"] > 0,
+          "the serving path never launched the kernel")
     del serve, sweep_error
     torch.cuda.empty_cache()
 
@@ -457,18 +775,30 @@ def main() -> None:
     lcbench["float32_sweep_error"] = sweep_error()
     emit(lcbench)
     emit(phase_exact())
+    torch.cuda.empty_cache()
 
-    main_row = next(r for r in rows if r["shape"] == list(MAIN_SHAPE)
-                    and r["precision"] == "f32" and "ms" in r)
-    emit({"kernels": [{
-        "name": "lk_mvm_fused", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lk_mvm_fused.cu",
-        "replaces": "src/repro/kernels/lk_mvm.py:253",
-        "shape": list(MAIN_SHAPE), "precision": "f32",
-        "launches": main_launches, "max_abs_err": main_row["max_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]})
+    # Main path 2, fitting: counted from zero over this phase (which also
+    # checks the count of each route it drives).
+    reset_launch_counts()
+    fit_out = phase_fit(**FIT_SHAPE)
+    fit_totals = launch_counts()
+    fit_out["launches"] = fit_totals
+    emit(fit_out)
+    for name, count in fit_totals.items():
+        check(count > 0, f"the fit path never launched {name}")
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    emit({"kernels": [
+        summary_row(rows, "lk_mvm_fused", csrc + "lk_mvm_fused.cu",
+                    "src/repro/kernels/lk_mvm.py:253", MAIN_SHAPE,
+                    serve_launches["lk_mvm_fused"]
+                    + fit_totals["lk_mvm_fused"]),
+        summary_row(rows, "lk_mvm_stage_right", csrc + "lk_mvm_two_stage.cu",
+                    "src/repro/kernels/lk_mvm.py:170", FIT_MAIN_SHAPE,
+                    fit_totals["lk_mvm_stage_right"]),
+        summary_row(rows, "lk_mvm_stage_left", csrc + "lk_mvm_two_stage.cu",
+                    "src/repro/kernels/lk_mvm.py:185", FIT_MAIN_SHAPE,
+                    fit_totals["lk_mvm_stage_left"])]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

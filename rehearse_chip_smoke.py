@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Rehearse phases of ``chip_smoke.py`` on the CPU, without a GPU.
+
+    python3 rehearse_chip_smoke.py fit --n 300
+    python3 rehearse_chip_smoke.py kernels
+
+``chip_smoke.py`` runs only on a CUDA device. This script drives the same
+phase functions on the CPU at a small size, so their control flow, their
+checks and the numbers that do not depend on the card (CG iterations, MLL
+gaps between the float64 and the float32 routes, L-BFGS evaluation counts)
+can be seen before a run on the card. The kernel wrappers run their plain
+versions on CPU tensors; here each plain version also counts as a launch of
+its wrapper, so the launch checks run too. Timings printed here are CPU
+times of the plain versions, never a device metric.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+CPU = torch.device("cpu")
+
+
+def _patch_cuda_for_cpu() -> None:
+    """Let chip_smoke import, and make its device calls no-ops on the CPU."""
+    torch.cuda.is_available = lambda: True
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        setattr(torch.cuda, name, lambda *a, **k: None)
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+
+
+def _patch_port_for_cpu() -> None:
+    """device=None means the CPU, and each plain version counts a launch."""
+    import repro_torch._device as device_mod
+    real = device_mod.resolve_device
+
+    def resolve(device=None):
+        return CPU if device is None else real(device)
+
+    for mod in ("repro_torch._device", "repro_torch.core.state",
+                "repro_torch.core.posterior", "repro_torch.kernels.ops",
+                "repro_torch.convert"):
+        importlib.import_module(mod)
+        sys.modules[mod].resolve_device = resolve
+    lk = importlib.import_module("repro_torch.kernels.lk_mvm")
+    for plain, wrapper in (("lk_mvm_fused_plain", "lk_mvm_fused"),
+                           ("lk_mvm_stage_right_plain", "lk_mvm_stage_right"),
+                           ("lk_mvm_stage_left_plain", "lk_mvm_stage_left")):
+        fn, counted = getattr(lk, plain), getattr(lk, wrapper)
+
+        def counting(*a, _fn=fn, _counted=counted, **k):
+            _counted.launches += 1
+            return _fn(*a, **k)
+        setattr(lk, plain, counting)
+
+
+def _cpu_time_ms(fn, **_):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("phase", choices=("fit", "kernels"))
+    ap.add_argument("--n", type=int, default=300,
+                    help="configurations of the fit phase (m=52, d=7)")
+    args = ap.parse_args()
+    _patch_cuda_for_cpu()
+    _patch_port_for_cpu()
+    import chip_smoke as cs
+    cs.DEV = CPU
+    cs.time_ms = _cpu_time_ms
+    if args.phase == "fit":
+        cs.reset_launch_counts()
+        out = cs.phase_fit(n=args.n, m=52, d=7)
+        out["launches"] = cs.launch_counts()
+        out.pop("config")
+        for part in ("mll", "fit"):
+            for row in out[part].values():
+                row.pop("grad", None)
+                row.pop("raw_params", None)
+        print(json.dumps(out))
+    else:
+        cs.KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
+                            (17, 40, 52)]
+        cs.TIMED_SHAPES = [(17, 40, 52)]
+        rows = cs.phase_kernels()
+        print(json.dumps({"phase": "kernels", "rows": len(rows),
+                          "worst_err_over_tol": max(
+                              r["max_err"] / r["tol"] for r in rows
+                              if r["tol"] > 0)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -6,25 +6,31 @@ this one; every module here has the same name as its counterpart there
 hold the two side by side. This package imports ``torch`` and ``numpy`` only:
 never ``jax``, and nothing from ``repro``.
 
-What is ported so far is the path that *serves* a fitted model:
+What is ported so far is the path that fits a model and serves it:
 
-    state_from_reference(...)  ->  posterior(state)  ->  .mean / .samples / .final
+    fit(X, t, Y, mask, config)  ->  posterior(state)  ->  .mean / .samples / .final
 
-through the ``dense``, ``iterative`` and ``cuda`` inference engines. On the
-``cuda`` engine every CG iteration is one launch of the hand-written fused
-latent-Kronecker MVM kernel (``kernels/csrc/lk_mvm_fused.cu``).
+(or ``state_from_reference(...)`` in place of ``fit``) through the
+``dense``, ``iterative`` and ``cuda`` inference engines. On the ``cuda``
+engine every CG iteration of the fit's marginal likelihood and of the
+posterior solves is one launch of the hand-written fused latent-Kronecker
+MVM kernel (``kernels/csrc/lk_mvm_fused.cu``); the two-stage kernels
+(``kernels/csrc/lk_mvm_two_stage.cu``) are threaded into the objective with
+``make_mll_iterative(config, KernelMVM(fused=False))``.
 
 Device rule: every entry point takes ``device=None`` and ``None`` means the
 GPU. With no CUDA device present it raises; nothing silently carries on on
 the CPU. Tests pass ``device="cpu"`` explicitly.
 """
 from ._device import resolve_device
-from .convert import params_from_numpy, state_from_reference
-from .core import (LKGPConfig, LKGPParams, LKGPState, Posterior, get_engine,
-                   init_params, posterior)
+from .convert import (params_from_numpy, params_to_numpy, probes_from_numpy,
+                      state_from_reference)
+from .core import (LKGPConfig, LKGPParams, LKGPState, Posterior, fit,
+                   get_engine, init_params, posterior)
 
 __all__ = [
-    "resolve_device", "params_from_numpy", "state_from_reference",
-    "LKGPConfig", "LKGPParams", "LKGPState", "Posterior", "get_engine",
+    "resolve_device", "params_from_numpy", "params_to_numpy",
+    "probes_from_numpy", "state_from_reference",
+    "LKGPConfig", "LKGPParams", "LKGPState", "Posterior", "fit", "get_engine",
     "init_params", "posterior",
 ]

@@ -1,9 +1,10 @@
-"""Carrying parameters and fitted state across from the reference.
+"""Carrying parameters, probes and fitted state between the reference and
+the port, as plain numpy arrays.
 
-Both functions take plain numpy arrays, so this module needs nothing of the
-reference implementation: the caller turns a reference state into numpy
-(``np.asarray`` on each field) and its config into a dict
-(``dataclasses.asdict``).
+This module needs nothing of the reference implementation: the caller turns
+a reference state into numpy (``np.asarray`` on each field) and its config
+into a dict (``dataclasses.asdict``), and reads the port's parameters back
+with :func:`params_to_numpy`.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from ._device import resolve_device
 from .core.state import LKGPConfig, LKGPParams, LKGPState
 from .core.transforms import TTransform, XTransform, YTransform
 
-__all__ = ["params_from_numpy", "state_from_reference"]
+__all__ = ["params_from_numpy", "params_to_numpy", "probes_from_numpy",
+           "state_from_reference"]
 
 _PARAM_FIELDS = LKGPParams._fields
 
@@ -37,6 +39,22 @@ def params_from_numpy(arrays: Mapping[str, Any], *,
     for f in _PARAM_FIELDS[1:]:
         fields[f] = fields[f].reshape(())
     return LKGPParams(**fields)
+
+
+def params_to_numpy(params: LKGPParams) -> dict[str, np.ndarray]:
+    """The four raw fields of ``params`` as numpy arrays, under the
+    reference's field names (the inverse of :func:`params_from_numpy`)."""
+    return {f: getattr(params, f).detach().cpu().numpy() for f in _PARAM_FIELDS}
+
+
+def probes_from_numpy(probes, mask: torch.Tensor) -> torch.Tensor:
+    """A numpy (p, n, m) probe stack (e.g. the reference's Rademacher draws)
+    as a tensor in ``mask``'s dtype and on its device."""
+    z = torch.tensor(np.asarray(probes), dtype=mask.dtype, device=mask.device)
+    if z.ndim != 3 or z.shape[1:] != mask.shape:
+        raise ValueError(f"probes must be (p, {mask.shape[0]}, "
+                         f"{mask.shape[1]}), got {tuple(z.shape)}")
+    return z
 
 
 def state_from_reference(arrays: Mapping[str, Any],

@@ -1,7 +1,8 @@
-"""Pluggable inference engines behind one front door.
+"""Pluggable inference engines behind one front door, and the marginal
+likelihood they compute.
 
-Counterpart of the solve half of ``repro.core.engines``. An
-:class:`InferenceEngine` realises the projected latent Kronecker operator
+Counterpart of ``repro.core.engines``. An :class:`InferenceEngine` realises
+the projected latent Kronecker operator
 
     A(u) = mask * (K1 @ (mask * u) @ K2) + sigma^2 * (mask * u)
 
@@ -9,28 +10,35 @@ and the solves against it. Three implementations are registered:
 
 * ``dense``     - exact Cholesky of the masked joint matrix, O(N^3); the
                   paper's naive baseline and the small-N fast path.
-* ``iterative`` - batched block CG (the paper's method) on the plain tensor
-                  MVM, O(n^2 m + n m^2) per sweep, in the state's dtype.
+* ``iterative`` - batched block CG + SLQ (the paper's method) on the plain
+                  tensor MVM, O(n^2 m + n m^2) per sweep, in the state's dtype.
 * ``cuda``      - the iterative engine with every MVM routed through the
                   hand-written fused GPU kernel
-                  (:func:`repro_torch.kernels.lk_mvm.lk_mvm_fused`). It fills
+                  (:func:`repro_torch.kernels.lk_mvm.lk_mvm_fused`),
+                  differentiable through :class:`KernelMVMFunction`. It fills
                   the slot the reference calls ``pallas``, and that name is
                   accepted as an alias.
 
-The marginal likelihood (``make_mll``, ``mll_cholesky``), the log-determinant
-and the guarded escalation ladder belong to the fit path and are not ported
-yet. Until the ladder exists every eager solve follows the ``strict`` policy:
-a solve that reports a breakdown or a non-finite residual raises
-:class:`DegradedSolveError`; it is never returned as if it were healthy.
+:func:`make_mll` builds the marginal likelihood ``mll(params, X, t, Y, mask,
+probes)`` on any engine: straight through the Cholesky for ``dense``, as a
+``torch.autograd.Function`` around ONE stacked CG solve ``K^-1 [y | probes]``
+for the others (:func:`make_mll_iterative` threads any MVM into it).
+
+The guarded escalation ladder is not ported yet, so every eager solve
+follows the ``strict`` policy: a solve that reports a breakdown or a
+non-finite residual raises :class:`DegradedSolveError`; it is never returned
+as if it were healthy.
 """
 from __future__ import annotations
 
+import math
 import threading
 from typing import Callable, Protocol, runtime_checkable
 
 import torch
 
 from .mvm import kron_dense, lk_mvm
+from .slq import slq_logdet
 from .solvers import CGResult, StackedSolveResult, resolve_solver
 from .state import (BACKEND_ALIASES, GPData, LKGPConfig, LKGPParams,
                     gram_matrices)
@@ -39,8 +47,12 @@ __all__ = [
     "InferenceEngine", "ENGINES", "register_engine", "get_engine",
     "list_backends", "DenseEngine", "IterativeEngine", "KernelEngine",
     "CustomMVMEngine", "LatentKroneckerOperator", "StackedSolveResult",
-    "DegradedSolveError", "solve_tally",
+    "DegradedSolveError", "solve_tally", "KernelMVMFunction",
+    "KernelOperator", "KernelMVM", "mll_cholesky", "make_mll",
+    "make_mll_iterative",
 ]
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 # Process-wide count of engine solve entries: a cache-verification aid ("did
 # that posterior() call re-solve?"), not a performance counter. Engines are
@@ -107,6 +119,11 @@ class InferenceEngine(Protocol):
 
     def solve(self, A, b, config: LKGPConfig, x0=None) -> torch.Tensor:
         """Solve A x = b; b may carry leading batch dimensions."""
+        ...
+
+    def logdet(self, A, data: GPData, config: LKGPConfig,
+               probes: torch.Tensor | None) -> torch.Tensor:
+        """log det of A restricted to the observed subspace."""
         ...
 
 
@@ -217,6 +234,10 @@ class DenseEngine:
         x = torch.cholesky_solve(bb.T, L).T
         return (x * A.mask.reshape(-1)).reshape(b.shape)
 
+    def logdet(self, A, data, config, probes=None):
+        L = A.chol()
+        return 2.0 * torch.log(torch.diagonal(L)).sum()  # unobserved diag = 1
+
 
 # --------------------------------------------------------------------------
 # iterative (block CG)
@@ -291,8 +312,10 @@ class IterativeEngine:
 
         ``rhs``: (s, n, m) stack (e.g. ``[y | Matheron residuals]``); every
         solver iteration applies the operator to the full stack at once,
-        converged columns freeze. ``probe_cols > 0`` (the fused SLQ log-det)
-        raises until SLQ is ported.
+        converged columns freeze. When the trailing ``probe_cols`` rows are
+        SLQ probes, their CG-Lanczos tridiagonals are recorded during the
+        SAME solve and turned into the log-determinant estimate
+        (``StackedSolveResult.logdet``); a degraded solve raises.
         """
         _bump_tally()
         st = resolve_solver(config, A).solve_stacked(
@@ -302,9 +325,17 @@ class IterativeEngine:
         _raise_if_degraded(st.result, "stacked solve")
         return st
 
+    def logdet(self, A, data, config, probes):
+        return slq_logdet(A, probes, config.slq_iters, data.mask.sum())
+
 
 class CustomMVMEngine(IterativeEngine):
-    """Iterative engine over a user-supplied ``mvm(K1, K2, mask, u, noise=...)``."""
+    """Iterative engine over a user-supplied ``mvm(K1, K2, mask, u, noise=...)``.
+
+    An ``mvm`` with an ``operator(K1, K2, mask, noise)`` method builds its
+    own operator (:class:`KernelMVM` does: float32 copies of the factors made
+    once, a float64 ``accurate`` beside them); any other is called per sweep.
+    """
 
     name = "custom"
 
@@ -312,32 +343,85 @@ class CustomMVMEngine(IterativeEngine):
         self._mvm = mvm
 
     def operator_from_grams(self, K1, K2, mask, noise):
+        build = getattr(self._mvm, "operator", None)
+        if build is not None:
+            return build(K1, K2, mask, noise)
         return LatentKroneckerOperator(K1, K2, mask, noise, mvm=self._mvm)
 
 
 # --------------------------------------------------------------------------
-# cuda (iterative, MVMs through the fused GPU kernel)
+# cuda (iterative, MVMs through the GPU kernels)
 # --------------------------------------------------------------------------
-def _kernel_mvm(K1, K2, mask, u, noise=0.0):
+def _sweep(u, factors, force_kernel: bool, fused: bool):
     # Import at call time: repro_torch.kernels imports core.gp_kernels, so a
-    # module-level import here would be circular. force_kernel=True takes the
-    # kernel wrapper on every device: on a CUDA tensor it launches the kernel
-    # or raises, on a CPU tensor it runs the kernel's plain version, so the
-    # engine exercises the same rounding points everywhere.
+    # module-level import here would be circular.
     from ..kernels import ops
-    return ops.lk_mvm_op(K1, K2, mask, u, noise, force_kernel=True,
-                         device=u.device)
+    K1, K2, mask, noise = factors
+    return ops.lk_mvm_op(K1, K2, mask, u, noise, force_kernel=force_kernel,
+                         fused=fused, device=u.device)
 
 
-@register_engine("cuda")
-class KernelEngine(IterativeEngine):
-    """CG with every operator sweep one launch of ``lk_mvm_fused``.
+class KernelMVMFunction(torch.autograd.Function):
+    """Differentiable A(u) through the kernel route, in the slot of the
+    reference's ``_pallas_mvm`` (``repro/core/engines.py``).
 
-    The kernel computes in float32 whatever the state's dtype is. The
-    factors, the mask and the noise scalar are cast to float32 ONCE, here,
-    when the operator is built; per sweep only ``u`` is cast and the result
-    cast back. The noise stays a 0-d device tensor, which the kernel reads
-    through a pointer: a Python float would cost a host sync per sweep.
+    ``apply(K1, K2, mask, u, noise, fast, fused)``. ``K1, K2, mask, u, noise``
+    are tensors in the state's dtype and receive the gradients. ``fast`` holds
+    the float32 copies ``(K1, K2, mask, noise)`` the kernel reads, made once
+    per operator: the forward sweep and ``du`` go through ``lk_mvm_op(*fast,
+    force_kernel=True, fused=fused)``, i.e. the kernel on a CUDA tensor (K1
+    with ``fused=True``, K2a + K2b with ``fused=False``) and its float32 plain
+    version on a CPU tensor. ``fast=None`` sends the sweeps to ``lk_mvm_op``
+    by device on the state-dtype tensors themselves: the float64 oracle for
+    CPU tensors, which is what a finite-difference check needs.
+
+    The MVM is bilinear in (K1, K2, u), so the backward is closed-form, as
+    the reference's ``_pallas_mvm_bwd``: ``dK1``, ``dK2`` and ``dnoise`` are
+    plain matrix products in the state's dtype (the reference forms them with
+    einsums outside any kernel), and ``du = A(g)`` (A is symmetric) goes
+    through the kernel again, only when ``u`` needs a gradient. The mask is
+    data: no gradient (the reference returns zeros).
+    """
+
+    @staticmethod
+    def forward(ctx, K1, K2, mask, u, noise, fast, fused):
+        ctx.save_for_backward(K1, K2, mask, u, noise)
+        ctx.fast, ctx.fused = fast, fused
+        factors = (K1, K2, mask, noise) if fast is None else fast
+        return _sweep(u, factors, fast is not None, fused)
+
+    @staticmethod
+    def backward(ctx, g):
+        K1, K2, mask, u, noise = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        n, m = mask.shape
+        gm = (g * mask).reshape(-1, n, m)   # flatten leading batch dims
+        um = (u * mask).reshape(-1, n, m)
+        dK1 = dK2 = du = dnoise = None
+        if need[0]:
+            dK1 = torch.einsum("bik,bjk->ij", gm, um @ K2)
+        if need[1]:
+            dK2 = torch.einsum("bij,bik->jk", K1 @ um, gm)
+        if need[3]:
+            fast = ctx.fast
+            factors = (K1, K2, mask, noise) if fast is None else fast
+            du = _sweep(g.contiguous(), factors, fast is not None, ctx.fused)
+        if need[4]:
+            dnoise = (gm * um).sum().reshape(noise.shape)
+        return dK1, dK2, None, du, dnoise, None, None
+
+
+class KernelOperator(LatentKroneckerOperator):
+    """A(u) with every sweep one launch of the fused kernel (``fused=True``)
+    or one launch each of the two-stage kernels (``fused=False``),
+    differentiable in K1, K2, u and noise through :class:`KernelMVMFunction`.
+
+    ``K1, K2, mask, noise`` stay in the state's dtype (the backward's
+    products run in it); the kernels compute in float32 whatever that dtype
+    is, so their float32 copies are made ONCE, here, as ``fast``. Per sweep
+    only ``u`` is cast and the result cast back. The noise stays a 0-d device
+    tensor, which the kernels read through a pointer: a Python float would
+    cost a host sync per sweep.
 
     A float32 sweep cannot vouch for its own result: at n = 8192 its
     summation error in A(x) is up to half of ``0.01 * ||b||``. So for a
@@ -347,17 +431,173 @@ class KernelEngine(IterativeEngine):
     every other sweep from the kernel.
     """
 
-    def operator_from_grams(self, K1, K2, mask, noise):
-        f32 = torch.float32
-        noise = torch.as_tensor(noise, device=K1.device)
-        if any(x.requires_grad for x in (K1, K2, mask, noise)):
-            raise NotImplementedError(
-                "the differentiable kernel MVM is not ported yet "
-                "(ROADMAP queue 2 item K5)")
+    def __init__(self, K1, K2, mask, noise, fused: bool = True):
+        noise = torch.as_tensor(noise, dtype=K1.dtype, device=K1.device)
         accurate = None
         if K1.dtype == torch.float64:
-            accurate = LatentKroneckerOperator(K1, K2, mask, noise)
-        return LatentKroneckerOperator(
-            K1.to(f32).contiguous(), K2.to(f32).contiguous(),
-            mask.to(f32).contiguous(), noise.to(f32), mvm=_kernel_mvm,
-            accurate=accurate)
+            accurate = LatentKroneckerOperator(
+                K1.detach(), K2.detach(), mask.detach(), noise.detach())
+        super().__init__(K1, K2, mask, noise, accurate=accurate)
+        self.fast = tuple(x.detach().to(torch.float32).contiguous()
+                          for x in (K1, K2, mask, noise))
+        self.fused = fused
+
+    def __call__(self, u):
+        return KernelMVMFunction.apply(self.K1, self.K2, self.mask, u,
+                                       self.noise, self.fast, self.fused)
+
+
+class KernelMVM:
+    """The differentiable kernel MVM as ``mvm(K1, K2, mask, u, noise=...)``,
+    in the slot of the reference's ``_pallas_mvm_kw``. ``fused`` picks the
+    kernel: the fused one (K1) or the two-stage pair (K2a + K2b).
+
+    ``make_mll_iterative(cfg, mvm_impl=KernelMVM(fused=False))`` threads the
+    two-stage kernels into the objective. The engine it builds asks
+    :meth:`operator` for its operators, so there too the float32 copies are
+    made once per operator and a float64 state has ``accurate`` residuals.
+    Called directly, each call builds a :class:`KernelOperator` for itself.
+    """
+
+    def __init__(self, fused: bool = True):
+        self.fused = fused
+
+    def operator(self, K1, K2, mask, noise) -> KernelOperator:
+        return KernelOperator(K1, K2, mask, noise, fused=self.fused)
+
+    def __call__(self, K1, K2, mask, u, noise=0.0):
+        return self.operator(K1, K2, mask, noise)(u)
+
+
+@register_engine("cuda")
+class KernelEngine(IterativeEngine):
+    """CG + SLQ with every operator sweep one launch of ``lk_mvm_fused``
+    (:class:`KernelOperator`, differentiable). As the reference's
+    ``PallasEngine`` it always takes the fused kernel; the two-stage kernels
+    are reached through ``make_mll_iterative(cfg, KernelMVM(fused=False))``.
+    """
+
+    def operator_from_grams(self, K1, K2, mask, noise):
+        return KernelOperator(K1, K2, mask, noise, fused=True)
+
+
+# --------------------------------------------------------------------------
+# marginal likelihood
+# --------------------------------------------------------------------------
+def mll_cholesky(params: LKGPParams, X, t, Y, mask, t_kernel: str = "matern12",
+                 jitter: float = 1e-6) -> torch.Tensor:
+    """Exact MLL of the observed block: the paper's NAIVE baseline.
+
+    O(n^3 m^3) time / O(n^2 m^2) space, via the dynamic-mask construction
+    (see :class:`_DenseOperator`). Differentiable through the Cholesky.
+    """
+    K1, K2 = gram_matrices(params, X, t, t_kernel, jitter)
+    noise = torch.exp(params.raw_noise)
+    mv = mask.reshape(-1)
+    y = (Y * mask).reshape(-1)
+    K = kron_dense(K1, K2) * (mv[:, None] * mv[None, :])
+    K = K + torch.diag(noise * mv + (1.0 - mv))
+    L = torch.linalg.cholesky(K)
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    N = mask.sum()
+    logdet = 2.0 * torch.log(torch.diagonal(L)).sum()
+    return -0.5 * torch.dot(y, alpha) - 0.5 * logdet - 0.5 * N * _LOG_2PI
+
+
+class _IterativeMLL(torch.autograd.Function):
+    """The iterative MLL with its closed-form gradient (the reference's
+    ``custom_vjp`` in ``make_mll``).
+
+    ``apply(engine, config, X, t, Y, mask, probes, *raw_params)``. The
+    forward is ONE stacked solve ``K^-1 [y | probes]`` whose probe
+    tridiagonals give the SLQ log-det; it keeps ``alpha``, ``W`` and the
+    probes. The backward differentiates
+
+        h(theta) = 1/2 alpha^T A(theta) alpha - 1/2 mean_p w_p^T A(theta) z_p
+
+    with respect to the raw parameters, on a fresh operator built from
+    detached copies of them: two operator sweeps (``A(alpha)`` and
+    ``A(probes)``), and no ``du`` because alpha and the probes are constants.
+    X, t, Y, mask and the probes get no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, engine, config, X, t, Y, mask, probes, *raw):
+        data = GPData(X, t, None, mask)
+        A = engine.operator(LKGPParams(*raw), data, config)
+        Ym = Y * mask
+        rhs = torch.cat([Ym[None], probes], dim=0)
+        N = mask.sum()
+        # The engine's solves follow the strict policy: a breakdown or a
+        # non-finite residual raises DegradedSolveError (L-BFGS can do
+        # nothing with a NaN objective), a residual above cg_tol does not.
+        # The reference's traced objective bypasses its guard altogether.
+        stacked = getattr(engine, "solve_stacked", None)
+        logdet = None
+        if stacked is not None and getattr(config, "slq_via_cg", True):
+            st = stacked(A, rhs, config, probe_cols=probes.shape[0],
+                         subspace_dim=N)
+            sol, logdet = st.x, st.logdet
+        else:
+            sol = engine.solve(A, rhs, config)
+        if logdet is None:
+            logdet = engine.logdet(A, data, config, probes)
+        alpha, W = sol[0], sol[1:]
+        ctx.save_for_backward(X, t, mask, alpha, W, probes, *raw)
+        ctx.engine, ctx.config = engine, config
+        return -0.5 * (Ym * alpha).sum() - 0.5 * logdet - 0.5 * N * _LOG_2PI
+
+    @staticmethod
+    def backward(ctx, gbar):
+        X, t, mask, alpha, W, probes, *raw = ctx.saved_tensors
+        p = probes.shape[0]
+        with torch.enable_grad():
+            leaves = [r.detach().requires_grad_() for r in raw]
+            A = ctx.engine.operator(LKGPParams(*leaves),
+                                    GPData(X, t, None, mask), ctx.config)
+            h = (0.5 * (alpha * A(alpha)).sum()
+                 - 0.5 * (W * A(probes)).sum() / p)
+            grads = torch.autograd.grad(h, leaves, allow_unused=True)
+        grads = [torch.zeros_like(r) if g is None else gbar * g
+                 for r, g in zip(raw, grads)]
+        return (None,) * 7 + tuple(grads)
+
+
+def make_mll(config: LKGPConfig, engine: "InferenceEngine") -> Callable:
+    """MLL as ``mll(params, X, t, Y, mask, probes)`` for any engine.
+
+    Exact engines ignore ``probes`` and differentiate through the Cholesky.
+    Iterative-family engines share fixed Rademacher probes between the SLQ
+    log-det estimate and the stochastic trace gradients; fixing them makes
+    the objective deterministic, which the L-BFGS line search requires.
+    """
+    if engine.exact:
+        # For DenseEngine this is exactly mll_cholesky: one cached Cholesky
+        # shared by solve and log-det.
+        def mll_exact(params, X, t, Y, mask, probes=None):
+            data = GPData(X, t, None, mask)
+            A = engine.operator(params, data, config)
+            Ym = Y * mask
+            alpha = engine.solve(A, Ym, config)
+            N = mask.sum()
+            logdet = engine.logdet(A, data, config, probes)
+            return (-0.5 * (Ym * alpha).sum() - 0.5 * logdet
+                    - 0.5 * N * _LOG_2PI)
+        return mll_exact
+
+    def mll(params, X, t, Y, mask, probes):
+        return _IterativeMLL.apply(engine, config, X, t, Y, mask, probes,
+                                   *params)
+    return mll
+
+
+def make_mll_iterative(cfg: LKGPConfig, mvm_impl=None):
+    """Iterative MLL (the reference's entry for threading an MVM into it).
+
+    Returns ``mll(params, X, t, Y, mask, probes)``. With ``mvm_impl`` given
+    (``mvm(K1, K2, mask, u, noise=...)``), every MVM (CG, SLQ and the
+    quadratic-form gradients) goes through it; ``KernelMVM(fused=False)``
+    puts the two-stage kernels there.
+    """
+    engine = IterativeEngine() if mvm_impl is None else CustomMVMEngine(mvm_impl)
+    return make_mll(cfg, engine)

@@ -113,6 +113,9 @@ class Posterior:
         self._state = state
         self._Xs = Xs
         if engine is None:
+            # An engine injected at fit() time stays with its state.
+            engine = getattr(state, "engine", None)
+        if engine is None:
             n_obs = int(state.mask.sum().item())
             engine = get_engine(resolve_backend(state.config, n_obs))
         self._engine = engine

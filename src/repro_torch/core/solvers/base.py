@@ -13,7 +13,8 @@ from typing import Any, Callable, NamedTuple, Protocol, runtime_checkable
 
 import torch
 
-from .cg import CGResult, cg_solve
+from ..slq import slq_logdet_from_tridiag, tridiag_from_cg
+from .cg import CGResult, cg_solve, cg_solve_tridiag
 
 __all__ = [
     "Solver", "SOLVERS", "register_solver", "get_solver", "list_solvers",
@@ -32,7 +33,7 @@ class StackedSolveResult(NamedTuple):
     """One consolidated multi-RHS solve: solutions + (optional) log-det.
 
     ``x`` are the stacked solutions; ``logdet`` is the SLQ estimate from the
-    probe columns (always None until SLQ is ported); ``result`` carries the
+    probe columns (None when the solve carried none); ``result`` carries the
     block solver's per-column diagnostics.
     """
     x: torch.Tensor
@@ -128,7 +129,7 @@ def resolve_solver(config: Any, A: Any = None) -> "Solver":
 
 @register_solver("cg")
 class CGSolver:
-    """Batched block CG."""
+    """Batched block CG; stacked solves fuse the SLQ log-det via CG-Lanczos."""
 
     def solve(self, A: Callable, b: torch.Tensor, config: Any,
               x0: torch.Tensor | None = None) -> CGResult:
@@ -138,10 +139,22 @@ class CGSolver:
     def solve_stacked(self, A: Callable, rhs: torch.Tensor, config: Any, *,
                       probe_cols: int = 0, subspace_dim: Any = None,
                       x0: torch.Tensor | None = None) -> StackedSolveResult:
+        if probe_cols and x0 is not None:
+            # A warm start changes the Krylov starting vectors from the
+            # probes to rhs - A x0, breaking the CG-Lanczos correspondence
+            # the fused log-det relies on: solve warm, report no logdet (the
+            # caller falls back to the separate SLQ pass).
+            probe_cols = 0
         if probe_cols:
-            raise NotImplementedError(
-                "the fused SLQ log-det of probe columns is not ported yet "
-                "(ROADMAP queue 1 item 4, slq.py)")
-        res = cg_solve(A, rhs, tol=config.cg_tol,
-                       max_iters=config.cg_max_iters, x0=x0)
-        return StackedSolveResult(x=res.x, logdet=None, result=res)
+            res, tri = cg_solve_tridiag(
+                A, rhs, max_rank=config.slq_iters, tol=config.cg_tol,
+                max_iters=config.cg_max_iters, x0=x0)
+            diag, off = tridiag_from_cg(tri.alphas[-probe_cols:],
+                                        tri.betas[-probe_cols:],
+                                        tri.steps[-probe_cols:])
+            logdet = slq_logdet_from_tridiag(diag, off, subspace_dim)
+        else:
+            res = cg_solve(A, rhs, tol=config.cg_tol,
+                           max_iters=config.cg_max_iters, x0=x0)
+            logdet = None
+        return StackedSolveResult(x=res.x, logdet=logdet, result=res)

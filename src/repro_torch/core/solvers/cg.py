@@ -24,9 +24,10 @@ top of the classic batched loop the solver has:
   ``A.accurate``, a slower realisation of the same matrix in the state's
   dtype. The solver then takes ``b - A x`` from it: at the start, every
   ``REPLACE_EVERY`` iterations (the recursion's ``r`` is replaced, its
-  direction kept, so the drift never grows past a few dozen sweeps' worth),
-  and at the end, where columns still above ``tol`` get their ``r`` replaced
-  and iterate on. ``CGResult.replacements`` counts these. This is
+  direction kept, so the drift never grows past a few dozen sweeps' worth;
+  the next step is the line minimum ``<r, p> / <p, Ap>``), and at the end,
+  where columns still above ``tol`` get their ``r`` replaced and iterate
+  on. ``CGResult.replacements`` counts these. This is
   mixed-precision iterative refinement: all the O(iterations) sweeps stay
   in the fast operator. An operator without ``accurate`` runs the
   reference's loop unchanged.
@@ -98,15 +99,28 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
     sys_shape = b.shape[:-2]
 
     # Where the operator has a more accurate realisation, every residual
-    # b - A x comes from it; the iterations' A(p) never do.
+    # b - A x comes from it; the iterations' A(p) never do. A replaced r
+    # bends the CG-Lanczos recurrence, so with ``record > 0`` no replacement
+    # may fall inside the recorded window (the first ``record`` steps): the
+    # periodic ones and the one at the loop's end both wait for
+    # ``n_it >= record``. With ``record <= REPLACE_EVERY`` (the MLL's
+    # ``slq_iters``, default 25) that leaves the periodic replacements as
+    # they are; only a solve that ends inside the window keeps its residual.
+    # The start ``b - A(x0)`` is the recurrence's starting vector, not a
+    # replacement (with x0 = 0 it is b whichever operator takes it).
     A_acc = getattr(A, "accurate", None)
-    replace = A_acc is not None and not record   # (a replaced r would bend
-    A_res = A_acc if A_acc is not None else A    # the Lanczos recurrence)
+    A_res = A_acc if A_acc is not None else A
 
     x = x0
     r = b - A_res(x0)
     p = r
     rs = _dot(r, r)
+    # The step's numerator <r, p>. CG's rs = <r, r> equals it until a
+    # residual is replaced; after a replacement the direction p is kept, and
+    # rs would overshoot along it wherever the replaced residual is far above
+    # the recursion's (below the fast operator's floor the solve diverged).
+    # <r_true, p> / <p, Ap> is the exact line minimum along p instead.
+    rp = rs
     it = torch.zeros((), dtype=torch.int32, device=dev)
     breakdown = torch.zeros(sys_shape, dtype=torch.bool, device=dev)
     col_iters = torch.zeros(sys_shape, dtype=torch.int32, device=dev)
@@ -135,7 +149,7 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
             r_true = b - A_res(x)
             rs_true = _dot(r_true, r_true)
             rel_true = torch.sqrt(rs_true) / safe_b_norm
-            if not replace or n_it >= max_iters:
+            if A_acc is None or n_it < record or n_it >= max_iters:
                 break
             # Columns whose true residual is still above tol take it as
             # their r and go on. One more host read, on this exit path only.
@@ -148,6 +162,7 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
             replacements += 1
             r = torch.where(redo[..., None, None], r_true, r)
             rs = torch.where(redo, rs_true, rs)
+            rp = torch.where(redo, _dot(r_true, p), rp)
             continue
         Ap = A(p)
         pAp = _dot(p, Ap)
@@ -156,7 +171,7 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
         broke = active & (pAp <= 0)
         breakdown = breakdown | broke
         step = active & (pAp > 0)
-        alpha = torch.where(step, rs / torch.where(pAp == 0, one, pAp), zero)
+        alpha = torch.where(step, rp / torch.where(pAp == 0, one, pAp), zero)
         x = x + alpha[..., None, None] * p
         r = r - alpha[..., None, None] * Ap
         rs_new = torch.where(step, _dot(r, r), rs)
@@ -175,12 +190,14 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
         col_iters = torch.where(step, it + 1, col_iters)
         matvecs = matvecs + active.sum(dtype=torch.int32)
         rs = rs_new
+        rp = torch.where(step, rs_new, rp)
         it = it + 1
         n_it += 1
-        if replace and n_it % REPLACE_EVERY == 0:
+        if A_acc is not None and n_it % REPLACE_EVERY == 0 and n_it >= record:
             r_true = b - A_res(x)
             r = torch.where(step[..., None, None], r_true, r)
             rs = torch.where(step, _dot(r_true, r_true), rs)
+            rp = torch.where(step, _dot(r_true, p), rp)
             replacements += 1
 
     res = CGResult(

@@ -26,7 +26,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+# One lock per library: two sources build at once (each in its own nvcc
+# process) when two threads ask for them, and one source is built once.
+_LOCKS_LOCK = threading.Lock()
+_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOGS: dict[str, dict] = {}
 
@@ -50,7 +53,9 @@ def _nvcc() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    with _LOCK:
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

@@ -23,10 +23,18 @@ the (B, n, m) intermediate going through device memory between them.
     tests and CPU tensors use it; with a GPU present nothing on the serving
     path does.
 
+:func:`lk_mvm_two_stage`
+    The same function in two launches with ``T`` in device memory between
+    them: :func:`lk_mvm_stage_right` (``T = (mask * U) @ K2``, kernel K2a) and
+    :func:`lk_mvm_stage_left` (``mask * (K1 @ T) + noise * (mask * U)``,
+    kernel K2b), both in ``csrc/lk_mvm_two_stage.cu``. They take the place of
+    the reference's ``lk_mvm_two_stage``. Each stage has its plain version
+    beside it, and :func:`lk_mvm_two_stage_plain` composes them.
+
 :func:`lk_mvm_cuda`
     The dispatcher in the slot of the reference's ``lk_mvm_pallas``:
-    ``fused=True`` is the kernel above, ``fused=False`` (the two-stage
-    kernels with the intermediate in device memory) is not ported yet.
+    ``fused=True`` is the single-pass kernel, ``fused=False`` the two-stage
+    kernels.
 """
 from __future__ import annotations
 
@@ -36,10 +44,14 @@ import torch
 
 from ._build import load_library
 
-__all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain"]
+__all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain",
+           "lk_mvm_two_stage", "lk_mvm_two_stage_plain", "lk_mvm_stage_right",
+           "lk_mvm_stage_right_plain", "lk_mvm_stage_left",
+           "lk_mvm_stage_left_plain"]
 
 _PRECISIONS = ("f32", "bf16")
 _LIB = None
+_LIB_TWO_STAGE = None
 
 
 def _library():
@@ -56,6 +68,31 @@ def _library():
         lib.lk_mvm_fused_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _two_stage_library():
+    """Build/load the two-stage kernels' library and declare its signatures."""
+    global _LIB_TWO_STAGE
+    if _LIB_TWO_STAGE is None:
+        lib = load_library("lk_mvm_two_stage")
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        # (U, mask, K2, ldk2, T, B, n, m, stream)
+        lib.lk_mvm_stage_right_launch.argtypes = [p, p, p, ll, p, i, i, i, p]
+        lib.lk_mvm_stage_right_launch.restype = i
+        # (K1, ldk1, T, mask, U, noise, out, B, n, m, stream)
+        lib.lk_mvm_stage_left_launch.argtypes = [p, ll, p, p, p, p, p,
+                                                 i, i, i, p]
+        lib.lk_mvm_stage_left_launch.restype = i
+        lib.lk_mvm_two_stage_error_string.argtypes = [i]
+        lib.lk_mvm_two_stage_error_string.restype = ctypes.c_char_p
+        _LIB_TWO_STAGE = lib
+    return _LIB_TWO_STAGE
+
+
+def _raise_on_launch_error(rc: int, error_string, what: str, shape) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed at (B, n, m) = {shape}: "
+                           f"CUDA error {rc} ({error_string(rc).decode()})")
 
 
 def _check_args(K1, K2, mask, u, precision):
@@ -86,12 +123,17 @@ def _check_args(K1, K2, mask, u, precision):
         raise ValueError("K1 and K2 must have unit stride along their rows")
     if not mask.is_contiguous() or not u.is_contiguous():
         raise ValueError("mask and u must be contiguous")
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (K1, K2, mask, u)):
-        raise NotImplementedError(
-            "lk_mvm_fused has no backward yet (ROADMAP queue 2 item K5); "
-            "call it under torch.no_grad() or on detached tensors")
+    _refuse_autograd(K1, K2, mask, u)
     return n, m
+
+
+def _refuse_autograd(*tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
+        raise NotImplementedError(
+            "the kernel wrappers have no backward: differentiate through "
+            "repro_torch.core.engines.KernelMVM (ROADMAP queue 2 item K5), "
+            "or call them under torch.no_grad() or on detached tensors")
 
 
 def _noise_scalar(noise, device) -> torch.Tensor:
@@ -99,9 +141,7 @@ def _noise_scalar(noise, device) -> torch.Tensor:
     if isinstance(noise, torch.Tensor):
         if noise.numel() != 1:
             raise ValueError("noise must be a scalar")
-        if noise.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "lk_mvm_fused has no backward yet (ROADMAP queue 2 item K5)")
+        _refuse_autograd(noise)
         return noise.detach().reshape(()).to(device=device, dtype=torch.float32)
     return torch.tensor(float(noise), dtype=torch.float32, device=device)
 
@@ -176,10 +216,8 @@ def lk_mvm_fused(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
             K1.data_ptr(), K1.stride(0), K2.data_ptr(), K2.stride(0),
             mask.data_ptr(), u3.data_ptr(), noise_t.data_ptr(),
             out.data_ptr(), B, n, m, int(precision == "bf16"), stream)
-    if rc != 0:
-        what = lib.lk_mvm_fused_error_string(rc).decode()
-        raise RuntimeError(f"lk_mvm_fused launch failed at (B, n, m) = "
-                           f"{(B, n, m)}: CUDA error {rc} ({what})")
+    _raise_on_launch_error(rc, lib.lk_mvm_fused_error_string,
+                           "lk_mvm_fused", (B, n, m))
     lk_mvm_fused.launches += 1
     return out.to(u.dtype).reshape(u.shape)
 
@@ -187,17 +225,168 @@ def lk_mvm_fused(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
 lk_mvm_fused.launches = 0
 
 
+def _check_stage_args(u, mask, factor_name, factor, T=None):
+    """What the two-stage kernels take: float32 everywhere on one device,
+    ``u`` (and ``T``) (B, n, m) and the mask (n, m) contiguous, the square
+    factor (K1 (n, n) or K2 (m, m)) with unit stride along its rows."""
+    if mask.ndim != 2 or u.ndim != 3 or u.shape[1:] != mask.shape:
+        raise ValueError(f"u must be (B, n, m) over an (n, m) mask, got "
+                         f"{tuple(u.shape)} and {tuple(mask.shape)}")
+    B, n, m = u.shape
+    if u.numel() == 0:
+        raise ValueError("empty operand")
+    if max(B, n, m) >= 2**31:
+        raise ValueError("B, n and m must fit in 32-bit integers")
+    size = n if factor_name == "K1" else m
+    if tuple(factor.shape) != (size, size) or factor.stride(1) != 1:
+        raise ValueError(f"{factor_name} must be ({size}, {size}) with unit "
+                         f"stride along its rows, got {tuple(factor.shape)}")
+    operands = {"u": u, "mask": mask, factor_name: factor}
+    if T is not None:
+        if T.shape != u.shape:
+            raise ValueError(f"T must be {tuple(u.shape)}, got {tuple(T.shape)}")
+        operands["T"] = T
+    for name, x in operands.items():
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.device != u.device:
+            raise ValueError(f"{name} lives on {x.device}, u on {u.device}")
+        if name != factor_name and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the two-stage kernels run on cuda or cpu tensors, "
+                         f"not {u.device}")
+    _refuse_autograd(*operands.values())
+    return B, n, m
+
+
+def lk_mvm_stage_right_plain(u: torch.Tensor, mask: torch.Tensor,
+                             K2: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`lk_mvm_stage_right`: float32 ``(mask*u) @ K2``."""
+    f32 = torch.float32
+    return (mask.to(f32) * u.to(f32)) @ K2.to(f32)
+
+
+def lk_mvm_stage_left_plain(K1: torch.Tensor, T: torch.Tensor,
+                            mask: torch.Tensor, u: torch.Tensor,
+                            noise=0.0) -> torch.Tensor:
+    """Plain version of :func:`lk_mvm_stage_left`: float32
+    ``mask * (K1 @ T) + noise * (mask * u)``."""
+    f32 = torch.float32
+    mk = mask.to(f32)
+    return mk * (K1.to(f32) @ T.to(f32)) \
+        + _noise_scalar(noise, u.device) * (mk * u.to(f32))
+
+
+def lk_mvm_two_stage_plain(K1: torch.Tensor, K2: torch.Tensor,
+                           mask: torch.Tensor, u: torch.Tensor, noise=0.0, *,
+                           precision: str = "f32") -> torch.Tensor:
+    """Plain version of :func:`lk_mvm_two_stage`, same rounding points: a
+    float32 ``T``, a float32 product, a float32 epilogue, the result cast
+    to ``u.dtype``."""
+    _two_stage_precision(precision)
+    T = lk_mvm_stage_right_plain(u, mask, K2)
+    return lk_mvm_stage_left_plain(K1, T, mask, u, noise).to(u.dtype)
+
+
+def _two_stage_precision(precision: str) -> None:
+    if precision == "bf16":
+        raise NotImplementedError(
+            "the two-stage kernels compute in float32 only; bf16 operands "
+            "(precision='bf16') are not ported for them")
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
+
+
+def lk_mvm_stage_right(u: torch.Tensor, mask: torch.Tensor,
+                       K2: torch.Tensor) -> torch.Tensor:
+    """Kernel K2a: ``T[b] = (mask * u[b]) @ K2``, float32 (B, n, m) -> (B, n, m).
+
+    One launch of ``stage_right_kernel`` on the current stream for a CUDA
+    tensor (or a raise); the plain version for a CPU tensor.
+    ``lk_mvm_stage_right.launches`` counts kernel launches.
+    """
+    B, n, m = _check_stage_args(u, mask, "K2", K2)
+    if u.device.type == "cpu":
+        return lk_mvm_stage_right_plain(u, mask, K2)
+    T = torch.empty_like(u)
+    lib = _two_stage_library()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lk_mvm_stage_right_launch(
+            u.data_ptr(), mask.data_ptr(), K2.data_ptr(), K2.stride(0),
+            T.data_ptr(), B, n, m, stream)
+    _raise_on_launch_error(rc, lib.lk_mvm_two_stage_error_string,
+                           "lk_mvm_stage_right", (B, n, m))
+    lk_mvm_stage_right.launches += 1
+    return T
+
+
+lk_mvm_stage_right.launches = 0
+
+
+def lk_mvm_stage_left(K1: torch.Tensor, T: torch.Tensor, mask: torch.Tensor,
+                      u: torch.Tensor, noise=0.0) -> torch.Tensor:
+    """Kernel K2b: ``out[b] = mask * (K1 @ T[b]) + noise * (mask * u[b])``,
+    float32. ``noise`` is read through a device pointer.
+
+    One launch of ``stage_left_kernel`` on the current stream for a CUDA
+    tensor (or a raise); the plain version for a CPU tensor.
+    ``lk_mvm_stage_left.launches`` counts kernel launches.
+    """
+    B, n, m = _check_stage_args(u, mask, "K1", K1, T=T)
+    if u.device.type == "cpu":
+        return lk_mvm_stage_left_plain(K1, T, mask, u, noise)
+    noise_t = _noise_scalar(noise, u.device)
+    out = torch.empty_like(u)
+    lib = _two_stage_library()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lk_mvm_stage_left_launch(
+            K1.data_ptr(), K1.stride(0), T.data_ptr(), mask.data_ptr(),
+            u.data_ptr(), noise_t.data_ptr(), out.data_ptr(), B, n, m, stream)
+    _raise_on_launch_error(rc, lib.lk_mvm_two_stage_error_string,
+                           "lk_mvm_stage_left", (B, n, m))
+    lk_mvm_stage_left.launches += 1
+    return out
+
+
+lk_mvm_stage_left.launches = 0
+
+
+def lk_mvm_two_stage(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
+                     u: torch.Tensor, noise=0.0, *, block_n: int | None = None,
+                     block_m: int | None = None,
+                     precision: str = "f32") -> torch.Tensor:
+    """Two-stage masked Kronecker MVM: K2a then K2b, ``T`` in device memory.
+
+    Takes what :func:`lk_mvm_fused` takes (float32 factors and mask, float32
+    or float64 ``u`` with any leading batch dims, computed on in float32,
+    returned in ``u.dtype``) and computes the same function. On a CUDA tensor
+    it launches both kernels or raises; on a CPU tensor it runs
+    :func:`lk_mvm_two_stage_plain`. ``precision="bf16"`` raises
+    ``NotImplementedError``. ``block_n`` / ``block_m`` are accepted for
+    signature parity with the reference and ignored.
+    """
+    del block_n, block_m
+    _two_stage_precision(precision)
+    n, m = _check_args(K1, K2, mask, u, precision)
+    u3 = u.detach().reshape(-1, n, m).to(torch.float32)
+    T = lk_mvm_stage_right(u3, mask, K2)
+    out = lk_mvm_stage_left(K1, T, mask, u3, noise)
+    return out.to(u.dtype).reshape(u.shape)
+
+
 def lk_mvm_cuda(K1, K2, mask, u, noise=0.0, *, block_n: int | None = None,
                 block_m: int | None = None, fused: bool = True,
                 precision: str = "f32") -> torch.Tensor:
     """Masked Kronecker MVM through a hand-written kernel.
 
-    ``fused=True`` is :func:`lk_mvm_fused`. ``fused=False`` names the
-    reference's two-stage kernels, which are not ported yet and raise.
+    ``fused=True`` is :func:`lk_mvm_fused`, ``fused=False``
+    :func:`lk_mvm_two_stage`.
     """
     if not fused:
-        raise NotImplementedError(
-            "the two-stage MVM kernels (intermediate in device memory) are "
-            "not ported yet: ROADMAP queue 2 item K2")
+        return lk_mvm_two_stage(K1, K2, mask, u, noise, block_n=block_n,
+                                block_m=block_m, precision=precision)
     return lk_mvm_fused(K1, K2, mask, u, noise, block_n=block_n,
                         block_m=block_m, precision=precision)

@@ -21,7 +21,12 @@ def lk_mvm_op(K1, K2, mask, u, noise=0.0, *, force_kernel: bool = False,
     """A(u) = mask * (K1 @ (mask*u) @ K2) + noise * (mask*u).
 
     ``device=None`` means the GPU; the tensors must live on the device named.
+    ``fused=False`` selects the two-stage kernels (K2a + K2b).
     """
+    # The reference also goes two-stage by itself where no fused tiling fits
+    # its VMEM budget (large m). The fused kernel here sweeps m in chunks and
+    # has no row-strip limit, so that case does not arise on the card: fused
+    # stays as the caller set it. Choosing by a cost model is ROADMAP K6.
     dev = resolve_device(device)
     check_on_device(dev, K1=K1, K2=K2, mask=mask, u=u)
     if dev.type == "cuda" or force_kernel:

@@ -307,10 +307,59 @@ def test_cg_residual_replacement_under_a_float32_operator():
     # the budget is the budget: nothing goes on once max_iters is spent
     spent = cg_solve(_Float32Operator(A), _t(b), tol=1e-9, max_iters=3)
     assert int(spent.iters) == 3 and spent.replacements == 0
-    # the tridiagonal record is one unbroken recurrence: never replaced
-    res, _ = cg_solve_tridiag(_Float32Operator(A), _t(b), 8, tol=1e-5,
-                              max_iters=500)
-    assert res.replacements == 0
+    # the tridiagonal record is one unbroken recurrence: nothing is replaced
+    # inside it, and the residuals are replaced after it
+    op = _Float32Operator(A)
+    res, _ = cg_solve_tridiag(op, _t(b), 8, tol=1e-5, max_iters=500)
+    assert res.replacements >= int(res.iters) // REPLACE_EVERY >= 1
+    assert float(true_residual(res.x).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("tol", [1e-9, 1e-12])
+def test_kernel_engine_solve_below_the_float32_floor_converges(tol):
+    """The cuda engine's operator on the CPU (float32 plain sweeps, float64
+    ``accurate``) at tolerances no float32 sweep reaches by itself: the
+    replaced residuals steer CG down to tol instead of letting it diverge
+    (each step after a replacement is the line minimum along the kept
+    direction)."""
+    params, data, b = _engine_problem()
+    A = get_engine("cuda").operator(params, data, LKGPConfig())
+    rhs = torch.stack([b, 0.5 * b + 0.1 * data.mask])
+    res = cg_solve(A, rhs, tol=tol, max_iters=3000)
+    assert not bool(res.breakdown.any()) and int(res.iters) < 3000
+    assert res.replacements >= 1
+    r = rhs - A.accurate(res.x)
+    rel = torch.sqrt((r * r).sum((-2, -1)) / (rhs * rhs).sum((-2, -1)))
+    assert float(rel.max()) <= tol
+    torch.testing.assert_close(rel, res.rel_residual, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("max_rank", [25, REPLACE_EVERY + 10])
+def test_recorded_solve_keeps_accurate_residuals_outside_the_window(max_rank):
+    """A solve that records CG-Lanczos coefficients (the MLL's stacked solve,
+    slq_iters of them) under a float32-rounding operator with ``accurate``:
+    no replacement falls inside the recorded window, so the coefficients are
+    bit-identical to those of the same operator without ``accurate``; the
+    replacements after the window still bring every column's TRUE residual
+    within tol. max_rank = 25 is the default slq_iters (< REPLACE_EVERY);
+    REPLACE_EVERY + 10 puts the first periodic replacement inside it."""
+    K1, K2, mask, b, _ = _cg_problem(seed=6)
+    A, _ = _both_operators(K1, K2, mask, 0.01)   # ~100 iterations
+    tol = 1e-7
+    res, tri = cg_solve_tridiag(_Float32Operator(A), _t(b), max_rank, tol=tol,
+                                max_iters=2000)
+    bare_res, bare = cg_solve_tridiag(_Float32Operator(A, with_accurate=False),
+                                      _t(b), max_rank, tol=tol, max_iters=2000)
+    assert torch.equal(tri.alphas, bare.alphas)
+    assert torch.equal(tri.betas, bare.betas)
+    assert torch.equal(tri.steps, bare.steps)
+    assert int(tri.steps.max()) == max_rank
+    assert res.replacements >= 1 and bare_res.replacements == 0
+    r = _t(b) - A(res.x)
+    rel = (torch.sqrt((r * r).sum((-2, -1)))
+           / torch.sqrt((_t(b) ** 2).sum((-2, -1))).clamp_min(1e-300))
+    assert float(rel.max()) <= tol
+    assert float(bare_res.rel_residual.max()) > tol   # the float32 floor
 
 
 def test_cg_solve_max_iters_and_unbatched_rhs():
@@ -398,8 +447,15 @@ def test_solver_registry_and_unported_solvers_raise():
         is get_solver("cg")
     K1, K2, mask, b, noise = _cg_problem()
     A, _ = _both_operators(K1, K2, mask, noise)
-    with pytest.raises(NotImplementedError, match="slq"):
-        get_solver("cg").solve_stacked(A, _t(b), LKGPConfig(), probe_cols=2)
+    # probe columns give a log-det, unless a warm start bends their Krylov
+    # spaces (then none, as in the reference)
+    st = get_solver("cg").solve_stacked(A, _t(b), LKGPConfig(), probe_cols=2,
+                                        subspace_dim=float(mask.sum()))
+    assert st.logdet is not None and bool(torch.isfinite(st.logdet))
+    st = get_solver("cg").solve_stacked(A, _t(b), LKGPConfig(), probe_cols=2,
+                                        subspace_dim=float(mask.sum()),
+                                        x0=torch.zeros_like(_t(b)))
+    assert st.logdet is None
     st = get_solver("cg").solve_stacked(A, _t(b), LKGPConfig(cg_tol=1e-6))
     assert st.logdet is None and st.breakdown is st.result.breakdown
     assert st.col_iters is st.result.col_iters and st.trace is None
@@ -461,9 +517,13 @@ def test_kernel_engine_casts_factors_once_and_keeps_noise_on_device():
     params, data, b = _engine_problem()
     A = get_engine("cuda").operator(params, data, LKGPConfig())
     assert isinstance(A, LatentKroneckerOperator)
-    for x in (A.K1, A.K2, A.mask, A.noise):
+    # the kernel reads float32 copies made here; the operator keeps the
+    # state's dtype for the backward and the accurate residuals
+    for x in A.fast:
         assert x.dtype == torch.float32 and x.is_contiguous()
-    assert A.noise.ndim == 0
+    assert A.fast[3].ndim == 0 and A.noise.ndim == 0
+    assert A.K1.dtype == torch.float64
+    assert A.accurate.K1.data_ptr() == A.K1.data_ptr()   # no copy
     out = A(b)                                   # float64 in, float64 out
     assert out.dtype == torch.float64
     exact = get_engine("iterative").operator(params, data, LKGPConfig())(b)
@@ -478,11 +538,18 @@ def test_kernel_engine_casts_factors_once_and_keeps_noise_on_device():
 
 
 def test_kernel_engine_refuses_autograd_until_backward_is_ported():
+    """The backward is ported (K5): the kernel engine's operator takes
+    factors that require grad and passes gradients to them, while the bare
+    kernel wrappers, which have no backward, still refuse such inputs."""
     params, data, b = _engine_problem()
     K1, K2 = gram_matrices(params, data.X, data.t)
+    A = get_engine("cuda").operator_from_grams(
+        K1.requires_grad_(), K2, data.mask, torch.exp(params.raw_noise))
+    (g,) = torch.autograd.grad((A(b) * b).sum(), K1)
+    assert g.shape == K1.shape and bool(torch.isfinite(g).all())
+    from repro_torch.kernels import lk_mvm_fused
     with pytest.raises(NotImplementedError, match="K5"):
-        get_engine("cuda").operator_from_grams(
-            K1.requires_grad_(), K2, data.mask, torch.exp(params.raw_noise))
+        lk_mvm_fused(K1.float(), *A.fast[1:3], b)
 
 
 def test_degraded_solve_raises_instead_of_returning():

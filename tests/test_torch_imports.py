@@ -13,10 +13,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py"))
-SCANNED = PORT_FILES + [ROOT / "chip_smoke.py"]
+SCANNED = PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "rehearse_chip_smoke.py"]
 BANNED_ROOTS = {"jax", "jaxlib", "repro", "flax", "optax"}
 # Only ever imported inside the function that needs them.
 LAZY_ONLY_ROOTS = {"triton"}
+KERNEL_SOURCES = ("lk_mvm_fused.cu", "lk_mvm_two_stage.cu")
 
 
 def _imports(path: Path):
@@ -40,10 +41,12 @@ def test_port_has_the_modules_of_this_slice():
     for mod in ("__init__", "_device", "convert", "core/gp_kernels",
                 "core/mvm", "core/transforms", "core/state", "core/engines",
                 "core/matheron", "core/posterior", "core/solvers/cg",
-                "core/solvers/base", "kernels/ref", "kernels/_build",
+                "core/solvers/base", "core/errors", "core/priors",
+                "core/slq", "core/lbfgs", "kernels/ref", "kernels/_build",
                 "kernels/lk_mvm", "kernels/ops", "data/curves"):
         assert f"src/repro_torch/{mod}.py" in have
-    assert (PORT / "kernels" / "csrc" / "lk_mvm_fused.cu").is_file()
+    for src in KERNEL_SOURCES:
+        assert (PORT / "kernels" / "csrc" / src).is_file()
     assert not (ROOT / "src" / "repro" / "torch").exists()
 
 
@@ -56,14 +59,16 @@ def test_no_jax_and_no_reference_imports(path):
 
 
 def test_kernel_source_calls_no_library_product():
-    src = (PORT / "kernels" / "csrc" / "lk_mvm_fused.cu").read_text()
-    code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
-    for banned in ("cublas", "cutlass", "torch/", "ATen", "cudnn"):
-        assert banned not in code
-    assert "__global__" in code and 'extern "C"' in code
     build = (PORT / "kernels" / "_build.py").read_text()
     assert "compute_90a" in build and "sm_90a" in build
-    assert "torch/extension.h" not in src and "cpp_extension" not in build
+    assert "cpp_extension" not in build
+    for name in KERNEL_SOURCES:
+        src = (PORT / "kernels" / "csrc" / name).read_text()
+        code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
+        for banned in ("cublas", "cutlass", "torch/", "ATen", "cudnn"):
+            assert banned not in code, f"{name} mentions {banned}"
+        assert "__global__" in code and 'extern "C"' in code
+        assert "torch/extension.h" not in src
 
 
 def test_import_works_without_gpu_toolchain_and_pulls_in_no_jax():
@@ -101,7 +106,14 @@ ENTRY_POINTS = {
     "params_from_numpy": lambda rt: rt.params_from_numpy({}),
     "state_from_reference": lambda rt: rt.state_from_reference({}),
     "posterior": lambda rt: rt.posterior(_cpu_state(rt)),
+    "fit": lambda rt: rt.fit(*_cpu_task()),
 }
+
+
+def _cpu_task():
+    from repro_torch.data import sample_task
+    task = sample_task(0, n=5, m=4, d=4)
+    return task.X, task.t, task.Y, task.mask
 
 
 def _cpu_state(rt):
@@ -135,6 +147,11 @@ def test_explicit_devices():
             resolve_device("cuda")
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device("cuda:0")
+
+
+def test_chip_smoke_imports_nothing_of_the_reference():
+    roots = {root for root, _ in _imports(ROOT / "chip_smoke.py")}
+    assert "repro_torch" in roots and not roots & BANNED_ROOTS
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

@@ -19,8 +19,12 @@ from repro.kernels import lk_mvm_fused as ref_lk_mvm_fused
 from repro.kernels import lk_mvm_ref as ref_lk_mvm_ref
 from repro_torch.core import gp_kernels as gk
 from repro_torch.core import mvm
+from repro.kernels import lk_mvm_two_stage as ref_lk_mvm_two_stage
 from repro_torch.kernels import (lk_mvm_cuda, lk_mvm_fused,
                                  lk_mvm_fused_plain, lk_mvm_op, lk_mvm_ref,
+                                 lk_mvm_stage_left, lk_mvm_stage_left_plain,
+                                 lk_mvm_stage_right, lk_mvm_stage_right_plain,
+                                 lk_mvm_two_stage, lk_mvm_two_stage_plain,
                                  rbf_gram_op, rbf_gram_ref)
 from repro_torch.kernels import _build
 
@@ -140,6 +144,69 @@ def test_fused_wrapper_rejects_what_the_kernel_does_not_take(case):
 
 
 # --------------------------------------------------------------------------
+# the two-stage kernels' plain versions vs the reference's two-stage kernel
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", AWKWARD_SHAPES)
+def test_two_stage_plain_matches_reference_kernel_and_oracle(shape):
+    """lk_mvm_two_stage_plain (float32 T, float32 products and epilogue)
+    against the reference's Pallas two-stage kernel in interpret mode
+    (float32 too) to float32 rounding, 1e-5 of max|out|; against the
+    float64 oracle to the same. The stages compose to it exactly."""
+    K1, K2, mask, u = _problem(*shape)
+    ref = np.asarray(ref_lk_mvm_two_stage(
+        jnp.asarray(K1), jnp.asarray(K2), jnp.asarray(mask), jnp.asarray(u),
+        0.37, block_n=8, block_m=8, interpret=True))
+    tK1, tK2, tmask, tu = _t(K1, K2, mask, u)
+    out = lk_mvm_two_stage_plain(tK1, tK2, tmask, tu, 0.37)
+    assert out.dtype == torch.float32 and out.shape == tu.shape
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5 * scale, rtol=0)
+    exact = lk_mvm_ref(*(x.double() for x in (tK1, tK2, tmask, tu)), 0.37)
+    assert float((out.double() - exact).abs().max()) <= 1e-5 * scale
+    T = lk_mvm_stage_right_plain(tu, tmask, tK2)
+    assert torch.equal(lk_mvm_stage_left_plain(tK1, T, tmask, tu, 0.37), out)
+
+
+def test_two_stage_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
+    K1, K2, mask, u = _t(*_problem(3, 9, 11))
+    counts = (lk_mvm_stage_right.launches, lk_mvm_stage_left.launches)
+    T = lk_mvm_stage_right(u, mask, K2)
+    assert torch.equal(T, lk_mvm_stage_right_plain(u, mask, K2))
+    out = lk_mvm_stage_left(K1, T, mask, u, torch.tensor(0.2))
+    assert torch.equal(out, lk_mvm_stage_left_plain(K1, T, mask, u, 0.2))
+    # float64 u with leading batch dims: float32 inside, float64 out
+    u64 = u.double().reshape(3, 1, 9, 11)
+    both = lk_mvm_two_stage(K1, K2, mask, u64, 0.2)
+    assert both.dtype == torch.float64 and both.shape == u64.shape
+    assert torch.equal(both, lk_mvm_two_stage_plain(K1, K2, mask, u64, 0.2))
+    assert torch.equal(both.reshape(3, 9, 11).float(), out)
+    assert (lk_mvm_stage_right.launches, lk_mvm_stage_left.launches) == counts
+
+
+@pytest.mark.parametrize("case", ["f64_factor", "bad_K2", "strided_u",
+                                  "bad_T", "requires_grad", "empty"])
+def test_two_stage_wrappers_reject_what_the_kernels_do_not_take(case):
+    K1, K2, mask, u = _t(*_problem(2, 6, 5))
+    T = lk_mvm_stage_right_plain(u, mask, K2)
+    err = ValueError
+    if case == "f64_factor":
+        K2, err = K2.double(), TypeError
+    elif case == "bad_K2":
+        K2 = K2[:4, :4]
+    elif case == "strided_u":
+        u = torch.cat([u, u], dim=-1)[..., ::2]
+    elif case == "bad_T":
+        T = T[:1]
+    elif case == "requires_grad":
+        K2, err = K2.clone().requires_grad_(), NotImplementedError
+    elif case == "empty":
+        u = u[:0]
+    with pytest.raises(err):
+        lk_mvm_stage_right(u, mask, K2)
+        lk_mvm_stage_left(K1, T, mask, u, 0.1)
+
+
+# --------------------------------------------------------------------------
 # tensor oracles vs the reference at float64
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("shape", AWKWARD_SHAPES)
@@ -237,14 +304,24 @@ def test_lk_mvm_op_cpu_routes():
 
 
 @pytest.mark.parametrize("entry", ["op", "dispatcher"])
-def test_two_stage_slot_raises_not_falls_back(entry):
-    K1, K2, mask, u = _t(*_problem(1, 6, 5))
-    with pytest.raises(NotImplementedError, match="K2"):
+def test_two_stage_slot_raises_not_falls_back(entry, monkeypatch):
+    """fused=False reaches the two-stage wrapper (never the fused kernel),
+    and what the two-stage kernels do not compute (bf16 operands) raises
+    instead of running in float32."""
+    K1, K2, mask, u = _t(*_problem(2, 6, 5))
+    import repro_torch.kernels.lk_mvm as lk
+
+    def call(**kw):
         if entry == "op":
-            lk_mvm_op(K1, K2, mask, u, 0.1, force_kernel=True, fused=False,
-                      device="cpu")
-        else:
-            lk_mvm_cuda(K1, K2, mask, u, 0.1, fused=False)
+            return lk_mvm_op(K1, K2, mask, u, 0.1, force_kernel=True,
+                             fused=False, device="cpu", **kw)
+        return lk_mvm_cuda(K1, K2, mask, u, 0.1, fused=False, **kw)
+
+    monkeypatch.setattr(lk, "lk_mvm_fused", None)   # must not be reached
+    out = call()
+    assert torch.equal(out, lk_mvm_two_stage_plain(K1, K2, mask, u, 0.1))
+    with pytest.raises(NotImplementedError, match="bf16"):
+        call(precision="bf16")
 
 
 def test_rbf_gram_kernel_slot_raises_not_falls_back():

@@ -1,0 +1,355 @@
+"""PyTorch port, the objective of the fit path: SLQ, the stacked solve with
+probe columns, the differentiable kernel MVM (K5) and the marginal likelihood
+(value and gradient), each against its counterpart in the reference on the
+same numpy inputs. Probes are drawn once by the reference's PRNG and handed
+across, since ``torch.Generator`` and ``jax.random`` give different bits.
+"""
+import jax
+
+jax.config.update("jax_enable_x64", True)
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core as ref_core
+from repro.core import slq as ref_slq
+from repro.core.engines import _pallas_mvm as ref_pallas_mvm
+from repro.core.transforms import TTransform as RefTTransform
+from repro_torch.convert import probes_from_numpy
+from repro_torch.core import (GPData, KernelMVM, KernelMVMFunction,
+                              KernelOperator, LKGPConfig, LKGPParams,
+                              cg_solve_tridiag, get_engine, lk_operator,
+                              make_mll, make_mll_iterative, mll_cholesky,
+                              rademacher_probes)
+from repro_torch.core import engines as engines_mod
+from repro_torch.core import slq
+from repro_torch.data import sample_task
+from repro_torch.kernels import lk_mvm_two_stage_plain
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _problem(seed=5, n=14, m=11, d=4, t=None):
+    """Transformed-space data of a synthetic task and raw parameters away
+    from the prior mean, as numpy."""
+    task = sample_task(seed, n=n, m=m, d=d, **({} if t is None else {"t": t}))
+    tt = np.asarray(RefTTransform.fit(jnp.asarray(task.t))(jnp.asarray(task.t)))
+    rng = np.random.default_rng(seed)
+    raw = np.concatenate([rng.normal(1.0, 0.3, d), [-1.2, 0.3, -3.5]])
+    return task.X, tt, task.Y, task.mask, raw
+
+
+def _ref_params(raw, d):
+    return ref_core.LKGPParams(jnp.asarray(raw[:d]), jnp.asarray(raw[d]),
+                               jnp.asarray(raw[d + 1]), jnp.asarray(raw[d + 2]))
+
+
+def _ref_probes(p, mask, key=1):
+    return np.asarray(ref_slq.rademacher_probes(
+        jax.random.PRNGKey(key), p, jnp.asarray(mask), jnp.float64))
+
+
+def _spd_operator(seed=0, n=10, m=7, noise=0.3):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n))
+    K1 = A @ A.T / n + 0.2 * np.eye(n)
+    Bm = rng.standard_normal((m, m))
+    K2 = Bm @ Bm.T / m + 0.2 * np.eye(m)
+    lens = rng.integers(1, m + 1, n)
+    mask = (np.arange(m)[None, :] < lens[:, None]).astype(np.float64)
+    return K1, K2, mask, noise
+
+
+# --------------------------------------------------------------------------
+# SLQ
+# --------------------------------------------------------------------------
+def test_rademacher_probes_are_masked_signs_from_the_generator():
+    mask = _t(_spd_operator()[2])
+    draw = lambda seed: rademacher_probes(torch.Generator().manual_seed(seed),
+                                          5, mask, torch.float64)
+    z = draw(3)
+    assert z.shape == (5, *mask.shape) and z.dtype == torch.float64
+    assert torch.equal(z.abs(), mask.expand_as(z))
+    assert torch.equal(z, draw(3)) and not torch.equal(z, draw(4))
+    # squared norm of every probe == the observed count (the SLQ scaling)
+    assert torch.equal((z * z).sum((-2, -1)), mask.sum().expand(5))
+
+
+@pytest.mark.parametrize("k", [6, 25])
+def test_lanczos_and_slq_logdet_match_reference(k):
+    """Full-reorthogonalisation Lanczos and its quadrature on shared probes,
+    float64: to 1e-10."""
+    K1, K2, mask, noise = _spd_operator()
+    z = _ref_probes(4, mask)
+    A = lk_operator(_t(K1), _t(K2), _t(mask), noise)
+    RA = ref_core.lk_operator(jnp.asarray(K1), jnp.asarray(K2),
+                              jnp.asarray(mask), noise)
+    a, b = slq.lanczos(A, _t(z), k)
+    ra, rb = ref_slq.lanczos(RA, jnp.asarray(z), k)
+    np.testing.assert_allclose(a.numpy(), np.asarray(ra), atol=1e-10)
+    np.testing.assert_allclose(b.numpy(), np.asarray(rb), atol=1e-10)
+    N = float(mask.sum())
+    got = slq.slq_logdet(A, _t(z), k, N)
+    want = ref_slq.slq_logdet(RA, jnp.asarray(z), k, N)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-10)
+
+
+@pytest.mark.parametrize("max_rank", [4, 80])
+def test_tridiag_from_cg_and_its_logdet_match_reference(max_rank):
+    """The CG-Lanczos tridiagonals of one recorded solve, handed to both
+    packages' tridiag_from_cg and quadrature (float64, 1e-10). max_rank 80
+    exceeds the observed count (at most 70), so every column converges
+    inside the record and the identity padding is hit."""
+    K1, K2, mask, noise = _spd_operator(seed=2)
+    z = _ref_probes(5, mask, key=4)
+    A = lk_operator(_t(K1), _t(K2), _t(mask), noise)
+    _, tri = cg_solve_tridiag(A, _t(z), max_rank, tol=1e-10, max_iters=500)
+    assert int(tri.steps.max()) < max_rank or max_rank == 4
+    d, e = slq.tridiag_from_cg(tri.alphas, tri.betas, tri.steps)
+    rd, re = ref_slq.tridiag_from_cg(*(jnp.asarray(x.numpy()) for x in tri))
+    np.testing.assert_allclose(d.numpy(), np.asarray(rd), rtol=1e-12)
+    np.testing.assert_allclose(e.numpy(), np.asarray(re), rtol=1e-12)
+    N = float(mask.sum())
+    got = slq.slq_logdet_from_tridiag(d, e, N)
+    want = ref_slq.slq_logdet_from_tridiag(rd, re, N)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-10)
+
+
+def test_stacked_solve_logdet_matches_reference_and_warm_start_gives_none():
+    """solve_stacked with probe columns: solutions and the fused SLQ log-det
+    against the reference's engine (cg_tol 1e-10: 1e-8), and the reference's
+    rule that a warm start plus probes reports no log-det."""
+    X, t, Y, mask, raw = _problem()
+    d = X.shape[1]
+    z = _ref_probes(6, mask)
+    cfg = LKGPConfig(cg_tol=1e-10, cg_max_iters=2000, slq_iters=25)
+    rcfg = ref_core.LKGPConfig(cg_tol=1e-10, cg_max_iters=2000, slq_iters=25)
+    eng, reng = get_engine("iterative"), ref_core.get_engine("iterative")
+    p = LKGPParams(_t(raw[:d]), *(_t(raw[i]) for i in range(d, d + 3)))
+    A = eng.operator(p, GPData(_t(X), _t(t), None, _t(mask)), cfg)
+    RA = reng.operator(_ref_params(raw, d), ref_core.GPData(
+        jnp.asarray(X), jnp.asarray(t), None, jnp.asarray(mask)), rcfg)
+    rhs = np.concatenate([(Y * mask)[None], z])
+    N = float(mask.sum())
+    st = eng.solve_stacked(A, _t(rhs), cfg, probe_cols=6, subspace_dim=N)
+    rst = reng.solve_stacked(RA, jnp.asarray(rhs), rcfg, probe_cols=6,
+                             subspace_dim=N)
+    np.testing.assert_allclose(st.x.numpy(), np.asarray(rst.x), atol=1e-8)
+    np.testing.assert_allclose(float(st.logdet), float(rst.logdet),
+                               rtol=1e-8)
+    warm = eng.solve_stacked(A, _t(rhs), cfg, probe_cols=6, subspace_dim=N,
+                             x0=st.x)
+    rwarm = reng.solve_stacked(RA, jnp.asarray(rhs), rcfg, probe_cols=6,
+                               subspace_dim=N, x0=rst.x)
+    assert warm.logdet is None and rwarm.logdet is None
+
+
+# --------------------------------------------------------------------------
+# the differentiable kernel MVM (K5)
+# --------------------------------------------------------------------------
+def test_kernel_mvm_function_gradcheck_on_the_oracle_route():
+    """fast=None: the sweeps go to the float64 oracle, so finite differences
+    check the closed-form backward in K1, K2, u and noise."""
+    K1, K2, mask, _ = _spd_operator(n=5, m=4)
+    rng = np.random.default_rng(1)
+    u = rng.standard_normal((2, 5, 4)) * mask
+    args = [_t(K1).requires_grad_(), _t(K2).requires_grad_(), _t(mask),
+            _t(u).requires_grad_(), torch.tensor(0.3, dtype=torch.float64,
+                                                 requires_grad=True)]
+    assert torch.autograd.gradcheck(
+        lambda K1, K2, mask, u, noise: KernelMVMFunction.apply(
+            K1, K2, mask, u, noise, None, True), args)
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 3), (3, 13, 16), (2, 30, 21)])
+def test_kernel_mvm_vjp_matches_reference_pallas_mvm(shape):
+    """dK1, dK2, dnoise and du of the port's kernel operator (float32 plain
+    route on the CPU) against jax.vjp of the reference's _pallas_mvm (its
+    Pallas kernel in interpret mode), same float32 inputs and cotangent:
+    float32 rounding, 1e-5 of each gradient's largest entry; for the scalar
+    dnoise, a float32 sum of B n m signed terms, 1e-5 of the sum of their
+    magnitudes."""
+    B, n, m = shape
+    K1, K2, mask, _ = _spd_operator(seed=B + n, n=n, m=m)
+    rng = np.random.default_rng(n)
+    u = (rng.standard_normal(shape) * mask).astype(np.float32)
+    g = (rng.standard_normal(shape) * mask).astype(np.float32)
+    K1, K2, mask = (x.astype(np.float32) for x in (K1, K2, mask))
+    noise = np.float32(0.3)
+    out, vjp = jax.vjp(ref_pallas_mvm, *map(jnp.asarray, (K1, K2, mask, u)),
+                       jnp.asarray(noise))
+    want = vjp(jnp.asarray(g))
+    leaves = [_t(K1).requires_grad_(), _t(K2).requires_grad_(), _t(mask),
+              _t(u).requires_grad_(), torch.tensor(noise, requires_grad=True)]
+    A = KernelOperator(*leaves[:3], leaves[4])
+    got_out = A(leaves[3])
+    np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out),
+                               atol=1e-5 * float(np.abs(out).max()))
+    got = torch.autograd.grad(got_out, [leaves[i] for i in (0, 1, 3, 4)],
+                              _t(g))
+    noise_scale = float(np.abs(g * mask * u * mask).sum())
+    for a, b in zip(got, [want[i] for i in (0, 1, 3, 4)]):
+        b = np.asarray(b)
+        scale = noise_scale if b.ndim == 0 else float(np.abs(b).max())
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-5 * scale, rtol=0)
+
+
+def test_kernel_mvm_computes_du_only_when_asked(monkeypatch):
+    """One sweep forward; the backward sweeps again (du = A(g)) only when u
+    needs a gradient, so the MLL's h(theta) costs exactly two sweeps."""
+    calls = []
+    real = engines_mod._sweep
+    monkeypatch.setattr(engines_mod, "_sweep",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    K1, K2, mask, noise = _spd_operator()
+    rng = np.random.default_rng(0)
+    u = _t(rng.standard_normal((2, *mask.shape)) * mask)
+    K1t = _t(K1).requires_grad_()
+    A = KernelOperator(K1t, _t(K2), _t(mask), noise)
+    out = A(u)
+    assert len(calls) == 1
+    torch.autograd.grad(out.sum(), K1t)
+    assert len(calls) == 1
+    u.requires_grad_()
+    torch.autograd.grad(A(u).sum(), [K1t, u])
+    assert len(calls) == 3
+
+
+# --------------------------------------------------------------------------
+# the marginal likelihood, value and gradient
+# --------------------------------------------------------------------------
+# engine -> (reference engine, cg_tol, relative tolerance on value and on the
+# gradient's largest entry). dense: rounding. iterative: both CG runs at
+# 1e-10, the log-det from the same recorded steps. cuda: the float32 plain
+# route against the reference's float32 Pallas kernel, CG at 1e-5 (near a
+# float32 MVM's floor). The two solves stop at different points, each within
+# cg_tol by its own criterion (the port's true residual is taken in float64,
+# the reference's through its float32 kernel), so they are held to
+# 10 cg_tol; 2e-6 and 2.2e-5 were seen at two parameter points.
+MLL_CASES = {"dense": ("dense", 1e-10, 1e-10),
+             "iterative": ("iterative", 1e-10, 1e-8),
+             "cuda": ("pallas", 1e-5, 1e-4)}
+
+
+def _mll_both(backend, raw, X, t, Y, mask, z, **cfg_kw):
+    ref_backend, cg_tol, _ = MLL_CASES[backend]
+    cfg = {"cg_tol": cg_tol, "cg_max_iters": 2000, "slq_probes": z.shape[0],
+           "slq_iters": 25, **cfg_kw}
+    d = X.shape[1]
+    rmll = ref_core.make_mll(ref_core.LKGPConfig(**cfg),
+                             ref_core.get_engine(ref_backend))
+    rv, rg = jax.value_and_grad(lambda p: rmll(
+        p, *map(jnp.asarray, (X, t, Y, mask, z))))(_ref_params(raw, d))
+    rg = np.concatenate([np.ravel(np.asarray(a)) for a in rg])
+    x = _t(raw).requires_grad_()
+    p = LKGPParams(x[:d], x[d], x[d + 1], x[d + 2])
+    mll = make_mll(LKGPConfig(**cfg), get_engine(backend))
+    v = mll(p, *map(_t, (X, t, Y, mask)), probes_from_numpy(z, _t(mask)))
+    (g,) = torch.autograd.grad(v, x)
+    return float(v.detach()), g.numpy(), float(rv), rg
+
+
+@pytest.mark.parametrize("backend", sorted(MLL_CASES))
+def test_mll_value_and_gradient_match_reference(backend):
+    X, t, Y, mask, raw = _problem()
+    z = _ref_probes(8, mask)
+    v, g, rv, rg = _mll_both(backend, raw, X, t, Y, mask, z)
+    tol = MLL_CASES[backend][2]
+    assert abs(v - rv) <= tol * abs(rv)
+    assert np.abs(g - rg).max() <= tol * np.abs(rg).max()
+
+
+def test_mll_cholesky_matches_a_numpy_cholesky_of_the_joint_matrix():
+    """The exact MLL against float64 numpy on the assembled (nm, nm) matrix
+    of the observed block, and equal to the dense engine's make_mll."""
+    X, t, Y, mask, raw = _problem(n=9, m=7)
+    d = X.shape[1]
+    p = LKGPParams(_t(raw[:d]), *(_t(raw[i]) for i in range(d, d + 3)))
+    got = float(mll_cholesky(p, *map(_t, (X, t, Y, mask))))
+    ls = np.exp(raw[:d])
+    K1 = np.exp(-0.5 * (((X[:, None] - X[None]) / ls) ** 2).sum(-1))
+    K2 = np.exp(raw[d + 1]) * np.exp(-np.abs(t[:, None] - t[None])
+                                     / np.exp(raw[d]))
+    K = np.kron(K1 + 1e-6 * np.eye(len(X)), K2 + 1e-6 * np.eye(len(t)))
+    obs = mask.reshape(-1) > 0
+    Ko = K[np.ix_(obs, obs)] + np.exp(raw[d + 2]) * np.eye(obs.sum())
+    y = Y.reshape(-1)[obs]
+    L = np.linalg.cholesky(Ko)
+    a = np.linalg.solve(L.T, np.linalg.solve(L, y))
+    want = (-0.5 * y @ a - np.log(np.diag(L)).sum()
+            - 0.5 * obs.sum() * np.log(2 * np.pi))
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+    dense = make_mll(LKGPConfig(), get_engine("dense"))
+    np.testing.assert_allclose(float(dense(p, *map(_t, (X, t, Y, mask)))),
+                               want, rtol=1e-10)
+
+
+def test_mll_on_a_non_uniform_grid_matches_the_reference_iterative_value():
+    """The case of the reference's test_backend_parity_mll_nonuniform_grid:
+    seed 19, a non-uniform budget grid, 256 probes from PRNGKey(2), prior-mean
+    parameters. The port's iterative MLL equals the reference's iterative MLL
+    on those probes (1e-8). Both stand 14.2 % from the exact mll_cholesky
+    value (iterative 5.89934 in both packages, exact 5.16457), outside the
+    5 % band the reference's own test asserts; this test holds the port to
+    the reference, not to that band."""
+    t_log = np.array([1.0, 2.0, 3.0, 8.0, 30.0, 150.0, 256.0])
+    X, t, Y, mask, _ = _problem(seed=19, n=6, d=4, t=t_log)
+    raw = np.concatenate([np.full(4, np.sqrt(2.0) + 0.5 * np.log(4)),
+                          [np.log(0.25), 0.0, -4.0]])
+    z = _ref_probes(256, mask, key=2)
+    v, _, rv, _ = _mll_both("iterative", raw, X, t, Y, mask, z, slq_iters=30,
+                            cg_tol=1e-8)
+    assert abs(v - rv) <= 1e-8 * abs(rv)
+    d = X.shape[1]
+    p = LKGPParams(_t(raw[:d]), *(_t(raw[i]) for i in range(d, d + 3)))
+    exact = float(mll_cholesky(p, *map(_t, (X, t, Y, mask))))
+    assert abs(v - exact) / abs(exact) == pytest.approx(
+        abs(rv - exact) / abs(exact), rel=1e-6)
+
+
+def test_two_stage_mll_equals_the_fused_one_on_the_cpu():
+    """make_mll_iterative(cfg, KernelMVM(fused=False)) threads the two-stage
+    kernels into the objective. On the CPU both kernels' plain versions do
+    the same float32 arithmetic, so value and gradient are bit-identical to
+    the cuda engine's."""
+    X, t, Y, mask, raw = _problem()
+    z = probes_from_numpy(_ref_probes(8, mask), _t(mask))
+    cfg = LKGPConfig(cg_tol=1e-4, slq_probes=8)
+    d = X.shape[1]
+    out = []
+    for mll in (make_mll(cfg, get_engine("cuda")),
+                make_mll_iterative(cfg, KernelMVM(fused=False))):
+        x = _t(raw).requires_grad_()
+        v = mll(LKGPParams(x[:d], x[d], x[d + 1], x[d + 2]),
+                *map(_t, (X, t, Y, mask)), z)
+        out.append((v.detach(), torch.autograd.grad(v, x)[0]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    # called directly, KernelMVM follows the mvm(K1, K2, mask, u, noise=...)
+    # convention: the two-stage kernels' plain version on float32 copies
+    K1, K2, mask, noise = _spd_operator()
+    u = _t(np.random.default_rng(3).standard_normal((2, *mask.shape)) * mask)
+    got = KernelMVM(fused=False)(*map(_t, (K1, K2, mask)), u, noise=noise)
+    f = lambda a: _t(a).float()
+    assert got.dtype == torch.float64
+    assert torch.equal(got, lk_mvm_two_stage_plain(f(K1), f(K2), f(mask), u,
+                                                   torch.tensor(noise).float()))
+
+
+def test_mll_gives_no_gradient_to_the_data_and_probes():
+    X, t, Y, mask, raw = _problem(n=8, m=6)
+    d = X.shape[1]
+    data = [_t(a).requires_grad_() for a in (X, t, Y)]
+    z = probes_from_numpy(_ref_probes(4, mask), _t(mask)).requires_grad_()
+    p = LKGPParams(_t(raw[:d]).requires_grad_(),
+                   *(_t(raw[i]).requires_grad_() for i in range(d, d + 3)))
+    v = make_mll(LKGPConfig(cg_tol=1e-8), get_engine("iterative"))(
+        p, *data, _t(mask), z)
+    grads = torch.autograd.grad(v, [*p, *data, z], allow_unused=True)
+    assert all(g is not None and bool(torch.isfinite(g).all())
+               for g in grads[:4])
+    assert all(g is None for g in grads[4:])
