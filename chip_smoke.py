@@ -15,21 +15,29 @@ checks that they ran through the kernels:
   LCBench shape, through K1 (the ``cuda`` engine) and through the two-stage
   kernels K2a + K2b (``make_mll_iterative(cfg, KernelMVM(fused=False))``):
   every objective evaluation costs the stacked solve's CG iterations plus 2
-  launches of each.
+  launches of each;
+* the ``distributed`` engine inside an NCCL process group of one rank (so
+  its all-gather runs): a float32 state served with every CG sweep one launch
+  of the row-shard kernel K3, a float64 fit through its exact body, and the
+  row-sharded ``dist_mll_value``;
+* ``rbf_gram_op``, the RBF Gram matrix through kernel K4.
 
 Any failed check raises; nothing is caught, so the exit code is non-zero.
 Without a CUDA device the script exits non-zero before printing any result.
 
 Phases, one JSON line each: device, build, kernels, serve (n=8192, m=64),
 serve_lcbench (n=2000, m=52, also against the ``iterative`` engine), exact
-(n=24, m=16 against the ``dense`` engine), fit (n=2000, m=52, d=7). Then a
-summary line ``{"kernels": [...]}``, the card's name and power limit as
-``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
+(n=24, m=16 against the ``dense`` engine), fit (n=2000, m=52, d=7),
+distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64 fit), gram
+(n=8192 and n=2000, d=7). Then a summary line ``{"kernels": [...]}``, the
+card's name and power limit as ``nvidia-smi`` gives them, and last
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -46,25 +54,32 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import torch.distributed as dist  # noqa: E402
 from repro_torch import state_from_reference  # noqa: E402
-from repro_torch.core import (LKGPConfig, fit, get_engine,  # noqa: E402
-                              init_params, log_prior, make_mll,
+from repro_torch.core import (DistributedEngine, LKGPConfig,  # noqa: E402
+                              fit, get_engine, gram_matrices, init_params,
+                              lk_mvm, log_prior, make_mll,
                               make_mll_iterative, posterior,
                               rademacher_probes)
 from repro_torch.core.engines import (IterativeEngine,  # noqa: E402
                                       KernelEngine, KernelMVM,
                                       LatentKroneckerOperator)
+from repro_torch.core.matheron import prior_residual_draws  # noqa: E402
 from repro_torch.core.posterior import joint_grams  # noqa: E402
 from repro_torch.core.state import (_fit_transforms,  # noqa: E402
                                     _flatten_params, _unflatten_params)
 from repro_torch.core.transforms import (TTransform, XTransform,  # noqa: E402
                                          YTransform)
 from repro_torch.data import sample_task  # noqa: E402
+from repro_torch.distributed import dist_mll_value  # noqa: E402
+from repro_torch.kernels import rbf_gram_op  # noqa: E402
 from repro_torch.kernels._build import build_log, load_library  # noqa: E402
+from repro_torch.kernels.gram import rbf_gram_cuda, rbf_gram_plain  # noqa: E402
 from repro_torch.kernels.lk_mvm import (  # noqa: E402
-    lk_mvm_fused, lk_mvm_fused_plain, lk_mvm_stage_left,
-    lk_mvm_stage_left_plain, lk_mvm_stage_right, lk_mvm_stage_right_plain,
-    lk_mvm_two_stage, lk_mvm_two_stage_plain)
+    lk_mvm_fused, lk_mvm_fused_plain, lk_mvm_fused_rows,
+    lk_mvm_fused_rows_plain, lk_mvm_stage_left, lk_mvm_stage_left_plain,
+    lk_mvm_stage_right, lk_mvm_stage_right_plain, lk_mvm_two_stage,
+    lk_mvm_two_stage_plain)
 from repro_torch.kernels.ref import lk_mvm_ref  # noqa: E402
 
 SEED = 0
@@ -90,7 +105,27 @@ KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
 TIMED_SHAPES = KERNEL_SHAPES[3:]
 MAIN_SHAPE = (65, 8192, 64)
 FIT_MAIN_SHAPE = (17, 2000, 52)
-KERNEL_SOURCES = ("lk_mvm_fused", "lk_mvm_two_stage")
+KERNEL_SOURCES = ("lk_mvm_fused", "lk_mvm_two_stage", "lk_mvm_fused_rows",
+                  "rbf_gram")
+# Kernel K3, the row-shard MVM, as (B, n_local, n, m): a world of one rank
+# (n_local = n) at the serving shapes of the distributed phase (B = 65 for
+# final(), 1 for a mean); one rank's share of a 4-way split of n = 8192; the
+# fit path's shape; and two ragged row shards (not the first shard, whose
+# rows would line up with the k sweep). Checked in f32 and bf16 each.
+ROWS_SHAPES = [(3, 65, 130, 70), (2, 50, 100, 21), (17, 2000, 2000, 52),
+               (1, 8192, 8192, 64), (65, 2048, 8192, 64), (65, 8192, 8192, 64)]
+ROWS_TIMED = ROWS_SHAPES[2:]
+ROWS_MAIN_SHAPE = (65, 8192, 8192, 64)
+# Kernel K4, the RBF Gram matrix, as (n, p, d): the serving task's configs,
+# the LCBench shape, a ragged tile and d spanning several chunks.
+GRAM_SHAPES = [(130, 70, 10), (16, 16, 260), (2000, 2000, 7),
+               (8192, 8192, 7)]
+GRAM_TIMED = GRAM_SHAPES[2:]
+GRAM_MAIN_SHAPE = (8192, 8192, 7)
+# K4 against its plain version and against the float64 oracle: float32 with
+# another summation order, as the reference holds its kernel (3e-5), in units
+# of max|K|.
+GRAM_TOL = 3e-5
 # Output tile of one thread block (TI, TJ of lk_mvm_fused.cu), for the count
 # of blocks a shape gives the card's 132 SMs.
 KERNEL_TILE = (128, 64)
@@ -175,18 +210,44 @@ def bound_two_stage_ms(stage: str, B: int, n: int, m: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+WRAPPERS = {"lk_mvm_fused": lk_mvm_fused,
+            "lk_mvm_stage_right": lk_mvm_stage_right,
+            "lk_mvm_stage_left": lk_mvm_stage_left,
+            "lk_mvm_fused_rows": lk_mvm_fused_rows,
+            "rbf_gram": rbf_gram_cuda}
+
+
 def launch_counts(since: dict | None = None) -> dict:
     """Each kernel wrapper's launch count (minus ``since``)."""
-    now = {"lk_mvm_fused": lk_mvm_fused.launches,
-           "lk_mvm_stage_right": lk_mvm_stage_right.launches,
-           "lk_mvm_stage_left": lk_mvm_stage_left.launches}
-    return {k: v - (since or {}).get(k, 0) for k, v in now.items()}
+    return {k: w.launches - (since or {}).get(k, 0)
+            for k, w in WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    lk_mvm_fused.launches = 0
-    lk_mvm_stage_right.launches = 0
-    lk_mvm_stage_left.launches = 0
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def bound_rows_ms(B: int, n_local: int, n: int, m: int,
+                  precision: str) -> tuple[float, str]:
+    """bound_ms of the row-shard kernel K3: um_full @ K2 over all n rows,
+    then the (n_local, n) product; K1_rows, um_full, mask_rows, u_rows and
+    K2 read once, the output written once."""
+    flops = 2.0 * B * (n * m * m + n_local * n * m)
+    nbytes = 4.0 * (n_local * n + B * n * m + 3 * B * n_local * m + m * m)
+    t_ops = flops / PEAK_FLOPS[precision] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_gram_ms(n: int, p: int, d: int) -> tuple[float, str]:
+    """bound_ms of the Gram kernel K4: 2 n p d flops (float32 FMAs); x1,
+    x2 read once, K written once."""
+    flops = 2.0 * n * p * d
+    nbytes = 4.0 * (n * p + (n + p) * d)
+    t_ops = flops / PEAK_FLOPS["f32"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def mvm_problem(B: int, n: int, m: int, gen: torch.Generator):
@@ -321,7 +382,116 @@ def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
     return rows
 
 
-def make_state(task_seed: int, n: int, m: int, d: int, **config):
+def fused_rows_rows() -> list[dict]:
+    """Kernel K3 against its plain version on the card at ROWS_SHAPES, f32
+    and bf16, timed at ROWS_TIMED. The shard is the last n_local rows of an
+    (n, m) grid; um_full is the whole grid's mask * u."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 10)
+    rows_out = []
+    for (B, n_local, n, m) in ROWS_SHAPES:
+        K1, K2, mask, u, noise = mvm_problem(B, n, m, gen)
+        rows = slice(n - n_local, n)
+        K1r, mask_r = K1[rows], mask[rows].contiguous()
+        u_r = u[:, rows].contiguous()
+        um_full = mask * u
+        del K1
+        for precision in ("f32", "bf16"):
+            args = (K1r, K2, mask_r, u_r, um_full, noise)
+            ref = lk_mvm_fused_rows_plain(*args, precision=precision)
+            out = lk_mvm_fused_rows(*args, precision=precision)
+            torch.cuda.synchronize()
+            check(out.shape == u_r.shape and out.dtype == torch.float32,
+                  f"lk_mvm_fused_rows output {out.shape}/{out.dtype}")
+            check(bool(torch.isfinite(out).all()),
+                  "lk_mvm_fused_rows output not finite")
+            scale = float(ref.abs().max())
+            err = float((out - ref).abs().max())
+            tol = KERNEL_TOL[precision] * scale
+            row = {"name": "lk_mvm_fused_rows",
+                   "tpu": "src/repro/kernels/lk_mvm.py:371",
+                   "precision": precision, "shape": [B, n_local, n, m],
+                   "max_err": err, "tol": tol, "ref_scale": scale}
+            if precision == "f32":
+                truth = (mask_r.double() * (K1r.double() @ (
+                    um_full.double() @ K2.double()))
+                    + float(noise) * mask_r.double() * u_r.double())
+                row["max_err_vs_float64"] = float(
+                    (out.double() - truth).abs().max())
+                check(row["max_err_vs_float64"] <= tol,
+                      f"lk_mvm_fused_rows f32 vs float64 at "
+                      f"{(B, n_local, n, m)}: {row['max_err_vs_float64']:.3e}")
+                del truth
+            if (B, n_local, n, m) in ROWS_TIMED:
+                bound, bound_by = bound_rows_ms(B, n_local, n, m, precision)
+                row.update(
+                    blocks=B * -(-n_local // KERNEL_TILE[0])
+                    * -(-m // KERNEL_TILE[1]),
+                    ms=time_ms(lambda: lk_mvm_fused_rows(
+                        *args, precision=precision)),
+                    plain_ms=time_ms(lambda: lk_mvm_fused_rows_plain(
+                        *args, precision=precision)),
+                    library_ms=time_ms(lambda: mask_r * torch.matmul(
+                        K1r, torch.matmul(um_full, K2))
+                        + noise * mask_r * u_r),
+                    bound_ms=bound, bound_by=bound_by)
+            rows_out.append(row)
+            check(err <= tol, f"lk_mvm_fused_rows {precision} at "
+                              f"{(B, n_local, n, m)}: max err {err:.3e} > "
+                              f"tol {tol:.3e}")
+        del K1r, K2, mask, u, mask_r, u_r, um_full, out, ref
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def gram_rows() -> list[dict]:
+    """Kernel K4 against its plain version and the float64 oracle on the
+    card at GRAM_SHAPES (outputscale a device tensor), timed at GRAM_TIMED."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 11)
+    out_rows = []
+    for (n, p, d) in GRAM_SHAPES:
+        x1 = torch.rand((n, d), generator=gen, device=DEV)
+        x2 = torch.rand((p, d), generator=gen, device=DEV)
+        ls = torch.exp(0.3 * torch.randn((d,), generator=gen, device=DEV))
+        os_ = torch.tensor(1.7, device=DEV)
+        ref = rbf_gram_plain(x1, x2, ls, os_)
+        out = rbf_gram_cuda(x1, x2, ls, os_)
+        torch.cuda.synchronize()
+        check(out.shape == (n, p) and out.dtype == torch.float32,
+              f"rbf_gram output {out.shape}/{out.dtype}")
+        check(bool(torch.isfinite(out).all()), "rbf_gram output not finite")
+        scale = float(ref.abs().max())
+        err = float((out - ref).abs().max())
+        truth = 1.7 * torch.exp(-0.5 * torch.cdist(
+            x1.double() / ls.double(), x2.double() / ls.double()) ** 2)
+        err64 = float((out.double() - truth).abs().max())
+        tol = GRAM_TOL * scale
+        row = {"name": "rbf_gram", "tpu": "src/repro/kernels/gram.py:81",
+               "precision": "f32", "shape": [n, p, d], "max_err": err,
+               "tol": tol, "ref_scale": scale, "max_err_vs_float64": err64}
+        if (n, p, d) in GRAM_TIMED:
+            bound, bound_by = bound_gram_ms(n, p, d)
+            z1, z2 = x1 / ls, x2 / ls
+            row.update(
+                blocks=-(-n // 64) * -(-p // 64),
+                ms=time_ms(lambda: rbf_gram_cuda(x1, x2, ls, os_)),
+                plain_ms=time_ms(lambda: rbf_gram_plain(x1, x2, ls, os_)),
+                library_ms=time_ms(lambda: os_ * torch.exp(
+                    -0.5 * torch.cdist(z1, z2) ** 2)),
+                bound_ms=bound, bound_by=bound_by)
+        out_rows.append(row)
+        check(err <= tol, f"rbf_gram at {(n, p, d)}: max err {err:.3e} > "
+                          f"tol {tol:.3e}")
+        check(err64 <= tol, f"rbf_gram vs float64 at {(n, p, d)}: "
+                            f"{err64:.3e} > tol {tol:.3e}")
+        del x1, x2, ref, out, truth
+        torch.cuda.empty_cache()
+    return out_rows
+
+
+def make_state(task_seed: int, n: int, m: int, d: int,
+               dtype: torch.dtype = torch.float64, **config):
     """A serving state at the prior-mean parameters: synthetic task, the
     transforms fitted to it, carried across through state_from_reference."""
     task = sample_task(task_seed, n=n, m=m, d=d)
@@ -336,8 +506,7 @@ def make_state(task_seed: int, n: int, m: int, d: int, **config):
               "y_tf.shift": y_tf.shift, "y_tf.scale": y_tf.scale}
     arrays.update({f"params.{k}": v for k, v in params._asdict().items()})
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
-    return state_from_reference(arrays, config, dtype=torch.float64,
-                                device=DEV)
+    return state_from_reference(arrays, config, dtype=dtype, device=DEV)
 
 
 class PlainFloat32Engine(IterativeEngine):
@@ -354,21 +523,23 @@ class PlainFloat32Engine(IterativeEngine):
 
 
 class Request:
-    """Times one request and holds its solves against the launch counter."""
+    """Times one request and holds its solves against the launch counter
+    of one kernel wrapper (K1's unless told otherwise)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, wrapper=lk_mvm_fused):
         self.name = name
+        self.wrapper = wrapper
 
     def __enter__(self):
         torch.cuda.synchronize()
-        self.launches0 = lk_mvm_fused.launches
+        self.launches0 = self.wrapper.launches
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
         self.seconds = time.perf_counter() - self.t0
-        self.launches = lk_mvm_fused.launches - self.launches0
+        self.launches = self.wrapper.launches - self.launches0
         return False
 
 
@@ -450,6 +621,7 @@ def phase_serve(phase: str, n: int, m: int, d: int, n_new: int,
     with Request("new_configs_mean") as req:
         post3 = posterior(state, Xs=Xs)
         mean3 = post3.mean
+    answers = {"final": (mean, var), "new_configs_mean": mean3}
     s = check_solve(post3, req, cg_tol)
     check(req.launches == s["iters"], "mean: launches != CG iterations")
     check(mean3.shape == (n + n_new, m) and bool(torch.isfinite(mean3).all()),
@@ -510,7 +682,7 @@ def phase_serve(phase: str, n: int, m: int, d: int, n_new: int,
             out["vs_iterative"].append(row)
             check(gap <= row["tol"], f"cuda vs iterative mean at cg_tol={tol}:"
                                      f" gap {gap:.3e} > {row['tol']:.3e}")
-    return out, lambda: float32_sweep_error(state, x_final)
+    return out, lambda: float32_sweep_error(state, x_final), answers
 
 
 def phase_exact() -> dict:
@@ -715,6 +887,305 @@ def phase_fit(n: int, m: int, d: int) -> dict:
     return out
 
 
+# The distributed phase (its tolerances fixed before the first run on the
+# card, PERF.md). A float32 state of the serve task is served through the
+# distributed engine, every CG sweep one launch of K3; the float32 CG has no
+# float64 operator to take its residuals from, so it stops on its own
+# recursion, and its answer is held against the cuda engine's on the float64
+# state (the same draws) within a few times the stopping error of two
+# correct solves. Mean: 3.8 cg_tol * max|mean| measured between the cuda and
+# iterative engines at n = 2000 on an H100 (phase serve_lcbench). Variance: a
+# solve stopped at cg_tol moves each Matheron sample by about cg_tol times
+# the prior's scale, so the variance moves by up to ~2 sqrt(var) * cg_tol *
+# prior std, far more than cg_tol * var where the posterior is narrow;
+# measured on the CPU at n = 1000: 6 of these units between the float32
+# distributed and the float64 engines, 5.4 between two float64 engines.
+DIST_MEAN_TOL = 10.0    # times cg_tol * max|mean| of the float64 answer
+DIST_VAR_TOL = 20.0     # times cg_tol * sqrt(max var) * prior std (y units)
+# The float64 fit through the distributed engine's exact body against the
+# iterative engine's fit (same probes, same init): the same arithmetic in
+# another layout, so the same objective up to rounding.
+DIST_FIT_TOL = 1e-6     # relative gap of the final objectives
+# dist_mll_value (its own CG, the reference's, to 1e-6) against the
+# iterative engine's solve to the same tolerance.
+DIST_MLL_CG_TOL = 1e-6
+DIST_MLL_TOL = 1e-4     # relative gap of -1/2 y^T K^-1 y
+RENDEZVOUS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def init_process_group(backend: str = "nccl") -> Path:
+    """One rank, rendezvous through a file inside the checkout (no ports, no
+    network). Raises if the backend cannot start: there is no fallback."""
+    RENDEZVOUS_DIR.mkdir(parents=True, exist_ok=True)
+    path = RENDEZVOUS_DIR / f"rendezvous-{os.getpid()}-{time.time_ns()}"
+    if backend == "nccl":
+        torch.cuda.set_device(DEV)
+    dist.init_process_group(backend, init_method=f"file://{path}", rank=0,
+                            world_size=1)
+    return path
+
+
+def close_process_group(path: Path) -> None:
+    dist.destroy_process_group()
+    path.unlink(missing_ok=True)
+
+
+def default_draws(n: int, m: int, s: int, seed: int):
+    """The standard normals (Z, E) of a state's default posterior samples:
+    stream (seed, 1), float64, as ``Posterior`` draws them."""
+    stream = sys.modules["repro_torch.core.posterior"]._stream
+    gen = stream(seed, 1, DEV)
+    Z = torch.randn((s, n, m), dtype=torch.float64, device=DEV, generator=gen)
+    E = torch.randn((s, n, m), dtype=torch.float64, device=DEV, generator=gen)
+    return Z, E
+
+
+def float64_residuals(state, x, normals) -> torch.Tensor:
+    """||b - A x|| / ||b|| per column of the stacked solve [y | residuals] of
+    a float32 state's final(), with A and b taken in float64 from the same
+    float32 Gram factors and draws (made as ``Posterior`` makes them, from
+    float64 Grams): the float32 CG's own error."""
+    cfg = state.config
+    n = state.n
+    K1a, K2 = joint_grams(state)
+    K1d, K2d = joint_grams(state, dtype=torch.float64)
+    noise = torch.exp(state.params.raw_noise)
+    F, eps = prior_residual_draws(None, K1d, K2d, n, noise.double(),
+                                  x.shape[0] - 1, jitter=cfg.jitter,
+                                  normals=normals)
+    del K1d, K2d
+    resid = state.mask * (F[:, :n].to(K1a.dtype) + eps.to(K1a.dtype))
+    b = torch.cat([(state.y_tf(state.Y) * state.mask)[None], resid]).double()
+    del F, eps, resid
+    r = b - lk_mvm(K1a[:n, :n].double(), K2.double(), state.mask.double(),
+                   x.double(), noise.double())
+    return torch.linalg.vector_norm(r, dim=(-2, -1)) \
+        / torch.linalg.vector_norm(b, dim=(-2, -1))
+
+
+def phase_distributed(n: int, m: int, d: int, n_new: int,
+                      reference: dict | None = None,
+                      reference_fit: dict | None = None) -> dict:
+    """The distributed engine inside the initialised process group.
+
+    (1) A float32 state of the serve task (prior-mean parameters) served
+    through ``posterior(state, engine=DistributedEngine())``: ``final()``
+    (one stacked solve, B = 65; its default draws are the float64 state's,
+    both made in float64 from stream (seed, 1)) and the
+    mean at ``n_new`` new configurations, every CG sweep one launch of K3
+    (iterations + 2: the float32 CG's start and end residuals go through the
+    same operator). Held against the cuda engine on the float64 state
+    (``reference``: the serve phase's answers, recomputed when absent).
+    (2) ``fit`` with ``backend="distributed"`` on the float64 LCBench task
+    (exact body, no kernel) against the iterative engine's fit
+    (``reference_fit``, recomputed when absent). (3) ``dist_mll_value`` at
+    the same shape."""
+    from repro_torch.distributed import gather_rows, group_layout
+    group, _, world = group_layout()
+    check(group is not None and world == 1,
+          "the distributed phase needs a process group of one rank")
+    out = {"phase": "distributed", "backend": dist.get_backend(group),
+           "world_size": world, "n": n, "m": m, "d": d, "dtype": "float32"}
+    # The one collective per sweep, alone: the all-gather of the output rows
+    # at the serving sweep's shape (float32) and the fit's (float64).
+    out["all_gather_ms"] = {}
+    for B, gn, gm, dt in ((65, n, m, torch.float32),
+                          (FIT_CONFIG["slq_probes"] + 1, FIT_SHAPE["n"],
+                           FIT_SHAPE["m"], torch.float64)):
+        x = torch.zeros((B, gn, gm), dtype=dt, device=DEV)
+        out["all_gather_ms"][f"{(B, gn, gm)} {dt}".replace("torch.", "")] = \
+            time_ms(lambda: gather_rows(x, group, world))
+        del x
+    s = 64
+    st32 = make_state(SEED, n, m, d, dtype=torch.float32, backend="distributed",
+                      posterior_samples=s, seed=SEED)
+    cg_tol = st32.config.cg_tol
+    rng = np.random.default_rng(SEED + 1)
+    Xs = rng.uniform(0, 1, (n_new, d))
+    if reference is None:
+        st64 = make_state(SEED, n, m, d, backend="cuda", posterior_samples=s,
+                          seed=SEED)
+        reference = {"final": posterior(st64).final(),
+                     "new_configs_mean": posterior(st64, Xs=Xs).mean}
+        del st64
+    normals = default_draws(n, m, s, SEED)
+    engine = DistributedEngine()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+
+    with Request("final", lk_mvm_fused_rows) as req:
+        post = posterior(st32, engine=engine)
+        mean, var = post.final()
+    info = post.solve_info
+    iters = int(info.iters)
+    check(post._operator.fused, "float32 state: the operator must take K3")
+    check(post.solve_count == 1 and info.x.shape[0] == s + 1,
+          "final() must be ONE stacked solve of 65 columns")
+    check(req.launches == iters + 2,
+          f"final: {req.launches} K3 launches for {iters} CG iterations + 2")
+    check(not bool(info.breakdown.any()), "final: CG breakdown")
+    check(mean.shape == (n,) and var.shape == (n,)
+          and bool(torch.isfinite(mean).all() and torch.isfinite(var).all()
+                   and (var > 0).all()), "final() values")
+    rel64 = float64_residuals(st32, info.x, normals)
+    mean64, var64 = reference["final"]
+    row = {"request": "final", "seconds": req.seconds,
+           "launches": req.launches, "iters": iters,
+           "columns": int(info.rel_residual.numel()),
+           "cg_rel_residual_max": float(info.rel_residual.max()),
+           "cg_rel_residual_median": float(info.rel_residual.median()),
+           "float64_rel_residual_max": float(rel64.max()),
+           "float64_rel_residual_median": float(rel64.median()),
+           "mean_gap": float((mean.double() - mean64).abs().max()),
+           "mean_scale": float(mean64.abs().max()),
+           "var_gap": float((var.double() - var64).abs().max()),
+           "var_scale": float(var64.abs().max())}
+    prior_std = float(torch.sqrt(st32.y_tf.inverse_var(
+        torch.exp(st32.params.raw_outputscale.double()))))
+    row["mean_tol"] = DIST_MEAN_TOL * cg_tol * row["mean_scale"]
+    row["var_tol"] = (DIST_VAR_TOL * cg_tol * row["var_scale"] ** 0.5
+                      * prior_std)
+    row["prior_std"] = prior_std
+    out["requests"] = [row]
+    check(row["mean_gap"] <= row["mean_tol"],
+          f"distributed final mean vs cuda float64: {row['mean_gap']:.3e} > "
+          f"{row['mean_tol']:.3e}")
+    check(row["var_gap"] <= row["var_tol"],
+          f"distributed final variance vs cuda float64: {row['var_gap']:.3e} "
+          f"> {row['var_tol']:.3e}")
+    del post, info, rel64
+
+    with Request("new_configs_mean", lk_mvm_fused_rows) as req:
+        post3 = posterior(st32, Xs=Xs, engine=engine)
+        mean3 = post3.mean
+    info = post3.solve_info
+    iters = int(info.iters)
+    check(req.launches == iters + 2,
+          f"mean: {req.launches} K3 launches for {iters} CG iterations + 2")
+    check(mean3.shape == (n + n_new, m) and bool(torch.isfinite(mean3).all()),
+          "mean at new configs")
+    want = reference["new_configs_mean"]
+    row = {"request": "new_configs_mean", "seconds": req.seconds,
+           "launches": req.launches, "iters": iters,
+           "cg_rel_residual": float(info.rel_residual.max()),
+           "mean_gap": float((mean3.double() - want).abs().max()),
+           "mean_scale": float(want.abs().max())}
+    row["mean_tol"] = DIST_MEAN_TOL * cg_tol * row["mean_scale"]
+    out["requests"].append(row)
+    check(row["mean_gap"] <= row["mean_tol"],
+          f"distributed mean at new configs vs cuda float64: "
+          f"{row['mean_gap']:.3e} > {row['mean_tol']:.3e}")
+    served = launch_counts(since=before)
+    out["serve_launches"] = served
+    check(all(v == 0 for k, v in served.items() if k != "lk_mvm_fused_rows"),
+          f"the float32 distributed path launched other kernels: {served}")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del post3, mean3, st32
+    torch.cuda.empty_cache()
+
+    # (2) float64 fit through the exact body, at the fit phase's shape
+    fn, fm, fd = FIT_SHAPE["n"], FIT_SHAPE["m"], FIT_SHAPE["d"]
+    task = sample_task(SEED, n=fn, m=fm, d=fd)
+    cfg = LKGPConfig(backend="distributed", lbfgs_iters=FIT_LBFGS_ITERS,
+                     **FIT_CONFIG)
+    if reference_fit is None:
+        ref_state = fit(task.X, task.t, task.Y, task.mask,
+                        dataclasses.replace(cfg, backend="iterative"))
+        reference_fit = {"fun": ref_state.fit_result.fun,
+                         "n_evals": ref_state.fit_result.n_evals}
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    state = fit(task.X, task.t, task.Y, task.mask, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(since=before)
+    res = state.fit_result
+    gap = abs(res.fun - reference_fit["fun"]) / abs(reference_fit["fun"])
+    out["fit"] = {"n": fn, "m": fm, "d": fd, "dtype": "float64",
+                  "seconds": seconds, "n_iters": res.n_iters,
+                  "n_evals": res.n_evals, "fun": res.fun,
+                  "fun_iterative": reference_fit["fun"],
+                  "n_evals_iterative": reference_fit["n_evals"],
+                  "fun_gap": gap, "fun_tol": DIST_FIT_TOL,
+                  "launches": launches}
+    check(state.backend_used == "distributed", "fit did not use the engine")
+    check(all(v == 0 for v in launches.values()),
+          f"the float64 distributed fit launched a kernel: {launches}")
+    check(np.isfinite(res.fun) and gap <= DIST_FIT_TOL,
+          f"distributed fit objective {res.fun} vs iterative "
+          f"{reference_fit['fun']}: gap {gap:.3e}")
+
+    # (3) dist_mll_value at the same shape, prior-mean parameters
+    X, t, Y, mask = (torch.as_tensor(a, device=DEV)
+                     for a in (task.X, task.t, task.Y, task.mask))
+    Y = torch.where(mask > 0, Y, torch.zeros_like(Y))
+    x_tf, t_tf, y_tf = _fit_transforms(X, t, Y, mask)
+    Xn, tn, Yn = x_tf(X), t_tf(t), y_tf(Y)
+    p0 = init_params(fd, device=DEV)
+    pos = [torch.exp(r) for r in p0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quad, q_iters, q_rel = dist_mll_value(*pos, Xn, tn, Yn, mask,
+                                          cg_tol=DIST_MLL_CG_TOL)
+    torch.cuda.synchronize()
+    q_seconds = time.perf_counter() - t0
+    K1, K2 = gram_matrices(p0, Xn, tn)
+    ref_cfg = LKGPConfig(cg_tol=DIST_MLL_CG_TOL)
+    A = IterativeEngine().operator_from_grams(K1, K2, mask, pos[3])
+    alpha = IterativeEngine().solve(A, Yn * mask, ref_cfg)
+    quad_ref = float(-0.5 * (Yn * mask * alpha).sum())
+    q_gap = abs(float(quad) - quad_ref) / abs(quad_ref)
+    out["dist_mll_value"] = {"quad": float(quad), "iters": q_iters,
+                             "rel_residual": float(q_rel),
+                             "seconds": q_seconds, "quad_iterative": quad_ref,
+                             "cg_tol": DIST_MLL_CG_TOL, "gap": q_gap,
+                             "tol": DIST_MLL_TOL}
+    check(float(q_rel) <= DIST_MLL_CG_TOL and q_gap <= DIST_MLL_TOL,
+          f"dist_mll_value {float(quad)} vs iterative {quad_ref}: gap "
+          f"{q_gap:.3e}, residual {float(q_rel):.3e}")
+    return out
+
+
+def phase_gram(shapes=((8192, 64), (2000, 52))) -> dict:
+    """``rbf_gram_op`` (kernel K4) on the serve task's normalised configs
+    (n = 8192) and at the LCBench shape (n = 2000), d = 7, prior-mean
+    lengthscales, against the plain version and against K1 of
+    ``gram_matrices`` (float64, exact) minus its jitter."""
+    out = {"phase": "gram", "shapes": []}
+    for n, m in shapes:
+        state = make_state(SEED, n, m, 7)
+        Xn, tn = state.x_tf(state.X), state.t_tf(state.t)
+        ls = torch.exp(state.params.raw_x_lengthscale)
+        cfg = state.config
+        before = rbf_gram_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        K = rbf_gram_op(Xn, Xn, ls)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = rbf_gram_cuda.launches - before
+        K1, _ = gram_matrices(state.params, Xn, tn, cfg.t_kernel, cfg.jitter)
+        K1 = K1 - cfg.jitter * torch.eye(n, dtype=K1.dtype, device=DEV)
+        plain = rbf_gram_plain(Xn, Xn, ls)
+        tol = GRAM_TOL * float(K1.abs().max())
+        row = {"n": n, "d": 7, "dtype": str(K.dtype).replace("torch.", ""),
+               "seconds": seconds, "launches": launches,
+               "max_err_vs_plain": float((K - plain).abs().max()),
+               "max_err_vs_gram_matrices": float((K - K1).abs().max()),
+               "tol": tol}
+        out["shapes"].append(row)
+        check(launches == 1, f"rbf_gram_op at n={n}: {launches} launches")
+        check(K.shape == (n, n) and K.dtype == torch.float64,
+              f"rbf_gram_op output {K.shape}/{K.dtype}")
+        check(row["max_err_vs_plain"] <= tol
+              and row["max_err_vs_gram_matrices"] <= tol,
+              f"rbf_gram_op at n={n}: {row}")
+        del K, K1, plain, state
+        torch.cuda.empty_cache()
+    return out
+
+
 def build_all() -> dict:
     """Compile every kernel source at once (one nvcc process each)."""
     t0 = time.perf_counter()
@@ -754,13 +1225,13 @@ def main() -> None:
 
     emit(build_all())
 
-    rows = phase_kernels()
+    rows = phase_kernels() + fused_rows_rows() + gram_rows()
     emit({"phase": "kernels", "kernels": rows})
 
     # Main path 1, serving: launches are counted from zero over this phase.
     reset_launch_counts()
-    serve, sweep_error = phase_serve("serve", n=8192, m=64, d=7, n_new=256,
-                                     compare_iterative=False)
+    serve, sweep_error, serve_answers = phase_serve(
+        "serve", n=8192, m=64, d=7, n_new=256, compare_iterative=False)
     serve_launches = launch_counts()
     serve["launches"] = serve_launches["lk_mvm_fused"]
     serve["float32_sweep_error"] = sweep_error()
@@ -770,8 +1241,8 @@ def main() -> None:
     del serve, sweep_error
     torch.cuda.empty_cache()
 
-    lcbench, sweep_error = phase_serve("serve_lcbench", n=2000, m=52, d=7,
-                                       n_new=256, compare_iterative=True)
+    lcbench, sweep_error, _ = phase_serve("serve_lcbench", n=2000, m=52, d=7,
+                                          n_new=256, compare_iterative=True)
     lcbench["float32_sweep_error"] = sweep_error()
     emit(lcbench)
     emit(phase_exact())
@@ -784,8 +1255,34 @@ def main() -> None:
     fit_totals = launch_counts()
     fit_out["launches"] = fit_totals
     emit(fit_out)
-    for name, count in fit_totals.items():
-        check(count > 0, f"the fit path never launched {name}")
+    for name in ("lk_mvm_fused", "lk_mvm_stage_right", "lk_mvm_stage_left"):
+        check(fit_totals[name] > 0, f"the fit path never launched {name}")
+    fit_iterative = {k: fit_out["fit"]["iterative"][k]
+                     for k in ("fun", "n_evals")}
+    del fit_out
+
+    # Main path 3, the distributed engine in an NCCL group of one rank.
+    rendezvous = init_process_group("nccl")
+    reset_launch_counts()
+    dist_out = phase_distributed(n=8192, m=64, d=7, n_new=256,
+                                 reference=serve_answers,
+                                 reference_fit=fit_iterative)
+    dist_totals = launch_counts()
+    close_process_group(rendezvous)
+    dist_out["launches"] = dist_totals
+    emit(dist_out)
+    check(dist_totals["lk_mvm_fused_rows"] > 0,
+          "the distributed path never launched K3")
+    del serve_answers
+    torch.cuda.empty_cache()
+
+    # Main path 4, the Gram op.
+    reset_launch_counts()
+    gram_out = phase_gram()
+    gram_totals = launch_counts()
+    gram_out["launches"] = gram_totals
+    emit(gram_out)
+    check(gram_totals["rbf_gram"] > 0, "rbf_gram_op never launched K4")
 
     csrc = "src/repro_torch/kernels/csrc/"
     emit({"kernels": [
@@ -798,7 +1295,13 @@ def main() -> None:
                     fit_totals["lk_mvm_stage_right"]),
         summary_row(rows, "lk_mvm_stage_left", csrc + "lk_mvm_two_stage.cu",
                     "src/repro/kernels/lk_mvm.py:185", FIT_MAIN_SHAPE,
-                    fit_totals["lk_mvm_stage_left"])]})
+                    fit_totals["lk_mvm_stage_left"]),
+        summary_row(rows, "lk_mvm_fused_rows", csrc + "lk_mvm_fused_rows.cu",
+                    "src/repro/kernels/lk_mvm.py:371", ROWS_MAIN_SHAPE,
+                    dist_totals["lk_mvm_fused_rows"]),
+        summary_row(rows, "rbf_gram", csrc + "rbf_gram.cu",
+                    "src/repro/kernels/gram.py:81", GRAM_MAIN_SHAPE,
+                    gram_totals["rbf_gram"])]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,6 +3,8 @@
 
     python3 rehearse_chip_smoke.py fit --n 300
     python3 rehearse_chip_smoke.py kernels
+    python3 rehearse_chip_smoke.py distributed --n 300
+    python3 rehearse_chip_smoke.py gram
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -10,12 +12,15 @@ checks and the numbers that do not depend on the card (CG iterations, MLL
 gaps between the float64 and the float32 routes, L-BFGS evaluation counts)
 can be seen before a run on the card. The kernel wrappers run their plain
 versions on CPU tensors; here each plain version also counts as a launch of
-its wrapper, so the launch checks run too. Timings printed here are CPU
-times of the plain versions, never a device metric.
+its wrapper, so the launch checks run too. The distributed phase runs in a
+``gloo`` process group of one rank (the card's run uses NCCL), and the gram
+phase sends ``rbf_gram_op`` to the kernel wrapper as the card does. Timings
+printed here are CPU times of the plain versions, never a device metric.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib
 import json
 import sys
@@ -53,15 +58,19 @@ def _patch_port_for_cpu() -> None:
         importlib.import_module(mod)
         sys.modules[mod].resolve_device = resolve
     lk = importlib.import_module("repro_torch.kernels.lk_mvm")
-    for plain, wrapper in (("lk_mvm_fused_plain", "lk_mvm_fused"),
-                           ("lk_mvm_stage_right_plain", "lk_mvm_stage_right"),
-                           ("lk_mvm_stage_left_plain", "lk_mvm_stage_left")):
-        fn, counted = getattr(lk, plain), getattr(lk, wrapper)
+    gram = importlib.import_module("repro_torch.kernels.gram")
+    for mod, plain, wrapper in (
+            (lk, "lk_mvm_fused_plain", "lk_mvm_fused"),
+            (lk, "lk_mvm_stage_right_plain", "lk_mvm_stage_right"),
+            (lk, "lk_mvm_stage_left_plain", "lk_mvm_stage_left"),
+            (lk, "lk_mvm_fused_rows_plain", "lk_mvm_fused_rows"),
+            (gram, "rbf_gram_plain", "rbf_gram_cuda")):
+        fn, counted = getattr(mod, plain), getattr(mod, wrapper)
 
         def counting(*a, _fn=fn, _counted=counted, **k):
             _counted.launches += 1
             return _fn(*a, **k)
-        setattr(lk, plain, counting)
+        setattr(mod, plain, counting)
 
 
 def _cpu_time_ms(fn, **_):
@@ -72,9 +81,12 @@ def _cpu_time_ms(fn, **_):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("phase", choices=("fit", "kernels"))
+    ap.add_argument("phase", choices=("fit", "kernels", "distributed",
+                                      "gram"))
     ap.add_argument("--n", type=int, default=300,
-                    help="configurations of the fit phase (m=52, d=7)")
+                    help="configurations of the fit phase (m=52, d=7), "
+                         "of the distributed phase's serving (m=64, d=7) and "
+                         "of the gram phase")
     args = ap.parse_args()
     _patch_cuda_for_cpu()
     _patch_port_for_cpu()
@@ -91,11 +103,33 @@ def main() -> None:
                 row.pop("grad", None)
                 row.pop("raw_params", None)
         print(json.dumps(out))
+    elif args.phase == "distributed":
+        cs.FIT_SHAPE = dict(n=args.n, m=52, d=7)
+        path = cs.init_process_group("gloo")
+        try:
+            cs.reset_launch_counts()
+            out = cs.phase_distributed(n=args.n, m=64, d=7, n_new=32)
+            out["launches"] = cs.launch_counts()
+        finally:
+            cs.close_process_group(path)
+        print(json.dumps(out))
+    elif args.phase == "gram":
+        # On the card rbf_gram_op takes the kernel by device; here it is told.
+        cs.rbf_gram_op = functools.partial(cs.rbf_gram_op, force_kernel=True)
+        cs.reset_launch_counts()
+        out = cs.phase_gram(shapes=((args.n, 64), (args.n // 2, 52)))
+        out["launches"] = cs.launch_counts()
+        print(json.dumps(out))
     else:
         cs.KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
                             (17, 40, 52)]
         cs.TIMED_SHAPES = [(17, 40, 52)]
-        rows = cs.phase_kernels()
+        cs.ROWS_SHAPES = [(3, 65, 130, 70), (2, 50, 100, 21),
+                          (17, 40, 80, 52)]
+        cs.ROWS_TIMED = [(17, 40, 80, 52)]
+        cs.GRAM_SHAPES = [(130, 70, 10), (16, 16, 260), (200, 200, 7)]
+        cs.GRAM_TIMED = [(200, 200, 7)]
+        rows = cs.phase_kernels() + cs.fused_rows_rows() + cs.gram_rows()
         print(json.dumps({"phase": "kernels", "rows": len(rows),
                           "worst_err_over_tol": max(
                               r["max_err"] / r["tol"] for r in rows

@@ -11,12 +11,16 @@ What is ported so far is the path that fits a model and serves it:
     fit(X, t, Y, mask, config)  ->  posterior(state)  ->  .mean / .samples / .final
 
 (or ``state_from_reference(...)`` in place of ``fit``) through the
-``dense``, ``iterative`` and ``cuda`` inference engines. On the ``cuda``
-engine every CG iteration of the fit's marginal likelihood and of the
-posterior solves is one launch of the hand-written fused latent-Kronecker
-MVM kernel (``kernels/csrc/lk_mvm_fused.cu``); the two-stage kernels
-(``kernels/csrc/lk_mvm_two_stage.cu``) are threaded into the objective with
-``make_mll_iterative(config, KernelMVM(fused=False))``.
+``dense``, ``iterative``, ``cuda`` and ``distributed`` inference engines. On
+the ``cuda`` engine every CG iteration of the fit's marginal likelihood and
+of the posterior solves is one launch of the hand-written fused
+latent-Kronecker MVM kernel (``kernels/csrc/lk_mvm_fused.cu``); the two-stage
+kernels (``kernels/csrc/lk_mvm_two_stage.cu``) are threaded into the
+objective with ``make_mll_iterative(config, KernelMVM(fused=False))``. The
+``distributed`` engine splits the grid's rows over a ``torch.distributed``
+group, float32 row blocks through the row-shard kernel
+(``kernels/csrc/lk_mvm_fused_rows.cu``); the RBF Gram kernel
+(``kernels/csrc/rbf_gram.cu``) is reached through ``kernels.rbf_gram_op``.
 
 Device rule: every entry point takes ``device=None`` and ``None`` means the
 GPU. With no CUDA device present it raises; nothing silently carries on on
@@ -25,12 +29,12 @@ the CPU. Tests pass ``device="cpu"`` explicitly.
 from ._device import resolve_device
 from .convert import (params_from_numpy, params_to_numpy, probes_from_numpy,
                       state_from_reference)
-from .core import (LKGPConfig, LKGPParams, LKGPState, Posterior, fit,
-                   get_engine, init_params, posterior)
+from .core import (DistributedEngine, LKGPConfig, LKGPParams, LKGPState,
+                   Posterior, fit, get_engine, init_params, posterior)
 
 __all__ = [
     "resolve_device", "params_from_numpy", "params_to_numpy",
     "probes_from_numpy", "state_from_reference",
-    "LKGPConfig", "LKGPParams", "LKGPState", "Posterior", "fit", "get_engine",
-    "init_params", "posterior",
+    "DistributedEngine", "LKGPConfig", "LKGPParams", "LKGPState",
+    "Posterior", "fit", "get_engine", "init_params", "posterior",
 ]

@@ -2,7 +2,8 @@
 solvers, SLQ, inference engines and the marginal likelihood, L-BFGS and
 ``fit``, and the lazy posterior."""
 from .engines import (ENGINES, CustomMVMEngine, DegradedSolveError,
-                      DenseEngine, InferenceEngine, IterativeEngine,
+                      DenseEngine, DistributedEngine, DistributedOperator,
+                      InferenceEngine, IterativeEngine,
                       KernelEngine, KernelMVM, KernelMVMFunction,
                       KernelOperator, LatentKroneckerOperator, get_engine,
                       list_backends, make_mll, make_mll_iterative,
@@ -29,6 +30,7 @@ from .transforms import TTransform, XTransform, YTransform
 
 __all__ = [
     "ENGINES", "CustomMVMEngine", "DegradedSolveError", "DenseEngine",
+    "DistributedEngine", "DistributedOperator",
     "InferenceEngine", "IterativeEngine", "KernelEngine",
     "KernelMVM", "KernelMVMFunction", "KernelOperator",
     "LatentKroneckerOperator", "get_engine", "list_backends",

@@ -6,7 +6,7 @@ the projected latent Kronecker operator
 
     A(u) = mask * (K1 @ (mask * u) @ K2) + sigma^2 * (mask * u)
 
-and the solves against it. Three implementations are registered:
+and the solves against it. Four implementations are registered:
 
 * ``dense``     - exact Cholesky of the masked joint matrix, O(N^3); the
                   paper's naive baseline and the small-N fast path.
@@ -18,6 +18,11 @@ and the solves against it. Three implementations are registered:
                   differentiable through :class:`KernelMVMFunction`. It fills
                   the slot the reference calls ``pallas``, and that name is
                   accepted as an alias.
+* ``distributed`` - the iterative engine with the grid's rows split over the
+                  ranks of a ``torch.distributed`` group: each rank computes
+                  its row block of every MVM (float32 operands through the
+                  row-shard kernel K3, others through the exact plain body)
+                  and one all-gather assembles the result.
 
 :func:`make_mll` builds the marginal likelihood ``mll(params, X, t, Y, mask,
 probes)`` on any engine: straight through the Cholesky for ``dense``, as a
@@ -48,8 +53,8 @@ __all__ = [
     "list_backends", "DenseEngine", "IterativeEngine", "KernelEngine",
     "CustomMVMEngine", "LatentKroneckerOperator", "StackedSolveResult",
     "DegradedSolveError", "solve_tally", "KernelMVMFunction",
-    "KernelOperator", "KernelMVM", "mll_cholesky", "make_mll",
-    "make_mll_iterative",
+    "KernelOperator", "KernelMVM", "DistributedEngine",
+    "DistributedOperator", "mll_cholesky", "make_mll", "make_mll_iterative",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -153,10 +158,6 @@ def get_engine(name: str, **kwargs) -> "InferenceEngine":
     try:
         cls = ENGINES[name]
     except KeyError:
-        if name == "distributed":
-            raise NotImplementedError(
-                "backend 'distributed' is not ported yet "
-                "(ROADMAP queue 1 item 12, kernel K3)") from None
         raise ValueError(f"unknown backend {name!r}; "
                          f"available: {sorted(ENGINES)}") from None
     if kwargs:
@@ -479,6 +480,131 @@ class KernelEngine(IterativeEngine):
 
     def operator_from_grams(self, K1, K2, mask, noise):
         return KernelOperator(K1, K2, mask, noise, fused=True)
+
+
+# --------------------------------------------------------------------------
+# distributed (rows split over the ranks of a torch.distributed group)
+# --------------------------------------------------------------------------
+_NO_K3_GRADIENT = (
+    "the row-shard kernel K3 (lk_mvm_fused_rows) has no backward, as in the "
+    "reference, whose float32 fit on its distributed engine fails the same "
+    "way (ROADMAP, reference caveats); differentiate through float64 "
+    "operands or DistributedEngine(fused=False)")
+
+
+class DistributedOperator(LatentKroneckerOperator):
+    """A(u) on whole (..., n, m) grid vectors, every rank computing its own
+    row block and one all-gather joining them.
+
+    ``K1, K2, mask, noise`` and every ``u`` are held whole on every rank
+    (replicated), as the reference's engine holds K1. Rank r of a world of p
+    takes rows ``r * n/p ... (r+1) * n/p`` (n must divide by p) and per call:
+
+    * ``fused``: forms ``um_full = mask * u`` itself (u is whole here, so no
+      collective is needed for it) and launches kernel K3 once for its rows
+      and the whole batch (:func:`repro_torch.kernels.lk_mvm.lk_mvm_fused_rows`);
+    * otherwise: the exact body in the factors' dtype, ``mask_r * (K1_r @
+      ((mask * u) @ K2)) + noise * (mask_r * u_r)``;
+
+    then all-gathers the (..., n/p, m) output rows: one collective per
+    sweep. Everything after it is replicated, so the host-side decisions of
+    the solvers are the same on every rank.
+
+    The fused operator has no gradient (raises ``NotImplementedError``). The
+    exact body differentiates: at a world size above 1 the gather's backward
+    takes the rank's slice and the operator's inputs sum their gradients over
+    the group (:class:`~repro_torch.distributed.lkgp_dist.SumGrads`), so
+    every rank gets the whole gradient, the same as a world of one.
+    """
+
+    def __init__(self, K1, K2, mask, noise, *, fused: bool, group=None,
+                 rank: int = 0, world: int = 1):
+        n = mask.shape[0]
+        if n % world:
+            raise ValueError(f"the distributed engine splits the n = {n} grid "
+                             f"rows evenly over {world} ranks: n must be "
+                             "divisible by the world size")
+        if fused:
+            noise = torch.as_tensor(noise, dtype=K1.dtype, device=K1.device)
+        super().__init__(K1, K2, mask, noise)
+        self.fused = fused
+        self.group, self.rank, self.world = group, rank, world
+        n_local = n // world
+        self.rows = slice(rank * n_local, (rank + 1) * n_local)
+
+    def __call__(self, u):
+        from ..distributed.lkgp_dist import GatherRows, SumGrads, gather_rows
+        rows = self.rows
+        K1, K2, mask, noise = self.K1, self.K2, self.mask, self.noise
+        grad = torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad
+            for x in (K1, K2, noise, u))
+        if self.fused:
+            if grad:
+                raise NotImplementedError(_NO_K3_GRADIENT)
+            from ..kernels.lk_mvm import lk_mvm_fused_rows
+            out_rows = lk_mvm_fused_rows(
+                K1[rows], K2, mask[rows], u[..., rows, :].contiguous(),
+                (mask * u).contiguous(), noise)
+            return gather_rows(out_rows, self.group, self.world)
+        if grad and self.world > 1:
+            K1, K2, u = (SumGrads.apply(x, self.group) for x in (K1, K2, u))
+            if isinstance(noise, torch.Tensor):
+                noise = SumGrads.apply(noise, self.group)
+        mk = mask[rows]
+        out_rows = mk * (K1[rows] @ ((mask * u) @ K2)) \
+            + noise * (mk * u[..., rows, :])
+        if grad:
+            return GatherRows.apply(out_rows, self.group, self.rank,
+                                    self.world)
+        return gather_rows(out_rows, self.group, self.world)
+
+
+@register_engine("distributed")
+class DistributedEngine(IterativeEngine):
+    """CG + SLQ with the grid's rows split over a ``torch.distributed`` group
+    (:class:`DistributedOperator`: one all-gather per sweep).
+
+    ``group=None`` takes the default group when one is initialised when an
+    operator is built, else a world of one rank and no collective. Every
+    rank runs the same solves on the same (replicated) vectors; its tensors
+    live on its own device (``cuda:{local_rank}`` under NCCL, set by the
+    caller).
+
+    ``fused`` keeps the reference's gate: ``"auto"`` takes the row-shard
+    kernel K3 for float32 Gram factors and the exact plain body for any
+    other dtype (float64 states stay exact: no cast to float32 here, unlike
+    the ``cuda`` engine); ``True`` insists on K3 and raises ``ValueError`` on
+    non-float32 factors; ``False`` always takes the plain body. K3 has no
+    gradient, so a float32 ``fit`` on this engine raises (as the reference's
+    does); a float64 one differentiates through the plain body.
+    """
+
+    def __init__(self, group=None, fused="auto"):
+        if fused not in ("auto", True, False):
+            raise ValueError(f"fused must be 'auto', True or False, got "
+                             f"{fused!r}")
+        self.group = group
+        self.fused = fused
+
+    def _use_kernel(self, K1) -> bool:
+        if self.fused is False:
+            return False
+        if K1.dtype != torch.float32:
+            if self.fused is True:
+                raise ValueError(
+                    "DistributedEngine(fused=True) needs float32 (f32) "
+                    "operands: the row-shard kernel K3 computes in float32, "
+                    f"got {K1.dtype}")
+            return False
+        return True
+
+    def operator_from_grams(self, K1, K2, mask, noise):
+        from ..distributed.lkgp_dist import group_layout
+        group, rank, world = group_layout(self.group)
+        return DistributedOperator(K1, K2, mask, noise,
+                                   fused=self._use_kernel(K1), group=group,
+                                   rank=rank, world=world)
 
 
 # --------------------------------------------------------------------------

@@ -77,27 +77,29 @@ def _stream(seed: int, tag: int, device: torch.device) -> torch.Generator:
     return g
 
 
-def joint_grams(state: LKGPState, Xs=None):
+def joint_grams(state: LKGPState, Xs=None, dtype: torch.dtype | None = None):
     """K1 over [X_train; X_test] (transformed) and K2 over t (jittered).
 
     Matches the training-time Gram construction: K2 carries the jitter, the
     joint K1 does not (its train block is only used inside the noisy
-    operator; Cholesky call sites add jitter themselves).
+    operator; Cholesky call sites add jitter themselves). ``dtype`` computes
+    the Grams in another dtype from the inputs transformed in the state's.
     """
     cfg = state.config
     p = state.params
     Xn = state.x_tf(state.X)
     tn = state.t_tf(state.t)
+    if Xs is not None:
+        Xs = torch.as_tensor(Xs, dtype=Xn.dtype, device=Xn.device)
+        Xn = torch.cat([Xn, state.x_tf(Xs)], 0)
+    if dtype is not None:
+        Xn, tn = Xn.to(dtype), tn.to(dtype)
+        p = type(p)(*(x.to(dtype) for x in p))
     K2 = gk.KERNELS_1D[cfg.t_kernel](
         tn, tn, torch.exp(p.raw_t_lengthscale), torch.exp(p.raw_outputscale))
     K2 = K2 + cfg.jitter * torch.eye(tn.shape[0], dtype=K2.dtype,
                                      device=K2.device)
-    if Xs is None:
-        Xa = Xn
-    else:
-        Xs = torch.as_tensor(Xs, dtype=Xn.dtype, device=Xn.device)
-        Xa = torch.cat([Xn, state.x_tf(Xs)], 0)
-    K1a = gk.rbf_ard(Xa, Xa, torch.exp(p.raw_x_lengthscale))
+    K1a = gk.rbf_ard(Xn, Xn, torch.exp(p.raw_x_lengthscale))
     return K1a, K2
 
 
@@ -127,6 +129,20 @@ class Posterior:
     @cached_property
     def _grams(self):
         return joint_grams(self._state, self._Xs)
+
+    @cached_property
+    def _draw_grams(self):
+        """The joint Grams whose Cholesky factors make the Matheron prior
+        draws: the state's own for a float64 state; for a float32 one, the
+        same computed in float64 from its transformed inputs. A float32 K1
+        near 1 everywhere (the prior-mean lengthscales) is indefinite by more
+        than the 1e-6 jitter once n reaches a few hundred, rounded to float64
+        or not, so its Cholesky fails (the reference's float32 final() fails
+        there); the Gram of the same inputs computed in float64 is positive
+        definite. The draws are cast back to the state's dtype."""
+        if self._state.X.dtype == torch.float64:
+            return self._grams
+        return joint_grams(self._state, self._Xs, dtype=torch.float64)
 
     @cached_property
     def _noise(self) -> torch.Tensor:
@@ -196,9 +212,11 @@ class Posterior:
         n_samples = n_samples or cfg.posterior_samples
         K1a, K2 = self._grams
         n = st.n
-        F, eps = prior_residual_draws(generator, K1a, K2, n, self._noise,
-                                      n_samples, jitter=cfg.jitter,
-                                      normals=normals)
+        K1d, K2d = self._draw_grams
+        F, eps = prior_residual_draws(generator, K1d, K2d, n,
+                                      self._noise.to(K1d.dtype), n_samples,
+                                      jitter=cfg.jitter, normals=normals)
+        F, eps = F.to(K1a.dtype), eps.to(K1a.dtype)
         resid = st.mask * (F[:, :n, :] + eps)
         if self._alpha is None:
             Ym = st.y_tf(st.Y) * st.mask

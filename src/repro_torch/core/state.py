@@ -41,7 +41,8 @@ __all__ = [
 # "cuda" is the engine whose every MVM is the hand-written fused GPU kernel.
 # The reference calls the same slot "pallas"; that name is accepted as an
 # alias so a configuration carried across from the reference round-trips.
-BACKENDS = ("dense", "iterative", "cuda")
+# "distributed" splits the grid's rows over a torch.distributed group.
+BACKENDS = ("dense", "iterative", "cuda", "distributed")
 BACKEND_ALIASES = {"pallas": "cuda"}
 
 
@@ -62,7 +63,9 @@ class LKGPConfig:
     ``backend`` selects the inference engine: ``"dense"`` (exact Cholesky),
     ``"iterative"`` (block CG on the plain tensor MVM), ``"cuda"`` (block CG
     with every MVM routed through the fused GPU kernel; ``"pallas"`` is an
-    alias). ``"auto"`` resolves from the legacy ``mll_method`` /
+    alias), ``"distributed"`` (block CG with the grid's rows split over a
+    ``torch.distributed`` group, float32 row blocks through the row-shard
+    kernel). ``"auto"`` resolves from the legacy ``mll_method`` /
     ``use_pallas`` fields and the observation count. Fields that belong to
     parts of the system not ported yet (the guarded solve ladder, the
     solvers ``pcg`` / ``sgd``) are carried but not read, and
@@ -70,7 +73,7 @@ class LKGPConfig:
     raise ``NotImplementedError``.
     """
     t_kernel: str = "matern12"
-    backend: str = "auto"           # "auto" | dense | iterative | cuda (alias: pallas)
+    backend: str = "auto"           # "auto" | dense | iterative | cuda (alias: pallas) | distributed
     mll_method: str = "auto"        # legacy: "cholesky" | "iterative" | "auto"
     auto_cholesky_max: int = 800    # N_obs threshold for "auto"
     cg_tol: float = 0.01            # paper App. B
@@ -201,10 +204,6 @@ def resolve_backend(config: LKGPConfig, n_obs: int) -> str:
     """Map config (including legacy fields and aliases) to an engine name."""
     if config.backend != "auto":
         name = BACKEND_ALIASES.get(config.backend, config.backend)
-        if name == "distributed":
-            raise NotImplementedError(
-                "backend 'distributed' is not ported yet "
-                "(ROADMAP queue 1 item 12, kernel K3)")
         if name not in BACKENDS:
             raise ValueError(f"unknown backend {config.backend!r}; expected "
                              f"one of {BACKENDS + tuple(BACKEND_ALIASES)}")

@@ -31,6 +31,14 @@ the (B, n, m) intermediate going through device memory between them.
     the reference's ``lk_mvm_two_stage``. Each stage has its plain version
     beside it, and :func:`lk_mvm_two_stage_plain` composes them.
 
+:func:`lk_mvm_fused_rows`
+    The single-pass kernel for ONE row shard of the grid (kernel K3,
+    ``csrc/lk_mvm_fused_rows.cu``, in the place of the reference's
+    ``lk_mvm_fused_rows``): ``mask_rows * (K1_rows @ (um_full @ K2)) + noise *
+    (mask_rows * u_rows)`` with the gathered, pre-masked ``um_full`` over all
+    n rows. The distributed engine runs it on each rank's rows.
+    :func:`lk_mvm_fused_rows_plain` is its plain version.
+
 :func:`lk_mvm_cuda`
     The dispatcher in the slot of the reference's ``lk_mvm_pallas``:
     ``fused=True`` is the single-pass kernel, ``fused=False`` the two-stage
@@ -47,11 +55,13 @@ from ._build import load_library
 __all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain",
            "lk_mvm_two_stage", "lk_mvm_two_stage_plain", "lk_mvm_stage_right",
            "lk_mvm_stage_right_plain", "lk_mvm_stage_left",
-           "lk_mvm_stage_left_plain"]
+           "lk_mvm_stage_left_plain", "lk_mvm_fused_rows",
+           "lk_mvm_fused_rows_plain"]
 
 _PRECISIONS = ("f32", "bf16")
 _LIB = None
 _LIB_TWO_STAGE = None
+_LIB_ROWS = None
 
 
 def _library():
@@ -89,9 +99,26 @@ def _two_stage_library():
     return _LIB_TWO_STAGE
 
 
+def _rows_library():
+    """Build/load the row-shard kernel's library and declare its signature."""
+    global _LIB_ROWS
+    if _LIB_ROWS is None:
+        lib = load_library("lk_mvm_fused_rows")
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        # (K1_rows, ldk1, K2, ldk2, um_full, mask_rows, u_rows, noise, out,
+        #  B, n_local, n, m, bf16, stream)
+        lib.lk_mvm_fused_rows_launch.argtypes = [p, ll, p, ll, p, p, p, p, p,
+                                                 i, i, i, i, i, p]
+        lib.lk_mvm_fused_rows_launch.restype = i
+        lib.lk_mvm_fused_rows_error_string.argtypes = [i]
+        lib.lk_mvm_fused_rows_error_string.restype = ctypes.c_char_p
+        _LIB_ROWS = lib
+    return _LIB_ROWS
+
+
 def _raise_on_launch_error(rc: int, error_string, what: str, shape) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed at (B, n, m) = {shape}: "
+        raise RuntimeError(f"{what} launch failed at shape {shape}: "
                            f"CUDA error {rc} ({error_string(rc).decode()})")
 
 
@@ -390,3 +417,123 @@ def lk_mvm_cuda(K1, K2, mask, u, noise=0.0, *, block_n: int | None = None,
                                 block_m=block_m, precision=precision)
     return lk_mvm_fused(K1, K2, mask, u, noise, block_n=block_n,
                         block_m=block_m, precision=precision)
+
+
+def _check_rows_args(K1_rows, K2, mask_rows, u_rows, um_full, precision):
+    """What the row-shard kernel takes: float32 everywhere on one device,
+    ``K1_rows`` (n_local, n) and ``K2`` (m, m) with unit stride along their
+    rows, ``mask_rows`` (n_local, m), ``u_rows`` (..., n_local, m) and
+    ``um_full`` (..., n, m) with the same leading dims, all contiguous."""
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
+    if mask_rows.ndim != 2:
+        raise ValueError(f"mask_rows must be (n_local, m), got "
+                         f"{tuple(mask_rows.shape)}")
+    n_local, m = mask_rows.shape
+    if K1_rows.ndim != 2 or K1_rows.shape[0] != n_local:
+        raise ValueError(f"K1_rows must be ({n_local}, n), got "
+                         f"{tuple(K1_rows.shape)}")
+    n = K1_rows.shape[1]
+    if n_local == 0 or m == 0 or n < n_local:
+        raise ValueError(f"empty or inconsistent row shard: n_local={n_local}"
+                         f", n={n}, m={m}")
+    if tuple(K2.shape) != (m, m):
+        raise ValueError(f"K2 must be {(m, m)}, got {tuple(K2.shape)}")
+    if u_rows.ndim < 2 or tuple(u_rows.shape[-2:]) != (n_local, m):
+        raise ValueError(f"u_rows must be (..., {n_local}, {m}), got "
+                         f"{tuple(u_rows.shape)}")
+    if tuple(um_full.shape) != (*u_rows.shape[:-2], n, m):
+        raise ValueError(f"um_full must be {(*u_rows.shape[:-2], n, m)}, got "
+                         f"{tuple(um_full.shape)}")
+    if u_rows.numel() == 0:
+        raise ValueError("u_rows has an empty batch dimension")
+    operands = {"K1_rows": K1_rows, "K2": K2, "mask_rows": mask_rows,
+                "u_rows": u_rows, "um_full": um_full}
+    for name, x in operands.items():
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}: the "
+                            "row-shard kernel computes in float32 only")
+        if x.device != u_rows.device:
+            raise ValueError(f"{name} lives on {x.device}, u_rows on "
+                             f"{u_rows.device}")
+    if K1_rows.stride(1) != 1 or K2.stride(1) != 1:
+        raise ValueError("K1_rows and K2 must have unit stride along their rows")
+    for name in ("mask_rows", "u_rows", "um_full"):
+        if not operands[name].is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if u_rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lk_mvm_fused_rows runs on cuda or cpu tensors, not "
+                         f"{u_rows.device}")
+    _refuse_autograd(*operands.values())
+    return n_local, n, m
+
+
+def lk_mvm_fused_rows_plain(K1_rows: torch.Tensor, K2: torch.Tensor,
+                            mask_rows: torch.Tensor, u_rows: torch.Tensor,
+                            um_full: torch.Tensor, noise=0.0, *,
+                            precision: str = "f32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`lk_mvm_fused_rows`, same rounding
+    points: float32 throughout; with ``precision="bf16"`` K1_rows, K2,
+    um_full, u_rows and the intermediate T are rounded to bfloat16 and
+    multiplied as float32 (float32 accumulation of exact bf16 products). The
+    mask/noise epilogue is float32."""
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
+    f32 = torch.float32
+    if precision == "bf16":
+        rnd = lambda x: x.to(torch.bfloat16).to(f32)
+    else:
+        rnd = lambda x: x
+    mk = mask_rows.to(f32)
+    t = rnd(rnd(um_full.to(f32)) @ rnd(K2.to(f32)))
+    s = rnd(K1_rows.to(f32)) @ t
+    return mk * s + _noise_scalar(noise, u_rows.device) * (
+        mk * rnd(u_rows.to(f32)))
+
+
+def lk_mvm_fused_rows(K1_rows: torch.Tensor, K2: torch.Tensor,
+                      mask_rows: torch.Tensor, u_rows: torch.Tensor,
+                      um_full: torch.Tensor, noise=0.0, *,
+                      precision: str = "f32") -> torch.Tensor:
+    """Kernel K3: the fused masked Kronecker MVM of ONE row shard.
+
+    ``out = mask_rows * (K1_rows @ (um_full @ K2)) + noise * (mask_rows *
+    u_rows)`` with ``K1_rows`` (n_local, n), ``K2`` (m, m), ``mask_rows``
+    (n_local, m), ``u_rows`` (..., n_local, m) this shard's rows of u, and
+    ``um_full`` (..., n, m) the pre-masked ``mask * u`` over all n rows (the
+    caller gathers it). Returns (..., n_local, m). Every operand is float32;
+    ``noise`` is a number or, better, a 0-d device tensor, read through a
+    pointer. ``precision="bf16"`` rounds the products' operands to bfloat16
+    and accumulates in float32. Leading batch dims go through ONE launch.
+
+    On a CUDA tensor this launches the kernel on the current stream without
+    synchronising, or raises; it never falls back to the plain version. On a
+    CPU tensor it runs :func:`lk_mvm_fused_rows_plain`.
+    ``lk_mvm_fused_rows.launches`` counts kernel launches.
+    """
+    n_local, n, m = _check_rows_args(K1_rows, K2, mask_rows, u_rows, um_full,
+                                     precision)
+    if u_rows.device.type == "cpu":
+        return lk_mvm_fused_rows_plain(K1_rows, K2, mask_rows, u_rows,
+                                       um_full, noise, precision=precision)
+    u3 = u_rows.reshape(-1, n_local, m)
+    B = u3.shape[0]
+    if max(B, n, m) >= 2**31:
+        raise ValueError("B, n and m must fit in 32-bit integers")
+    noise_t = _noise_scalar(noise, u_rows.device)
+    out = torch.empty_like(u3)
+    lib = _rows_library()
+    with torch.cuda.device(u_rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lk_mvm_fused_rows_launch(
+            K1_rows.data_ptr(), K1_rows.stride(0), K2.data_ptr(), K2.stride(0),
+            um_full.data_ptr(), mask_rows.data_ptr(), u3.data_ptr(),
+            noise_t.data_ptr(), out.data_ptr(), B, n_local, n, m,
+            int(precision == "bf16"), stream)
+    _raise_on_launch_error(rc, lib.lk_mvm_fused_rows_error_string,
+                           "lk_mvm_fused_rows", (B, n_local, m))
+    lk_mvm_fused_rows.launches += 1
+    return out.reshape(u_rows.shape)
+
+
+lk_mvm_fused_rows.launches = 0

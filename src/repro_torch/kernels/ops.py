@@ -9,6 +9,7 @@ rounding points.
 from __future__ import annotations
 
 from .._device import check_on_device, resolve_device
+from .gram import rbf_gram_cuda
 from .lk_mvm import lk_mvm_cuda
 from .ref import lk_mvm_ref, rbf_gram_ref
 
@@ -37,11 +38,16 @@ def lk_mvm_op(K1, K2, mask, u, noise=0.0, *, force_kernel: bool = False,
 
 def rbf_gram_op(x1, x2, lengthscale, outputscale=1.0, *,
                 force_kernel: bool = False, device=None):
-    """RBF-ARD Gram matrix. The GPU kernel for it is not ported yet."""
+    """RBF-ARD Gram matrix between x1 (n, d) and x2 (p, d).
+
+    ``device=None`` means the GPU; the tensors must live on the device named.
+    On CUDA this is kernel K4 (:func:`repro_torch.kernels.gram.rbf_gram_cuda`,
+    float32 compute, x1's dtype out). On the CPU it is the oracle, or with
+    ``force_kernel=True`` the kernel wrapper's plain version.
+    """
     dev = resolve_device(device)
-    check_on_device(dev, x1=x1, x2=x2, lengthscale=lengthscale)
+    check_on_device(dev, x1=x1, x2=x2, lengthscale=lengthscale,
+                    outputscale=outputscale)
     if dev.type == "cuda" or force_kernel:
-        raise NotImplementedError(
-            "the RBF Gram kernel is not ported yet: ROADMAP queue 2 item K4 "
-            "(gram_matrices / joint_grams call gp_kernels.rbf_ard directly)")
+        return rbf_gram_cuda(x1, x2, lengthscale, outputscale)
     return rbf_gram_ref(x1, x2, lengthscale, outputscale)

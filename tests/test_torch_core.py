@@ -146,14 +146,17 @@ def test_resolve_backend(cfg, n_obs, want):
 
 
 def test_resolve_backend_unknown_and_unported():
+    """Unknown names raise; "distributed", the last of the reference's
+    backends, is ported and resolves as in the reference."""
     with pytest.raises(ValueError, match="unknown backend"):
         resolve_backend(LKGPConfig(backend="nope"), 10)
     with pytest.raises(ValueError, match="unknown backend"):
         get_engine("nope")
-    for fn in (lambda: resolve_backend(LKGPConfig(backend="distributed"), 10),
-               lambda: get_engine("distributed")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
+    cfg = LKGPConfig(backend="distributed")
+    assert resolve_backend(cfg, 10) == ref_core.resolve_backend(
+        ref_core.LKGPConfig(backend="distributed"), 10) == "distributed"
+    assert get_engine("distributed").name == "distributed"
+    assert "distributed" in list_backends()
 
 
 # --------------------------------------------------------------------------
@@ -462,7 +465,7 @@ def test_solver_registry_and_unported_solvers_raise():
 
 
 def test_engine_registry_singletons_and_alias():
-    assert list_backends() == ["cuda", "dense", "iterative"]
+    assert list_backends() == ["cuda", "dense", "distributed", "iterative"]
     assert get_engine("cuda") is get_engine("pallas")
     assert isinstance(get_engine("pallas"), KernelEngine)
     assert get_engine("dense") is get_engine("dense")

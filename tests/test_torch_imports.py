@@ -17,7 +17,8 @@ SCANNED = PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "rehearse_chip_smoke.py"]
 BANNED_ROOTS = {"jax", "jaxlib", "repro", "flax", "optax"}
 # Only ever imported inside the function that needs them.
 LAZY_ONLY_ROOTS = {"triton"}
-KERNEL_SOURCES = ("lk_mvm_fused.cu", "lk_mvm_two_stage.cu")
+KERNEL_SOURCES = ("lk_mvm_fused.cu", "lk_mvm_two_stage.cu",
+                  "lk_mvm_fused_rows.cu", "rbf_gram.cu")
 
 
 def _imports(path: Path):
@@ -43,7 +44,9 @@ def test_port_has_the_modules_of_this_slice():
                 "core/matheron", "core/posterior", "core/solvers/cg",
                 "core/solvers/base", "core/errors", "core/priors",
                 "core/slq", "core/lbfgs", "kernels/ref", "kernels/_build",
-                "kernels/lk_mvm", "kernels/ops", "data/curves"):
+                "kernels/lk_mvm", "kernels/gram", "kernels/ops",
+                "distributed/__init__", "distributed/lkgp_dist",
+                "data/curves"):
         assert f"src/repro_torch/{mod}.py" in have
     for src in KERNEL_SOURCES:
         assert (PORT / "kernels" / "csrc" / src).is_file()

@@ -324,11 +324,23 @@ def test_two_stage_slot_raises_not_falls_back(entry, monkeypatch):
         call(precision="bf16")
 
 
-def test_rbf_gram_kernel_slot_raises_not_falls_back():
+def test_rbf_gram_kernel_slot_raises_not_falls_back(monkeypatch):
+    """force_kernel reaches the K4 wrapper (its plain version on CPU
+    tensors: float32 compute, x1's dtype out), never the oracle; tensors on
+    a device that is neither CUDA nor the CPU raise instead of falling back."""
+    import repro_torch.kernels.ops as ops_mod
+    from repro_torch.kernels import rbf_gram_plain
+
     x = torch.rand(5, 3, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="K4"):
-        rbf_gram_op(x, x, torch.ones(3, dtype=torch.float64),
-                    force_kernel=True, device="cpu")
+    ls = torch.ones(3, dtype=torch.float64)
+    monkeypatch.setattr(ops_mod, "rbf_gram_ref", None)   # must not be reached
+    out = rbf_gram_op(x, x, ls, force_kernel=True, device="cpu")
+    assert out.dtype == torch.float64
+    assert torch.equal(out, rbf_gram_plain(x, x, ls))
+    meta = x.to("meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rbf_gram_op(meta, meta, ls.to("meta"), force_kernel=True,
+                    device="meta")
 
 
 def test_ops_default_device_is_the_gpu():
