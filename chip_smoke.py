@@ -5,8 +5,9 @@
 
 Builds the hand-written CUDA kernels from the sources in this checkout (one
 nvcc per source, started together), holds each against its plain PyTorch
-version on the card, then drives the port's two paths at full width and
-checks that they ran through the kernels:
+version on the card (K1 and K3 also against a second launch of themselves,
+bit for bit, with their split-k plan reported), then drives the port's two
+paths at full width and checks that they ran through the kernels:
 
 * serving (fitted state -> ``posterior(state)`` -> ``final`` / ``mean`` /
   ``samples``) through the ``cuda`` engine: every CG iteration one launch of
@@ -79,15 +80,19 @@ from repro_torch.kernels.lk_mvm import (  # noqa: E402
     lk_mvm_fused, lk_mvm_fused_plain, lk_mvm_fused_rows,
     lk_mvm_fused_rows_plain, lk_mvm_stage_left, lk_mvm_stage_left_plain,
     lk_mvm_stage_right, lk_mvm_stage_right_plain, lk_mvm_two_stage,
-    lk_mvm_two_stage_plain)
+    lk_mvm_two_stage_plain, TC_COLS, TC_K, TC_ROWS, plan_launch)
 from repro_torch.kernels.ref import lk_mvm_ref  # noqa: E402
 
 SEED = 0
 DEV = torch.device("cuda", 0)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): the
-# yardstick of bound_ms whatever card this runs on.
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# yardstick of bound_ms whatever card this runs on. Each datapath's rate: the
+# float32 FMA pipes (K2a, K2b, K4), three TF32 tensor-core products per
+# float32 product (K1 and K3 in f32 mode), the BF16 tensor cores (bf16 mode).
+PEAK_FLOPS = {"f32 FMA": 67e12, "3xTF32": 495e12 / 3, "bf16 MMA": 989e12}
+# The datapath of K1 and K3 in each precision mode.
+TC_DATAPATH = {"f32": "3xTF32", "bf16": "bf16 MMA"}
 PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel against its plain version. Both round at the same points, so what is
@@ -126,9 +131,6 @@ GRAM_MAIN_SHAPE = (8192, 8192, 7)
 # another summation order, as the reference holds its kernel (3e-5), in units
 # of max|K|.
 GRAM_TOL = 3e-5
-# Output tile of one thread block (TI, TJ of lk_mvm_fused.cu), for the count
-# of blocks a shape gives the card's 132 SMs.
-KERNEL_TILE = (128, 64)
 # Largest gap between the posterior means of the cuda and the iterative
 # engine, in units of cg_tol * max|mean|. CG bounds the 2-norm of each solve's
 # residual by cg_tol * ||y||, not the largest of ~10^5 cell-wise gaps between
@@ -186,14 +188,52 @@ def time_ms(fn, repeats: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(B: int, n: int, m: int, precision: str) -> tuple[float, str]:
-    """Least time the card could take: operations or bytes, whichever is
-    larger. Each input is read once and the output written once (float32)."""
-    flops = 2.0 * B * (n * n * m + n * m * m)
-    nbytes = 4.0 * (n * n + m * m + n * m + 2 * B * n * m + 1)
-    t_ops = flops / PEAK_FLOPS[precision] * 1e3
+def _bound(flops: float, nbytes: float, datapath: str) -> tuple[float, str]:
+    """The larger of the operations at the datapath's peak and the bytes at
+    the memory's, and which of the two it is."""
+    t_ops = flops / PEAK_FLOPS[datapath] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_ms(B: int, n: int, m: int,
+             datapath: str = "f32 FMA") -> tuple[float, str]:
+    """Least time the card could take for the fused MVM: operations at the
+    datapath's rate or bytes, whichever is larger. Each input is read once
+    and the output written once (float32)."""
+    flops = 2.0 * B * (n * n * m + n * m * m)
+    nbytes = 4.0 * (n * n + m * m + n * m + 2 * B * n * m + 1)
+    return _bound(flops, nbytes, datapath)
+
+
+def tc_bounds(bound_fn, *shape, precision: str) -> dict:
+    """K1's / K3's bound on its tensor-core datapath (``bound_by`` names it)
+    and, as ``bound_fma_ms``, on the float32 FMA pipes of the earlier FMA
+    kernels, so the rows compare with theirs."""
+    datapath = TC_DATAPATH[precision]
+    bound, by = bound_fn(*shape, datapath)
+    fma, _ = bound_fn(*shape, "f32 FMA")
+    if by == "operations":
+        by = f"operations ({datapath})"
+    return {"bound_ms": bound, "bound_by": by, "datapath": datapath,
+            "bound_fma_ms": fma}
+
+
+def plan_row(B: int, n_local: int, n: int, m: int) -> dict:
+    """The wrapper's launch plan at this shape, which is the grid the kernel
+    launched (its launcher rejects any other): the split of the k sweep, the
+    cluster (1, 1, splits) and the blocks on the card."""
+    plan = plan_launch(B, n_local, n, m)
+    return {"splits": plan.splits, "cluster": [1, 1, plan.splits],
+            "grid": [plan.panels, plan.row_tiles, plan.splits],
+            "blocks": plan.blocks, "tiles": plan.tiles}
+
+
+def check_fills_card(row: dict) -> None:
+    """At B = 1 and n = 8192 the split k puts a block on every SM."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    check(row["blocks"] >= sms, f"{row['name']} {row['precision']} at "
+          f"{tuple(row['shape'])}: {row['blocks']} blocks for {sms} SMs")
 
 
 def bound_two_stage_ms(stage: str, B: int, n: int, m: int) -> tuple[float, str]:
@@ -205,9 +245,7 @@ def bound_two_stage_ms(stage: str, B: int, n: int, m: int) -> tuple[float, str]:
     else:               # K1, T, mask, u, noise in; out
         flops = 2.0 * B * n * n * m
         nbytes = 4.0 * (n * n + 3 * B * n * m + n * m + 1)
-    t_ops = flops / PEAK_FLOPS["f32"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return _bound(flops, nbytes, "f32 FMA")
 
 
 WRAPPERS = {"lk_mvm_fused": lk_mvm_fused,
@@ -229,15 +267,13 @@ def reset_launch_counts() -> None:
 
 
 def bound_rows_ms(B: int, n_local: int, n: int, m: int,
-                  precision: str) -> tuple[float, str]:
+                  datapath: str = "f32 FMA") -> tuple[float, str]:
     """bound_ms of the row-shard kernel K3: um_full @ K2 over all n rows,
     then the (n_local, n) product; K1_rows, um_full, mask_rows, u_rows and
     K2 read once, the output written once."""
     flops = 2.0 * B * (n * m * m + n_local * n * m)
     nbytes = 4.0 * (n_local * n + B * n * m + 3 * B * n_local * m + m * m)
-    t_ops = flops / PEAK_FLOPS[precision] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return _bound(flops, nbytes, datapath)
 
 
 def bound_gram_ms(n: int, p: int, d: int) -> tuple[float, str]:
@@ -245,9 +281,7 @@ def bound_gram_ms(n: int, p: int, d: int) -> tuple[float, str]:
     x2 read once, K written once."""
     flops = 2.0 * n * p * d
     nbytes = 4.0 * (n * p + (n + p) * d)
-    t_ops = flops / PEAK_FLOPS["f32"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return _bound(flops, nbytes, "f32 FMA")
 
 
 def mvm_problem(B: int, n: int, m: int, gen: torch.Generator):
@@ -282,7 +316,10 @@ def phase_kernels() -> list[dict]:
             ref = lk_mvm_fused_plain(K1, K2, mask, u, noise,
                                      precision=precision)
             out = lk_mvm_fused(K1, K2, mask, u, noise, precision=precision)
+            again = lk_mvm_fused(K1, K2, mask, u, noise, precision=precision)
             torch.cuda.synchronize()
+            check(torch.equal(out, again), f"lk_mvm_fused {precision} at "
+                  f"{(B, n, m)}: two launches gave different bits")
             check(out.shape == u.shape and out.dtype == u.dtype,
                   f"kernel output {out.shape}/{out.dtype} at {(B, n, m)}")
             check(bool(torch.isfinite(out).all()), "kernel output not finite")
@@ -292,18 +329,19 @@ def phase_kernels() -> list[dict]:
             row = {"name": "lk_mvm_fused",
                    "tpu": "repro/kernels/lk_mvm.py:lk_mvm_fused",
                    "precision": precision, "shape": [B, n, m],
-                   "max_err": err, "tol": tol, "ref_scale": scale}
+                   "max_err": err, "tol": tol, "ref_scale": scale,
+                   "bitwise_repeat": True, **plan_row(B, n, n, m)}
+            if B == 1 and n >= 8192:
+                check_fills_card(row)
             if (B, n, m) in TIMED_SHAPES:
-                bound, bound_by = bound_ms(B, n, m, precision)
                 row.update(
-                    blocks=B * -(-n // KERNEL_TILE[0]) * -(-m // KERNEL_TILE[1]),
                     ms=time_ms(lambda: lk_mvm_fused(
                         K1, K2, mask, u, noise, precision=precision)),
                     plain_ms=time_ms(lambda: lk_mvm_fused_plain(
                         K1, K2, mask, u, noise, precision=precision)),
                     library_ms=time_ms(lambda: library_mvm(
                         K1, K2, mask, u, noise)),
-                    bound_ms=bound, bound_by=bound_by)
+                    **tc_bounds(bound_ms, B, n, m, precision=precision))
             if precision == "f32":
                 # Independent truth: the float64 oracle on the same inputs.
                 truth = lk_mvm_ref(K1.double(), K2.double(), mask.double(),
@@ -356,7 +394,7 @@ def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
          lambda: lk_mvm_two_stage(K1, K2, mask, u, noise),
          lambda: lk_mvm_two_stage_plain(K1, K2, mask, u, noise),
          lambda: library_mvm(K1, K2, mask, u, noise),
-         bound_ms(B, n, m, "f32")),
+         bound_ms(B, n, m, "f32 FMA")),
     ]
     rows = []
     for name, tpu, kernel, plain, library, (bound, bound_by) in cases:
@@ -375,7 +413,7 @@ def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
         if (B, n, m) in TIMED_SHAPES:
             row.update(ms=time_ms(kernel), plain_ms=time_ms(plain),
                        library_ms=time_ms(library), bound_ms=bound,
-                       bound_by=bound_by)
+                       bound_by=bound_by, datapath="f32 FMA")
         rows.append(row)
         check(err <= tol, f"{name} at {(B, n, m)}: max err {err:.3e} > "
                           f"tol {tol:.3e}")
@@ -400,7 +438,10 @@ def fused_rows_rows() -> list[dict]:
             args = (K1r, K2, mask_r, u_r, um_full, noise)
             ref = lk_mvm_fused_rows_plain(*args, precision=precision)
             out = lk_mvm_fused_rows(*args, precision=precision)
+            again = lk_mvm_fused_rows(*args, precision=precision)
             torch.cuda.synchronize()
+            check(torch.equal(out, again), f"lk_mvm_fused_rows {precision} "
+                  f"at {(B, n_local, n, m)}: two launches gave different bits")
             check(out.shape == u_r.shape and out.dtype == torch.float32,
                   f"lk_mvm_fused_rows output {out.shape}/{out.dtype}")
             check(bool(torch.isfinite(out).all()),
@@ -411,7 +452,10 @@ def fused_rows_rows() -> list[dict]:
             row = {"name": "lk_mvm_fused_rows",
                    "tpu": "src/repro/kernels/lk_mvm.py:371",
                    "precision": precision, "shape": [B, n_local, n, m],
-                   "max_err": err, "tol": tol, "ref_scale": scale}
+                   "max_err": err, "tol": tol, "ref_scale": scale,
+                   "bitwise_repeat": True, **plan_row(B, n_local, n, m)}
+            if B == 1 and n_local >= 8192:
+                check_fills_card(row)
             if precision == "f32":
                 truth = (mask_r.double() * (K1r.double() @ (
                     um_full.double() @ K2.double()))
@@ -423,10 +467,7 @@ def fused_rows_rows() -> list[dict]:
                       f"{(B, n_local, n, m)}: {row['max_err_vs_float64']:.3e}")
                 del truth
             if (B, n_local, n, m) in ROWS_TIMED:
-                bound, bound_by = bound_rows_ms(B, n_local, n, m, precision)
                 row.update(
-                    blocks=B * -(-n_local // KERNEL_TILE[0])
-                    * -(-m // KERNEL_TILE[1]),
                     ms=time_ms(lambda: lk_mvm_fused_rows(
                         *args, precision=precision)),
                     plain_ms=time_ms(lambda: lk_mvm_fused_rows_plain(
@@ -434,7 +475,8 @@ def fused_rows_rows() -> list[dict]:
                     library_ms=time_ms(lambda: mask_r * torch.matmul(
                         K1r, torch.matmul(um_full, K2))
                         + noise * mask_r * u_r),
-                    bound_ms=bound, bound_by=bound_by)
+                    **tc_bounds(bound_rows_ms, B, n_local, n, m,
+                                precision=precision))
             rows_out.append(row)
             check(err <= tol, f"lk_mvm_fused_rows {precision} at "
                               f"{(B, n_local, n, m)}: max err {err:.3e} > "
@@ -1200,7 +1242,7 @@ def build_all() -> dict:
             "ptxas": [ln for ln in log["compiler_output"].splitlines()
                       if "registers" in ln or "spill" in ln]}
     return {"phase": "build", "seconds": time.perf_counter() - t0,
-            "tile": list(KERNEL_TILE), "libraries": logs}
+            "tc_tile": [TC_ROWS, TC_COLS, TC_K], "libraries": logs}
 
 
 def summary_row(rows, name, source, replaces, shape, launches) -> dict:
@@ -1211,7 +1253,8 @@ def summary_row(rows, name, source, replaces, shape, launches) -> dict:
             "replaces": replaces, "shape": list(shape), "precision": "f32",
             "launches": launches, "max_abs_err": row["max_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"].split()[0],  # "operations" / "bytes"
             "library_ms": row["library_ms"]}
 
 

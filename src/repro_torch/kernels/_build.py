@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch/<name>-<hash>.so`` at the
-root of the checkout, then loaded with ``ctypes``. The file name carries a hash of the source and the flags, so an
-edited kernel rebuilds and a stale library is never picked up. Nothing is
-built at import time, and a build failure raises with the compiler's output;
-it is never swallowed.
+root of the checkout, then loaded with ``ctypes``. The file name carries a
+hash of the source, every shared header ``csrc/*.cuh`` and the flags
+(:func:`_digest`), so an edited kernel or header rebuilds and a stale library
+is never picked up. Nothing is built at import time, and a build failure
+raises with the compiler's output; it is never swallowed.
 """
 from __future__ import annotations
 
@@ -51,6 +52,17 @@ def _nvcc() -> str:
                        "compiled at first use and need the CUDA toolkit")
 
 
+def _digest(name: str, csrc: Path | None = None) -> str:
+    """Hash of ``<csrc>/<name>.cu``, every ``<csrc>/*.cuh`` (in name order)
+    and the flags: what decides whether a built library is current."""
+    csrc = CSRC if csrc is None else csrc
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load ``csrc/<name>.cu``; cached per process."""
     with _LOCKS_LOCK:
@@ -60,8 +72,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = _digest(name)
         out_dir = _build_dir()
         target = out_dir / f"{name}-{digest}.so"
         log = {"library": str(target), "cached": target.exists(),

@@ -11,12 +11,13 @@ the (B, n, m) intermediate going through device memory between them.
     One launch of the hand-written CUDA kernel ``csrc/lk_mvm_fused.cu`` (it
     takes the place of the reference's TPU kernel of the same name in
     ``repro/kernels/lk_mvm.py``). The intermediate ``T = (mask * U) @ K2``
-    lives only in shared memory. The kernel is bound by operations, not
-    bytes, on an H100 (about 1000 flops per byte at n = 8192, m = 64); its
-    design - one block per output tile looping over K1's column blocks, T
-    recomputed per row block at m / 128 extra work, no padding copies - is
-    set out at the top of the source. A CUDA tensor launches the kernel or
-    raises; a CPU tensor runs the plain version.
+    lives only in shared memory. Its body, shared with K3, is the
+    tensor-core kernel of ``csrc/lk_mvm_tc.cuh`` (3xTF32 in f32 mode, BF16
+    MMA in bf16 mode; the batch folded into the product's columns; T
+    recomputed once per 256-row block; split-k inside a thread-block cluster
+    when the output tiles are too few, as :func:`plan_launch` decides). A
+    CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
+    version.
 
 :func:`lk_mvm_fused_plain`
     The same function in plain PyTorch with the same rounding points. The
@@ -43,10 +44,16 @@ the (B, n, m) intermediate going through device memory between them.
     The dispatcher in the slot of the reference's ``lk_mvm_pallas``:
     ``fused=True`` is the single-pass kernel, ``fused=False`` the two-stage
     kernels.
+
+:func:`plan_launch`
+    The host-side planner of K1's and K3's launch: output tiles, panels and
+    the split of the k sweep over a thread-block cluster.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -56,9 +63,16 @@ __all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain",
            "lk_mvm_two_stage", "lk_mvm_two_stage_plain", "lk_mvm_stage_right",
            "lk_mvm_stage_right_plain", "lk_mvm_stage_left",
            "lk_mvm_stage_left_plain", "lk_mvm_fused_rows",
-           "lk_mvm_fused_rows_plain"]
+           "lk_mvm_fused_rows_plain", "LaunchPlan", "plan_launch"]
 
 _PRECISIONS = ("f32", "bf16")
+# Block tile of the tensor-core body of K1 and K3 (csrc/lk_mvm_tc.cuh: BM,
+# BN, TK, MAX_SPLITS). plan_launch decides the whole grid from them and the
+# kernel launches it as it is; its launcher rejects a plan that does not
+# cover the output, so a mismatch raises instead of computing wrong values.
+TC_ROWS, TC_COLS, TC_K, TC_MAX_SPLITS = 256, 128, 32, 8
+# Streaming multiprocessors of an H100 SXM; the kernel holds one block each.
+H100_SMS = 132
 _LIB = None
 _LIB_TWO_STAGE = None
 _LIB_ROWS = None
@@ -70,9 +84,11 @@ def _library():
     if _LIB is None:
         lib = load_library("lk_mvm_fused")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # (K1, ldk1, K2, ldk2, mask, U, noise, out, B, n, m, bf16, stream)
+        # (K1, ldk1, K2, ldk2, mask, U, noise, out, B, n, m, bf16, plan,
+        #  stream)
         lib.lk_mvm_fused_launch.argtypes = [p, ll, p, ll, p, p, p, p,
-                                            i, i, i, i, p]
+                                            i, i, i, i,
+                                            ctypes.POINTER(_CPlan), p]
         lib.lk_mvm_fused_launch.restype = i
         lib.lk_mvm_fused_error_string.argtypes = [i]
         lib.lk_mvm_fused_error_string.restype = ctypes.c_char_p
@@ -106,9 +122,10 @@ def _rows_library():
         lib = load_library("lk_mvm_fused_rows")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         # (K1_rows, ldk1, K2, ldk2, um_full, mask_rows, u_rows, noise, out,
-        #  B, n_local, n, m, bf16, stream)
+        #  B, n_local, n, m, bf16, plan, stream)
         lib.lk_mvm_fused_rows_launch.argtypes = [p, ll, p, ll, p, p, p, p, p,
-                                                 i, i, i, i, i, p]
+                                                 i, i, i, i, i,
+                                                 ctypes.POINTER(_CPlan), p]
         lib.lk_mvm_fused_rows_launch.restype = i
         lib.lk_mvm_fused_rows_error_string.argtypes = [i]
         lib.lk_mvm_fused_rows_error_string.restype = ctypes.c_char_p
@@ -171,6 +188,73 @@ def _noise_scalar(noise, device) -> torch.Tensor:
         _refuse_autograd(noise)
         return noise.detach().reshape(()).to(device=device, dtype=torch.float32)
     return torch.tensor(float(noise), dtype=torch.float32, device=device)
+
+
+class _CPlan(ctypes.Structure):
+    """``lk_tc::Plan`` of csrc/lk_mvm_tc.cuh, field for field."""
+
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "row_tiles", "panels", "k_tiles", "col_tile", "batch_per_panel",
+        "splits")]
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """One launch of K1 or K3: ``row_tiles`` x ``panels`` output tiles of
+    TC_ROWS rows by TC_COLS flattened (b, j) columns (``batch_per_panel``
+    batch members of a ``col_tile``-wide column tile), each summed by
+    ``splits`` blocks of one thread-block cluster over ``k_tiles`` tiles of
+    TC_K rows of the reduction."""
+
+    n: int
+    row_tiles: int
+    panels: int
+    k_tiles: int
+    col_tile: int
+    batch_per_panel: int
+    splits: int
+
+    @property
+    def tiles(self) -> int:
+        return self.row_tiles * self.panels
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def c_struct(self) -> _CPlan:
+        """The plan as the kernel's launcher takes it."""
+        return _CPlan(**{f: getattr(self, f) for f, _ in _CPlan._fields_})
+
+    def k_ranges(self) -> list[tuple[int, int]]:
+        """The rows [k0, k1) of the reduction each split sums, in order: the
+        kernel's own rule (whole k tiles, split r from r*KT//s)."""
+        s, kt = self.splits, self.k_tiles
+        return [((r * kt // s) * TC_K, min(((r + 1) * kt // s) * TC_K, self.n))
+                for r in range(s)]
+
+
+def plan_launch(B: int, n_local: int, n: int, m: int) -> LaunchPlan:
+    """How K1 (``n_local = n``) or K3 tiles the work, and the split count:
+    the grid the kernel launches.
+
+    With fewer than two tiles per SM of an H100 the k sweep is split over a
+    cluster of s <= 8 blocks (at most one per k tile), s = ceil(2 * SMs /
+    tiles), so that B = 1 still streams K1 from enough SMs; with enough
+    tiles s = 1. The cluster of a launch is its ``splits`` blocks.
+    """
+    col_tile = min(64, -(-m // 16) * 16)
+    bpp = min(TC_COLS // col_tile, 4)
+    row_tiles = -(-n_local // TC_ROWS)
+    panels = -(-B // bpp) * -(-m // col_tile)
+    k_tiles = -(-n // TC_K)
+    tiles = row_tiles * panels
+    fill = 2 * H100_SMS
+    splits = 1 if tiles >= fill else min(TC_MAX_SPLITS, k_tiles,
+                                         math.ceil(fill / tiles))
+    return LaunchPlan(n=n, row_tiles=row_tiles, panels=panels,
+                      k_tiles=k_tiles, col_tile=col_tile,
+                      batch_per_panel=bpp, splits=splits)
 
 
 def lk_mvm_fused_plain(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
@@ -236,13 +320,15 @@ def lk_mvm_fused(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
         raise ValueError("B, n and m must fit in 32-bit integers")
     noise_t = _noise_scalar(noise, u.device)
     out = torch.empty_like(u3)
+    plan = plan_launch(B, n, n, m)
     lib = _library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lk_mvm_fused_launch(
             K1.data_ptr(), K1.stride(0), K2.data_ptr(), K2.stride(0),
             mask.data_ptr(), u3.data_ptr(), noise_t.data_ptr(),
-            out.data_ptr(), B, n, m, int(precision == "bf16"), stream)
+            out.data_ptr(), B, n, m, int(precision == "bf16"),
+            ctypes.byref(plan.c_struct()), stream)
     _raise_on_launch_error(rc, lib.lk_mvm_fused_error_string,
                            "lk_mvm_fused", (B, n, m))
     lk_mvm_fused.launches += 1
@@ -522,6 +608,7 @@ def lk_mvm_fused_rows(K1_rows: torch.Tensor, K2: torch.Tensor,
         raise ValueError("B, n and m must fit in 32-bit integers")
     noise_t = _noise_scalar(noise, u_rows.device)
     out = torch.empty_like(u3)
+    plan = plan_launch(B, n_local, n, m)
     lib = _rows_library()
     with torch.cuda.device(u_rows.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -529,7 +616,7 @@ def lk_mvm_fused_rows(K1_rows: torch.Tensor, K2: torch.Tensor,
             K1_rows.data_ptr(), K1_rows.stride(0), K2.data_ptr(), K2.stride(0),
             um_full.data_ptr(), mask_rows.data_ptr(), u3.data_ptr(),
             noise_t.data_ptr(), out.data_ptr(), B, n_local, n, m,
-            int(precision == "bf16"), stream)
+            int(precision == "bf16"), ctypes.byref(plan.c_struct()), stream)
     _raise_on_launch_error(rc, lib.lk_mvm_fused_rows_error_string,
                            "lk_mvm_fused_rows", (B, n_local, m))
     lk_mvm_fused_rows.launches += 1

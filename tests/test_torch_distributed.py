@@ -35,6 +35,7 @@ from repro_torch.distributed import (dist_cg_solve, dist_lk_mvm_fused,
                                      dist_lk_operator, dist_mll_value)
 from repro_torch.kernels import lk_mvm as lk_mod
 from repro_torch.kernels import lk_mvm_fused_rows, lk_mvm_fused_rows_plain
+from _tf32_emulation import tc_matmul
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -86,6 +87,28 @@ def test_fused_rows_plain_matches_reference_kernel(shard, precision, rel_tol):
     # the wrapper on CPU tensors is the plain version, bit for bit
     wrapped = lk_mvm_fused_rows(*_t(*args), 0.37, precision=precision)
     assert torch.equal(wrapped, out)
+
+
+@pytest.mark.parametrize("shard", ROW_SHARDS, ids=str)
+def test_fused_rows_3xtf32_emulation_matches_reference_kernel(shard):
+    """K3's f32-mode arithmetic (T = um_full @ K2 and K1_rows @ T, each from
+    three TF32 products) against the reference's kernel in interpret mode:
+    within 1e-4 * max|ref|, and closer than one TF32 pass."""
+    n_local, n, m, r = shard
+    K1, K2, mask, u = _grid_problem(n, m, seed=5)
+    rows = slice(r * n_local, (r + 1) * n_local)
+    um_full = mask * u[0]
+    args = (K1[rows], K2, mask[rows], u[0, rows], um_full)
+    ref = np.asarray(ref_lk_mvm_fused_rows(
+        *(jnp.asarray(a) for a in args), 0.37, block_n=16, block_m=16,
+        interpret=True))
+    K1r, K2t, mr, ur, um = _t(*args)
+    err = {}
+    for p in (1, 3):
+        out = mr * tc_matmul(K1r, tc_matmul(um, K2t, p), p) + 0.37 * mr * ur
+        err[p] = np.abs(out.numpy() - ref).max()
+    assert err[3] <= 1e-4 * np.abs(ref).max()
+    assert err[1] > err[3]
 
 
 def test_fused_rows_batch_is_one_call_per_batch_of_the_reference():

@@ -3,6 +3,7 @@ neither ``jax`` nor the reference package, nothing is built or probed at
 import time, and ``device=None`` means the GPU."""
 import ast
 import importlib
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -65,13 +66,23 @@ def test_kernel_source_calls_no_library_product():
     build = (PORT / "kernels" / "_build.py").read_text()
     assert "compute_90a" in build and "sm_90a" in build
     assert "cpp_extension" not in build
+    csrc = PORT / "kernels" / "csrc"
     for name in KERNEL_SOURCES:
-        src = (PORT / "kernels" / "csrc" / name).read_text()
+        src = (csrc / name).read_text()
+        # the source with the headers of csrc/ it includes
+        src += "".join((csrc / h).read_text()
+                       for h in re.findall(r'#include "(\w+\.cuh)"', src))
         code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
         for banned in ("cublas", "cutlass", "torch/", "ATen", "cudnn"):
             assert banned not in code, f"{name} mentions {banned}"
         assert "__global__" in code and 'extern "C"' in code
         assert "torch/extension.h" not in src
+        if name in ("lk_mvm_fused.cu", "lk_mvm_fused_rows.cu"):
+            # K1 and K3: one tensor-core body, no FMA main loop left
+            assert '#include "lk_mvm_tc.cuh"' in src
+            assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32" in code
+            assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16" in code
+            assert "cvt.rna.tf32.f32" in code and "fmaf" not in code
 
 
 def test_import_works_without_gpu_toolchain_and_pulls_in_no_jax():

@@ -27,6 +27,7 @@ from repro_torch.kernels import (lk_mvm_cuda, lk_mvm_fused,
                                  lk_mvm_two_stage, lk_mvm_two_stage_plain,
                                  rbf_gram_op, rbf_gram_ref)
 from repro_torch.kernels import _build
+from _tf32_emulation import tc_matmul
 
 # (B, n, m): n < 8, non-multiples of 8, B > 1, m spanning several blocks.
 AWKWARD_SHAPES = [(1, 5, 3), (1, 7, 19), (3, 32, 16), (2, 30, 21),
@@ -373,3 +374,106 @@ def test_build_failure_is_raised_not_swallowed(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load_library("lk_mvm_fused")
     assert not list(tmp_path.iterdir())
+
+
+# --------------------------------------------------------------------------
+# the tensor-core body of K1 / K3: its library's digest, its launch planner
+# and the arithmetic of its f32 mode (3xTF32), emulated on the CPU
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["lk_mvm_fused", "lk_mvm_fused_rows"])
+def test_library_digest_covers_the_shared_header(name, tmp_path):
+    """An edited header under csrc/ gives another library name, so a stale
+    build is never loaded; the digest is otherwise stable."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    before = _build._digest(name, csrc)
+    assert before == _build._digest(name, csrc)
+    assert before == _build._digest(name)    # the copy hashes as the original
+    header = csrc / "lk_mvm_tc.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._digest(name, csrc) != before
+    (csrc / f"{name}.cu").write_text((csrc / f"{name}.cu").read_text() + " ")
+    assert len({before, _build._digest(name, csrc)}) == 2
+
+
+# The kernel rows of chip_smoke.py as (B, n_local, n, m): K1's shapes
+# (n_local = n) and K3's, then row shards of 2 and 4 ranks at small B.
+PLAN_SHAPES = [(1, 5, 5, 3), (3, 50, 50, 21), (2, 130, 130, 257),
+               (1, 2000, 2000, 52), (16, 2000, 2000, 52),
+               (17, 2000, 2000, 52), (65, 2000, 2000, 52),
+               (1, 8192, 8192, 64), (16, 8192, 8192, 64),
+               (65, 8192, 8192, 64),
+               (3, 65, 130, 70), (2, 50, 100, 21), (65, 2048, 8192, 64),
+               (1, 2048, 8192, 64), (17, 4096, 8192, 64),
+               (1, 1000, 2000, 52), (17, 500, 2000, 52)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_split_planner_partitions_k_in_whole_tiles(shape):
+    from repro_torch.kernels.lk_mvm import (H100_SMS, TC_K, TC_MAX_SPLITS,
+                                            TC_ROWS, plan_launch)
+    B, n_local, n, m = shape
+    plan = plan_launch(B, n_local, n, m)
+    assert plan.row_tiles == -(-n_local // TC_ROWS)
+    assert 1 <= plan.splits <= TC_MAX_SPLITS == 8
+    assert plan.splits <= plan.k_tiles == -(-n // TC_K)
+    ranges = plan.k_ranges()
+    assert len(ranges) == plan.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    for (k0, k1), (k2, _) in zip(ranges, ranges[1:]):
+        assert k1 == k2
+    for k0, k1 in ranges:
+        assert k0 % TC_K == 0 and k1 > k0
+        assert k1 % TC_K == 0 or k1 == n
+    if plan.tiles >= 2 * H100_SMS:
+        assert plan.splits == 1
+    else:
+        assert plan.splits == min(8, plan.k_tiles,
+                                  -(-2 * H100_SMS // plan.tiles))
+    # every flattened (b, j) column and every output row has one tile
+    assert plan.panels * plan.batch_per_panel * plan.col_tile >= B * m
+    assert plan.blocks == plan.tiles * plan.splits
+
+
+def test_split_planner_fills_the_card_at_batch_one():
+    from repro_torch.kernels.lk_mvm import plan_launch
+    plan = plan_launch(1, 8192, 8192, 64)
+    assert plan.splits > 1 and plan.blocks >= 132
+    assert plan_launch(65, 8192, 8192, 64).splits == 1
+
+
+def _tc_fused(K1, K2, mask, u, noise, passes):
+    um = mask * u
+    T = tc_matmul(um, K2, passes)
+    return mask * tc_matmul(K1, T, passes) + noise * um
+
+
+@pytest.mark.parametrize("shape", AWKWARD_SHAPES)
+def test_3xtf32_emulation_matches_reference_kernel(shape):
+    """The f32 mode's arithmetic against the reference's Pallas kernel in
+    interpret mode: within 1e-4 * max|ref| (chip_smoke.py's tolerance), and
+    closer than a single TF32 pass."""
+    K1, K2, mask, u = _problem(*shape, seed=3)
+    ref = np.asarray(ref_lk_mvm_fused(
+        jnp.asarray(K1), jnp.asarray(K2), jnp.asarray(mask), jnp.asarray(u),
+        0.37, block_n=16, block_m=16, interpret=True))
+    args = _t(K1, K2, mask, u)
+    err = {p: np.abs(_tc_fused(*args, 0.37, p).numpy() - ref).max()
+           for p in (1, 3)}
+    scale = np.abs(ref).max()
+    assert err[3] <= 1e-4 * scale
+    assert err[1] > err[3]
+
+
+def test_3xtf32_emulation_holds_the_float64_oracle_at_the_fit_shape():
+    """At (17, 2000, 52), the fit's stacked solve, three passes stay within
+    1e-4 * max|oracle| and one pass is further off: why f32 mode takes three."""
+    K1, K2, mask, u = _problem(17, 2000, 52, seed=4)
+    args = _t(K1, K2, mask, u)
+    truth = lk_mvm_ref(*(a.double() for a in args), 0.1)
+    err = {p: float((_tc_fused(*args, 0.1, p).double() - truth).abs().max())
+           for p in (1, 3)}
+    scale = float(truth.abs().max())
+    assert err[3] <= 1e-4 * scale
+    assert err[1] > 1e-4 * scale        # one pass would miss the tolerance
