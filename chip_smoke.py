@@ -5,9 +5,10 @@
 
 Builds the hand-written CUDA kernels from the sources in this checkout (one
 nvcc per source, started together), holds each against its plain PyTorch
-version on the card (K1 and K3 also against a second launch of themselves,
-bit for bit, with their split-k plan reported), then drives the port's two
-paths at full width and checks that they ran through the kernels:
+version on the card (the MVM kernels K1, K2a, K2b and K3 also against a
+second launch of themselves, bit for bit, with the grid they launched
+reported), then drives the port's paths at full width and checks that they
+ran through the kernels:
 
 * serving (fitted state -> ``posterior(state)`` -> ``final`` / ``mean`` /
   ``samples``) through the ``cuda`` engine: every CG iteration one launch of
@@ -26,7 +27,8 @@ paths at full width and checks that they ran through the kernels:
 Any failed check raises; nothing is caught, so the exit code is non-zero.
 Without a CUDA device the script exits non-zero before printing any result.
 
-Phases, one JSON line each: device, build, kernels, serve (n=8192, m=64),
+Phases, one JSON line each: device, build, kernels, serve (n=8192, m=64,
+``final`` and ``mean`` also timed on the float64 ``iterative`` engine),
 serve_lcbench (n=2000, m=52, also against the ``iterative`` engine), exact
 (n=24, m=16 against the ``dense`` engine), fit (n=2000, m=52, d=7),
 distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64 fit), gram
@@ -37,6 +39,7 @@ card's name and power limit as ``nvidia-smi`` gives them, and last
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -80,7 +83,7 @@ from repro_torch.kernels.lk_mvm import (  # noqa: E402
     lk_mvm_fused, lk_mvm_fused_plain, lk_mvm_fused_rows,
     lk_mvm_fused_rows_plain, lk_mvm_stage_left, lk_mvm_stage_left_plain,
     lk_mvm_stage_right, lk_mvm_stage_right_plain, lk_mvm_two_stage,
-    lk_mvm_two_stage_plain, TC_COLS, TC_K, TC_ROWS, plan_launch)
+    lk_mvm_two_stage_plain, TC_COLS, TC_K, TC_ROWS, plan_launch, plan_stream)
 from repro_torch.kernels.ref import lk_mvm_ref  # noqa: E402
 
 SEED = 0
@@ -88,8 +91,8 @@ DEV = torch.device("cuda", 0)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): the
 # yardstick of bound_ms whatever card this runs on. Each datapath's rate: the
-# float32 FMA pipes (K2a, K2b, K4), three TF32 tensor-core products per
-# float32 product (K1 and K3 in f32 mode), the BF16 tensor cores (bf16 mode).
+# float32 FMA pipes (K4), three TF32 tensor-core products per float32 product
+# (K1 and K3 in f32 mode, K2a and K2b), the BF16 tensor cores (bf16 mode).
 PEAK_FLOPS = {"f32 FMA": 67e12, "3xTF32": 495e12 / 3, "bf16 MMA": 989e12}
 # The datapath of K1 and K3 in each precision mode.
 TC_DATAPATH = {"f32": "3xTF32", "bf16": "bf16 MMA"}
@@ -188,6 +191,30 @@ def time_ms(fn, repeats: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+# Clock cycles of the spin kernel that device_ms queues its calls behind:
+# ~5 ms on an H100, longer than the host takes to enqueue them.
+SPIN_CYCLES = 10_000_000
+
+
+def device_ms(fn, repeats: int = 10, warmup: int = 2) -> float:
+    """One call's device time with the host out of it: ``repeats`` calls
+    queued behind a spin kernel, so that they run back to back, between two
+    CUDA events; the mean. (``time_ms`` times single calls from an idle
+    device, so it also counts the host's time to launch them: tens of µs.)"""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
 def _bound(flops: float, nbytes: float, datapath: str) -> tuple[float, str]:
     """The larger of the operations at the datapath's peak and the bytes at
     the memory's, and which of the two it is."""
@@ -207,7 +234,7 @@ def bound_ms(B: int, n: int, m: int,
 
 
 def tc_bounds(bound_fn, *shape, precision: str) -> dict:
-    """K1's / K3's bound on its tensor-core datapath (``bound_by`` names it)
+    """A tensor-core kernel's bound on its datapath (``bound_by`` names it)
     and, as ``bound_fma_ms``, on the float32 FMA pipes of the earlier FMA
     kernels, so the rows compare with theirs."""
     datapath = TC_DATAPATH[precision]
@@ -219,14 +246,17 @@ def tc_bounds(bound_fn, *shape, precision: str) -> dict:
             "bound_fma_ms": fma}
 
 
-def plan_row(B: int, n_local: int, n: int, m: int) -> dict:
+def plan_row(B: int, n_local: int, n: int, m: int,
+             narrow: bool = False) -> dict:
     """The wrapper's launch plan at this shape, which is the grid the kernel
     launched (its launcher rejects any other): the split of the k sweep, the
-    cluster (1, 1, splits) and the blocks on the card."""
-    plan = plan_launch(B, n_local, n, m)
+    cluster (1, 1, splits), the blocks on the card and the panel's width
+    (``narrow``: K2b's plan)."""
+    plan = plan_launch(B, n_local, n, m, narrow=narrow)
     return {"splits": plan.splits, "cluster": [1, 1, plan.splits],
             "grid": [plan.panels, plan.row_tiles, plan.splits],
-            "blocks": plan.blocks, "tiles": plan.tiles}
+            "blocks": plan.blocks, "tiles": plan.tiles,
+            "panel_cols": plan.panel_cols}
 
 
 def check_fills_card(row: dict) -> None:
@@ -236,7 +266,8 @@ def check_fills_card(row: dict) -> None:
           f"{tuple(row['shape'])}: {row['blocks']} blocks for {sms} SMs")
 
 
-def bound_two_stage_ms(stage: str, B: int, n: int, m: int) -> tuple[float, str]:
+def bound_two_stage_ms(stage: str, B: int, n: int, m: int,
+                       datapath: str = "f32 FMA") -> tuple[float, str]:
     """bound_ms of one stage alone; T counts as that stage's output (R) or
     input (L), each read or written once."""
     if stage == "R":    # u, mask, K2 in; T out
@@ -245,7 +276,24 @@ def bound_two_stage_ms(stage: str, B: int, n: int, m: int) -> tuple[float, str]:
     else:               # K1, T, mask, u, noise in; out
         flops = 2.0 * B * n * n * m
         nbytes = 4.0 * (n * n + 3 * B * n * m + n * m + 1)
-    return _bound(flops, nbytes, "f32 FMA")
+    return _bound(flops, nbytes, datapath)
+
+
+def bound_pair_ms(B: int, n: int, m: int,
+                  datapath: str = "f32 FMA") -> tuple[float, str]:
+    """bound_ms of K2a then K2b: the sum of the stages' bounds (T goes
+    through device memory), named after the larger one."""
+    (r, r_by), (l, l_by) = (bound_two_stage_ms(st, B, n, m, datapath)
+                            for st in "RL")
+    return r + l, l_by if l >= r else r_by
+
+
+def stream_row(B: int, n: int, m: int) -> dict:
+    """K2a's plan at this shape, which is the grid it launched (its
+    launcher rejects any other): persistent blocks over strips of rows."""
+    plan = plan_stream(B, n, m)
+    return {"grid": [plan.blocks], "blocks": plan.blocks,
+            "strips": plan.strips, "strip_rows": plan.strip_rows}
 
 
 WRAPPERS = {"lk_mvm_fused": lk_mvm_fused,
@@ -341,6 +389,10 @@ def phase_kernels() -> list[dict]:
                         K1, K2, mask, u, noise, precision=precision)),
                     library_ms=time_ms(lambda: library_mvm(
                         K1, K2, mask, u, noise)),
+                    device_ms=device_ms(lambda: lk_mvm_fused(
+                        K1, K2, mask, u, noise, precision=precision)),
+                    library_device_ms=device_ms(lambda: library_mvm(
+                        K1, K2, mask, u, noise)),
                     **tc_bounds(bound_ms, B, n, m, precision=precision))
             if precision == "f32":
                 # Independent truth: the float64 oracle on the same inputs.
@@ -376,31 +428,40 @@ def phase_kernels() -> list[dict]:
 
 def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
     """K2a, K2b and the pair against their plain versions (K2b on the plain
-    T, so each kernel is held alone), timed at the main paths' shapes."""
+    T, so each kernel is held alone) and against a second launch of
+    themselves, bit for bit; K2b and the pair also against the float64
+    oracle. Each row carries the grid its kernel launched; timed at the main
+    paths' shapes, with the 3xTF32 bound and the FMA bound beside it."""
     B, n, m = u.shape
     T = lk_mvm_stage_right_plain(u, mask, K2)
+    plan_R, plan_L = stream_row(B, n, m), plan_row(B, n, n, m, narrow=True)
     cases = [
         ("lk_mvm_stage_right", "src/repro/kernels/lk_mvm.py:170",
          lambda: lk_mvm_stage_right(u, mask, K2),
          lambda: lk_mvm_stage_right_plain(u, mask, K2),
          lambda: torch.matmul(mask * u, K2),
-         bound_two_stage_ms("R", B, n, m)),
+         functools.partial(bound_two_stage_ms, "R"), plan_R),
         ("lk_mvm_stage_left", "src/repro/kernels/lk_mvm.py:185",
          lambda: lk_mvm_stage_left(K1, T, mask, u, noise),
          lambda: lk_mvm_stage_left_plain(K1, T, mask, u, noise),
          lambda: mask * torch.matmul(K1, T) + noise * mask * u,
-         bound_two_stage_ms("L", B, n, m)),
+         functools.partial(bound_two_stage_ms, "L"), plan_L),
         ("lk_mvm_two_stage", "src/repro/kernels/lk_mvm.py:170,185",
          lambda: lk_mvm_two_stage(K1, K2, mask, u, noise),
          lambda: lk_mvm_two_stage_plain(K1, K2, mask, u, noise),
          lambda: library_mvm(K1, K2, mask, u, noise),
-         bound_ms(B, n, m, "f32 FMA")),
+         bound_pair_ms, {"plans": {"lk_mvm_stage_right": plan_R,
+                                   "lk_mvm_stage_left": plan_L}}),
     ]
+    truth = None
     rows = []
-    for name, tpu, kernel, plain, library, (bound, bound_by) in cases:
+    for name, tpu, kernel, plain, library, bound_fn, grid in cases:
         ref = plain()
         out = kernel()
+        again = kernel()
         torch.cuda.synchronize()
+        check(torch.equal(out, again), f"{name} at {(B, n, m)}: two launches "
+              f"gave different bits")
         check(out.shape == ref.shape and out.dtype == torch.float32,
               f"{name} output {out.shape}/{out.dtype} at {(B, n, m)}")
         check(bool(torch.isfinite(out).all()), f"{name} output not finite")
@@ -409,11 +470,25 @@ def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
         tol = KERNEL_TOL["f32"] * scale
         row = {"name": name, "tpu": tpu, "precision": "f32",
                "shape": [B, n, m], "max_err": err, "tol": tol,
-               "ref_scale": scale}
+               "ref_scale": scale, "bitwise_repeat": True, **grid}
+        if name == "lk_mvm_stage_left" and B == 1 and n >= 8192:
+            check_fills_card(row)
+        if name != "lk_mvm_stage_right":
+            # Independent truth: the float64 oracle of the whole function.
+            if truth is None:
+                truth = lk_mvm_ref(K1.double(), K2.double(), mask.double(),
+                                   u.double(), noise.double())
+            row["max_err_vs_float64"] = float(
+                (out.double() - truth).abs().max())
+            check(row["max_err_vs_float64"] <= tol,
+                  f"{name} vs float64 oracle at {(B, n, m)}: "
+                  f"{row['max_err_vs_float64']:.3e} > {tol:.3e}")
         if (B, n, m) in TIMED_SHAPES:
             row.update(ms=time_ms(kernel), plain_ms=time_ms(plain),
-                       library_ms=time_ms(library), bound_ms=bound,
-                       bound_by=bound_by, datapath="f32 FMA")
+                       library_ms=time_ms(library),
+                       device_ms=device_ms(kernel),
+                       library_device_ms=device_ms(library),
+                       **tc_bounds(bound_fn, B, n, m, precision="f32"))
         rows.append(row)
         check(err <= tol, f"{name} at {(B, n, m)}: max err {err:.3e} > "
                           f"tol {tol:.3e}")
@@ -618,10 +693,13 @@ def check_solve(post, req: Request, cg_tol: float) -> dict:
 
 
 def phase_serve(phase: str, n: int, m: int, d: int, n_new: int,
-                compare_iterative: bool):
+                compare_iterative: bool, time_iterative: bool = False):
     """Returns the phase's record and a closure that measures the float32
     sweep's error at the first request's solution (it launches the kernel,
-    so the caller runs it after the launch count has been read)."""
+    so the caller runs it after the launch count has been read).
+    ``time_iterative`` also serves ``final()`` and the mean at the new
+    configurations through the plain float64 ``iterative`` engine on the same
+    state (no kernel), timed beside the ``cuda`` engine's requests."""
     cfg = dict(backend="cuda", posterior_samples=64, seed=SEED)
     state = make_state(SEED, n, m, d, **cfg)
     cg_tol = state.config.cg_tol
@@ -684,6 +762,8 @@ def phase_serve(phase: str, n: int, m: int, d: int, n_new: int,
                             "seconds": req.seconds, "launches": req.launches,
                             **s})
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if time_iterative:
+        out["iterative"] = iterative_requests(state, Xs, answers)
 
     if compare_iterative:
         # The same state through the plain float64 MVM on the card, mean
@@ -725,6 +805,55 @@ def phase_serve(phase: str, n: int, m: int, d: int, n_new: int,
             check(gap <= row["tol"], f"cuda vs iterative mean at cg_tol={tol}:"
                                      f" gap {gap:.3e} > {row['tol']:.3e}")
     return out, lambda: float32_sweep_error(state, x_final), answers
+
+
+def iterative_requests(state, Xs, answers) -> list[dict]:
+    """``final()`` (B = 65) and the mean at the new configurations through
+    the plain float64 ``iterative`` engine (library products, no kernel) on
+    the state the ``cuda`` engine just served, at the serving ``cg_tol``:
+    seconds, CG iterations, ms per iteration, true residual. Each mean is
+    held against the ``cuda`` engine's answer by the MEAN_TOL_VS_ITERATIVE
+    rule; neither request may launch a kernel."""
+    cg_tol = state.config.cg_tol
+    st = dataclasses.replace(state, config=dataclasses.replace(
+        state.config, backend="iterative"))
+    rows = []
+    before = launch_counts()
+    for request in ("final", "new_configs_mean"):
+        with Request(f"iterative_{request}") as req:
+            if request == "final":
+                # uncached: a posterior cached on `st` would form a cycle
+                # with it and hold its buffers into the next phase
+                p = posterior(st, cache=False)
+                mean, var = p.final()
+                want = answers["final"][0]
+            else:
+                p = posterior(st, Xs=Xs)
+                mean = p.mean
+                want = answers["new_configs_mean"]
+        info = p.solve_info
+        iters = int(info.iters)
+        row = {"request": request, "backend": "iterative", "dtype": "float64",
+               "seconds": req.seconds, "iters": iters,
+               "ms_per_iter": req.seconds / iters * 1e3,
+               "replacements": info.replacements,
+               "rel_residual": float(info.rel_residual.max()),
+               "columns": int(info.rel_residual.numel())}
+        scale = float(mean.abs().max())
+        row.update(mean_gap_vs_cuda=float((mean - want).abs().max()),
+                   tol=MEAN_TOL_VS_ITERATIVE * cg_tol * scale, scale=scale)
+        rows.append(row)
+        check(not bool(info.breakdown.any()),
+              f"iterative {request}: CG breakdown")
+        check(row["rel_residual"] <= cg_tol,
+              f"iterative {request}: residual {row['rel_residual']:.3e}")
+        check(row["mean_gap_vs_cuda"] <= row["tol"],
+              f"iterative {request} vs cuda: gap "
+              f"{row['mean_gap_vs_cuda']:.3e} > {row['tol']:.3e}")
+    launched = launch_counts(since=before)
+    check(not any(launched.values()),
+          f"the iterative engine launched kernels: {launched}")
+    return rows
 
 
 def phase_exact() -> dict:
@@ -1274,7 +1403,8 @@ def main() -> None:
     # Main path 1, serving: launches are counted from zero over this phase.
     reset_launch_counts()
     serve, sweep_error, serve_answers = phase_serve(
-        "serve", n=8192, m=64, d=7, n_new=256, compare_iterative=False)
+        "serve", n=8192, m=64, d=7, n_new=256, compare_iterative=False,
+        time_iterative=True)
     serve_launches = launch_counts()
     serve["launches"] = serve_launches["lk_mvm_fused"]
     serve["float32_sweep_error"] = sweep_error()

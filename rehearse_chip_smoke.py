@@ -92,7 +92,7 @@ def main() -> None:
     _patch_port_for_cpu()
     import chip_smoke as cs
     cs.DEV = CPU
-    cs.time_ms = _cpu_time_ms
+    cs.time_ms = cs.device_ms = _cpu_time_ms
     if args.phase == "fit":
         cs.reset_launch_counts()
         out = cs.phase_fit(n=args.n, m=52, d=7)

@@ -1,15 +1,18 @@
-// Tensor-core body of the fused masked latent-Kronecker MVM for NVIDIA Hopper
-// (sm_90a), shared by kernel K1 (lk_mvm_fused.cu) and kernel K3
-// (lk_mvm_fused_rows.cu):
+// Tensor-core body of the masked latent-Kronecker MVM for NVIDIA Hopper
+// (sm_90a), shared by kernel K1 (lk_mvm_fused.cu), kernel K3
+// (lk_mvm_fused_rows.cu) and kernel K2b (lk_mvm_two_stage.cu, stage L):
 //
-//   out[b] = mask_e * (A @ (um[b] @ K2)) + noise * (mask_e * u_e[b])
+//   out[b] = mask_e * (A @ T[b]) + noise * (mask_e * u_e[b])
+//   T[b]   = um[b] @ K2            (K1, K3: stage R below, never stored)
 //
 // A (n_rows, n) with row stride lda: K1 (n_rows = n) or one shard's K1_rows.
 // um[b] (n, m): mask * U[b] formed in the prologue (K1, MASKED = true) or the
-// caller's pre-masked um_full read as it is (K3). mask_e (n_rows, m) and
-// u_e[b] (n_rows, m): the epilogue's mask and U at the output rows. K2 (m, m)
-// with row stride ldk2. noise is read through a device pointer. float32 in,
-// float32 out.
+// caller's pre-masked um_full read as it is (K3). With T_LOADED (K2b) the
+// `um` pointer is T itself, (B, n, m) in device memory from kernel K2a: its
+// k tiles are loaded and transposed, K2 is not read and stage R is compiled
+// out. mask_e (n_rows, m) and u_e[b] (n_rows, m): the epilogue's mask and U
+// at the output rows. K2 (m, m) with row stride ldk2. noise is read through
+// a device pointer. float32 in, float32 out.
 //
 // Instruction: mma.sync (m16n8k8 TF32, m16n8k16 BF16, float32 accumulators).
 // wgmma would reach a higher share of the tensor cores' peak, but it needs
@@ -43,7 +46,13 @@
 //   shared memory and split into TF32 halves once) and stores it transposed,
 //   T^T[(b, j)][k], K-major for stage L, its TF32 halves already split (or
 //   bf16-rounded). T is recomputed once per 256-row block: m / 256 extra work
-//   (0.25 at m = 64).
+//   (0.25 at m = 64). With T_LOADED the k tile of T (BPP members x TK rows x
+//   JT columns of the panel) streams into the ring's U slot by cp.async in
+//   the A tile's commit group, and one shared-memory pass writes it
+//   transposed and split into Th / Tl: what the end of stage R writes.
+//   A plan whose batch fits in half a panel (B = 1, planned with `narrow`)
+//   runs stage L on PANEL = 64 columns (warp tile 32 x 32): the columns
+//   that K1 has to carry empty at B = 1 are not multiplied.
 // * f32 mode sums each k step's three MMAs into a zeroed fragment and adds
 //   it to the running sum with a float32 FADD: the tensor cores' accumulator
 //   truncates, and n / 8 * 3 MMAs into one accumulator bias the sum enough
@@ -96,7 +105,6 @@ constexpr int STAGES = 2;       // depth of the shared-memory ring
 constexpr int KR_MAX = 64;      // largest chunk of m in stage R's reduction
 constexpr int WARPS_M = 8, WARPS_N = 2;   // stage L: warp grid
 constexpr int MT = BM / WARPS_M / 16;     // 16-row fragments per warp
-constexpr int NT = BN / WARPS_N / 8;      // 8-column fragments per warp
 constexpr int NTHREADS = 32 * WARPS_M * WARPS_N;
 constexpr int MAX_SPLITS = 8;   // portable cluster size
 
@@ -206,8 +214,13 @@ struct Args {
     Plan plan;
 };
 
-template <bool BF16, int VEC, bool MASKED>
+// PANEL: the columns of a panel that stage L multiplies, BN or, with
+// T_LOADED, BN / 2 when the plan's batch fits in half a panel (B = 1).
+template <bool BF16, int VEC, bool MASKED, bool T_LOADED = false, int PANEL = BN>
 __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
+    static_assert(!(T_LOADED && (BF16 || MASKED)), "T_LOADED is f32, unmasked");
+    static_assert(PANEL == BN || (T_LOADED && PANEL == BN / 2), "panel width");
+    constexpr int NT = PANEL / WARPS_N / 8;   // 8-column fragments per warp
     using L = Layout<BF16>;
     extern __shared__ __align__(16) float smem[];
     float* const k2t = smem + STAGES * L::STAGE_FLOATS;  // [64 j][LDU]  K2^T chunk (hi / bf16)
@@ -276,7 +289,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
         if (kt < kt_end) {
             const int s = (kt - kt_begin) % STAGES;
             load_A(s, kt);
-            load_U(s, kt, 0);
+            load_U(s, kt, T_LOADED ? j0 : 0);   // T_LOADED: T's columns of the panel
         }
         cp_async_commit();
     };
@@ -394,6 +407,23 @@ __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
             }
         }
     };
+    // ---- T_LOADED: the k tile of T in the U slot, [bl][k][j] with row stride
+    //      LDU, written to Th / Tl as T^T[(bl, j)][k] split into TF32 halves.
+    //      A warp takes 8 k rows x 4 columns: 2-way bank conflicts on the
+    //      read, none on the write.
+    auto transpose_T = [&](int s) {
+        const float* src = U_s(s);
+        const int kq_n = TK / 8, jq_n4 = JT / 4;
+        for (int q = tid; q < BPP * TK * JT; q += NTHREADS) {
+            const int rest = q >> 5, kq = rest % kq_n, rest2 = rest / kq_n;
+            const int k = kq * 8 + (q & 7);
+            const int c = (rest2 % jq_n4) * 4 + ((q >> 3) & 3), bl = rest2 / jq_n4;
+            uint32_t h, l;
+            split(src[(bl * TK + k) * LDU + c], h, l);
+            Th[(bl * JT + c) * L::LDT + k] = __uint_as_float(h);
+            Tl[(bl * JT + c) * L::LDT + k] = __uint_as_float(l);
+        }
+    };
     auto stage_R = [&](int s, int kt) {
         for (int ch = 0; ch < nchunks; ++ch) {
             if (nchunks > 1) {   // m > 64: chunks of K2^T and U in turn
@@ -493,7 +523,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
     // ---- the k sweep of this split: a ring of STAGES tiles, the next
     //      STAGES - 1 in flight
     for (int q = tid; q < L::T_FLOATS; q += NTHREADS) Th[q] = 0.f;  // unused columns
-    if (nchunks == 1) load_k2t(0);   // resident for the whole sweep
+    if constexpr (!T_LOADED) {
+        if (nchunks == 1) load_k2t(0);   // resident for the whole sweep
+    }
 #pragma unroll
     for (int t = 0; t < STAGES - 1; ++t) load_tile(kt_begin + t);
     for (int kt = kt_begin; kt < kt_end; ++kt) {
@@ -501,7 +533,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
         cp_async_wait<STAGES - 2>();
         __syncthreads();   // tile kt landed; everyone is done with tile kt - 1
         load_tile(kt + STAGES - 1);
-        stage_R(s, kt);
+        if constexpr (T_LOADED) transpose_T(s);
+        else stage_R(s, kt);
         __syncthreads();   // T of tile kt complete
         stage_L(s);
     }
@@ -570,9 +603,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
 // along k in one cluster (1 = no split). Picks 16-byte or 4-byte copies from
 // the operands' alignment. Returns the CUDA error code (0 = success;
 // cudaErrorInvalidValue for a plan that does not cover the output or does
-// not fit the layout); does not synchronise and allocates nothing.
-template <bool MASKED>
+// not fit the layout, or bf16 with T_LOADED); does not synchronise and
+// allocates nothing.
+template <bool MASKED, bool T_LOADED = false>
 inline int launch(const Args& p, int bf16, void* stream) {
+    static_assert(!(T_LOADED && MASKED), "T_LOADED reads T as it is");
     if (p.B <= 0 || p.n_rows <= 0 || p.n <= 0 || p.m <= 0 || p.n_rows > p.n)
         return (int)cudaErrorInvalidValue;
     const Plan& q = p.plan;
@@ -596,18 +631,36 @@ inline int launch(const Args& p, int bf16, void* stream) {
                       && (p.m % 4 == 0);
     void (*kernel)(const Args);
     int bytes;
+    // With T_LOADED a plan whose panel holds at most BN / 2 columns (B = 1)
+    // takes the half-width instantiation.
+    const bool narrow = T_LOADED && BPP * JT <= BN / 2;
     if (bf16) {
-        kernel = vec4 ? lk_mvm_tc_kernel<true, 4, MASKED> : lk_mvm_tc_kernel<true, 1, MASKED>;
-        bytes = Layout<true>::BYTES;
+        if constexpr (T_LOADED) {
+            return (int)cudaErrorInvalidValue;   // float32 only
+        } else {
+            kernel = vec4 ? lk_mvm_tc_kernel<true, 4, MASKED>
+                          : lk_mvm_tc_kernel<true, 1, MASKED>;
+            bytes = Layout<true>::BYTES;
+        }
     } else {
-        kernel = vec4 ? lk_mvm_tc_kernel<false, 4, MASKED> : lk_mvm_tc_kernel<false, 1, MASKED>;
+        if constexpr (T_LOADED) {
+            if (narrow)
+                kernel = vec4 ? lk_mvm_tc_kernel<false, 4, false, true, BN / 2>
+                              : lk_mvm_tc_kernel<false, 1, false, true, BN / 2>;
+            else
+                kernel = vec4 ? lk_mvm_tc_kernel<false, 4, false, true>
+                              : lk_mvm_tc_kernel<false, 1, false, true>;
+        } else {
+            kernel = vec4 ? lk_mvm_tc_kernel<false, 4, MASKED>
+                          : lk_mvm_tc_kernel<false, 1, MASKED>;
+        }
         bytes = Layout<false>::BYTES;
     }
     // More than 48 KB of dynamic shared memory has to be asked for, once per
     // instantiation and device. (Two threads racing here set the same value.)
     constexpr int MAX_DEVICES = 64;
     static bool smem_set[4][MAX_DEVICES] = {};
-    const int which = 2 * (bf16 != 0) + (vec4 ? 1 : 0);
+    const int which = 2 * (bf16 != 0 || narrow) + (vec4 ? 1 : 0);
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;

@@ -7,224 +7,342 @@
 //
 // K1 (n, n) and K2 (m, m) with unit stride along their rows and row strides
 // ldk1 / ldk2, mask (n, m) of 0/1 floats, U, T and out (B, n, m) contiguous,
-// noise a scalar read through a device pointer. All float32.
+// noise a scalar read through a device pointer. All float32; both products
+// run on the tensor cores in 3xTF32 (lk_mvm_tc.cuh: hi = cvt.rna.tf32(x),
+// lo = cvt.rna.tf32(x - hi), lo*hi + hi*lo + hi*hi per product).
 //
 // Replaces the TPU kernels of `lk_mvm_two_stage` in the reference
 // (src/repro/kernels/lk_mvm.py): `_stage_right_kernel` and
 // `_stage_left_kernel`. The reference accumulates over its innermost grid axis
-// into a scratch tile, which runs in order on one core; here one block owns
-// an output tile and loops over the reduction itself. The reference pads every
-// operand to block multiples on the host; here every load is guarded and
-// scalar (neighbouring threads on neighbouring addresses), so ragged n and m
-// (n < 8, rows of 50 or 52 floats) need no padding copies.
+// into a scratch tile, which runs in order on one core, and pads every operand
+// to block multiples on the host; here a block loops over the reduction
+// itself and every load is zero-filled past the ragged edge, so ragged n and
+// m need no padding copies.
 //
-// Both stages are the same tiled SIMT GEMM: an output tile of TI x TJ = 128 x
-// 64 per block of 256 threads, each thread an 8 x 4 micro-tile, the reduction
-// swept in steps of TK = 32 through static shared memory (the A tile stored
-// transposed, 25 KB in all, under the 48 KB that needs no opt-in). Only where
-// the operands come from and the epilogue differ:
+// Stage L (K2b) is the tensor-core body of lk_mvm_tc.cuh, instantiated with
+// T_LOADED: the k tiles of T stream in by cp.async beside K1's tile and are
+// transposed into the body's TF32 halves; K2 is not read. Everything else is
+// K1's: the batch folded into 128-column panels, so each K1 tile serves up to
+// four batch members; split-k in a thread-block cluster when the output
+// tiles are too few for the card (B = 1); the grid from the wrapper's
+// planner (kernels/lk_mvm.py: plan_launch, narrow: at B = 1 a 64-column
+// panel, not 128 columns of which 64 are empty). Bound on this card:
+// operations at the 3xTF32 rate (2 B n^2 m flops) at large B, K1's bytes at
+// B = 1.
 //
-// * stage R multiplies the (B n, m) matrix (mask * U) by K2. The mask is
-//   applied as U's tile enters shared memory (the prologue); the grid runs
-//   over ceil(B n / 128) row blocks and ceil(m / 64) column blocks.
-// * stage L multiplies K1 by T[b] for each b. Its epilogue reads mask and U at
-//   the output tile and writes mask * acc + noise * (mask * U). The grid is
-//   (B, ceil(n / 128), ceil(m / 64)) with b fastest, so blocks that run
-//   together share one K1 row strip in L2.
-//
-// Bound on this card: operations, as for the fused kernel. Stage L does
-// 2 B n^2 m flops against 4 (n^2 + 3 B n m + n m) bytes (about 800 flops per
-// byte at B = 65, n = 8192, m = 64); stage R does 2 B n m^2 flops against
-// 4 (m^2 + 2 B n m + n m) bytes, 16 flops per byte at m = 64, so it is near
-// the ridge and T's round trip through device memory costs it as much as its
-// arithmetic. FMAs only: no tensor cores, no TMA, no software pipelining yet.
+// Stage R (K2a) does 2 m flops per 12 bytes moved (U and mask in, T out): 16
+// flops per byte at m = 64, so it is bound by bytes at every shape, and the
+// design is about its loads and stores. Its work is cut into strips of SR =
+// 64 rows of one batch member (row tile it of member b); persistent blocks,
+// two per SM, each take a contiguous range of strips in (it, b) order from
+// the wrapper's planner (kernels/lk_mvm.py: plan_stream). So K2^T, split into
+// TF32 halves, is loaded once per block, and so is the mask tile of a row
+// tile, which a block's strips share (one or two row tiles per block at the
+// main shapes): only U streams in, through a three-deep cp.async ring
+// (16-byte copies where rows are 16-byte aligned, zero-filled 4-byte copies
+// otherwise), two strips ahead of the tensor cores. Each warp owns 16 rows of
+// the strip and all its columns; it writes its product over its own rows of
+// the ring slot it has just read and stores them as rows of 16-byte stores,
+// so the only block-wide barrier per strip is the ring's. m > 64 sweeps
+// 64-column chunks of the reduction and 64-column output tiles, reloading
+// K2's and the mask's chunk per step. Its reduction is at most 64 deep per
+// chunk, so its MMAs accumulate straight into the output fragment (24 per
+// output at m = 64; the truncation that made K1 sum each k step apart
+// builds up over n / 8 * 3 MMAs, not 24), and K2^T keeps each value's two
+// TF32 halves side by side, one 16-byte shared load per B fragment.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "lk_mvm_tc.cuh"
 
-namespace {
+namespace lk_two_stage {
 
-constexpr int TI = 128;        // output rows per block
-constexpr int TJ = 64;         // output columns per block
-constexpr int TK = 32;         // reduction step
-constexpr int NTHREADS = 256;  // 16 x 16 threads
-constexpr int AS_LD = TI + 4;  // A tile, stored transposed [TK][AS_LD]
+// The grid of stage R, decided on the host by the wrapper's planner
+// (kernels/lk_mvm.py: plan_stream) and launched as it is: `strips` strips of
+// `strip_rows` rows, strip q being row tile q / B of batch member q % B;
+// block j of `blocks` takes strips [j strips / blocks, (j + 1) strips /
+// blocks).
+struct StreamPlan {
+    int strip_rows, strips, blocks;
+};
 
-static_assert(TI == 8 * 16 && TJ == 4 * 16, "thread mapping assumes 16 x 16 threads");
-static_assert((AS_LD % 4) == 0 && (TJ % 4) == 0, "float4 rows need 16-byte strides");
+using lk_tc::KR_MAX;
 
-// acc[8][4] += A[rows 8 ty .. 8 ty + 7, :] @ Bt[:, cols 4 tx .. 4 tx + 3] over
-// one reduction step held in shared memory.
-__device__ __forceinline__ void tile_fma(const float* As, const float* Bs,
-                                         int tx, int ty, float (&acc)[8][4]) {
-#pragma unroll 8
-    for (int kk = 0; kk < TK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk * AS_LD + 8 * ty]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk * AS_LD + 8 * ty + 4]);
-        const float4 w = *reinterpret_cast<const float4*>(&Bs[kk * TJ + 4 * tx]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], wv[c], acc[r][c]);
-    }
-}
+constexpr int SR = 64;                 // rows per strip: 16 per warp
+constexpr int NTHREADS = 128;          // 4 warps
+constexpr int STAGES = 3;              // depth of the U ring
+constexpr int LDU_MAX = KR_MAX + 8;    // row stride of the U and mask tiles (floats)
+constexpr int SLOT = SR * LDU_MAX;     // one U (or mask) tile
+// K2^T as [j][mm][hi, lo]: row stride 16 mod 32 floats, so the 16-byte B
+// fragment loads of a quarter warp hit 32 distinct banks.
+constexpr int LDK = 2 * KR_MAX + 16;
+constexpr int K2T = KR_MAX * LDK;
+constexpr int BYTES = (STAGES * SLOT + SLOT + K2T) * (int)sizeof(float);
+constexpr int JQ_MAX = KR_MAX / 16;    // 16-column items per warp
+static_assert(SR == 16 * (NTHREADS / 32), "a warp owns 16 rows of a strip");
+static_assert(2 * (BYTES + 1024) <= 233472, "two blocks must fit on an SM");
 
-// Stage R: T = (mask * U) @ K2, U and T viewed as (B n, m).
-__global__ void __launch_bounds__(NTHREADS)
+// FULL: 48 < m <= 64 (the main shapes), one 64-wide column tile and chunk,
+// so the tile width and every loop bound are compile-time constants.
+template <int VEC, bool FULL>
+__global__ void __launch_bounds__(NTHREADS, 2)
 stage_right_kernel(const float* __restrict__ U, const float* __restrict__ mask,
                    const float* __restrict__ K2, long long ldk2,
-                   float* __restrict__ T, long long rows, int n, int m) {
-    __shared__ __align__(16) float As[TK * AS_LD];   // (mask*U)[row block, k-step], transposed
-    __shared__ __align__(16) float Bs[TK * TJ];      // K2[k-step, col block]
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const long long r0 = (long long)blockIdx.x * TI;
-    const int j0 = blockIdx.y * TJ;
+                   float* __restrict__ T, int B, int n, int m, int strips) {
+    using lk_tc::cp_async;
+    extern __shared__ __align__(16) float smem[];
+    float* const M_s = smem + STAGES * SLOT;   // [r][mm] mask tile
+    float* const k2t = M_s + SLOT;             // [j][mm][hi, lo] K2^T chunk
 
-    float acc[8][4];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-    for (int k0 = 0; k0 < m; k0 += TK) {
-        // Everyone is done with the previous step's tiles.
-        __syncthreads();
-        for (int idx = tid; idx < TI * TK; idx += NTHREADS) {
-            const int r = idx / TK, c = idx % TK;
-            const long long gr = r0 + r;
-            const int gk = k0 + c;
-            float v = 0.f;
-            if (gr < rows && gk < m) {
-                const long long i = gr % n;   // row of the mask
-                v = mask[i * m + gk] * U[gr * m + gk];
-            }
-            As[c * AS_LD + r] = v;
-        }
-        for (int idx = tid; idx < TK * TJ; idx += NTHREADS) {
-            const int kk = idx / TJ, c = idx % TJ;
-            const int gk = k0 + kk, gc = j0 + c;
-            float v = 0.f;
-            if (gk < m && gc < m) v = K2[(size_t)gk * ldk2 + gc];
-            Bs[kk * TJ + c] = v;
-        }
-        __syncthreads();
-        tile_fma(As, Bs, tx, ty, acc);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-        const long long gr = r0 + 8 * ty + r;
-        if (gr >= rows) continue;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const int gc = j0 + 4 * tx + c;
-            if (gc < m) T[gr * m + gc] = acc[r][c];
-        }
-    }
-}
-
-// Stage L: out[b] = mask * (K1 @ T[b]) + noise * (mask * U[b]).
-__global__ void __launch_bounds__(NTHREADS)
-stage_left_kernel(const float* __restrict__ K1, long long ldk1,
-                  const float* __restrict__ T, const float* __restrict__ mask,
-                  const float* __restrict__ U,
-                  const float* __restrict__ noise_ptr,
-                  float* __restrict__ out, int n, int m) {
-    __shared__ __align__(16) float As[TK * AS_LD];   // K1[row block, k-step], transposed
-    __shared__ __align__(16) float Bs[TK * TJ];      // T[b][k-step, col block]
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const int b = blockIdx.x;
-    const int i0 = blockIdx.y * TI;
-    const int j0 = blockIdx.z * TJ;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int gid = lane >> 2, tig = lane & 3;
+    // The output column tile is also the reduction chunk: all of m (rounded
+    // up to 16) when m <= 64, else 64.
+    const int JT = FULL ? KR_MAX : m <= KR_MAX ? (m + 15) / 16 * 16 : KR_MAX;
+    const int LDU = (JT + 31) / 32 * 32 + 8;
+    const int jtiles = FULL ? 1 : (m + JT - 1) / JT, jq_n = JT / 16;
+    const int per_strip = jtiles * jtiles;     // (column tile, chunk) steps
+    const bool resident = per_strip == 1;
+    const int q_begin = (int)((long long)blockIdx.x * strips / gridDim.x);
+    const int q_end = (int)((long long)(blockIdx.x + 1) * strips / gridDim.x);
+    const int steps = (q_end - q_begin) * per_strip;
     const size_t plane = (size_t)n * (size_t)m;
-    const float* Tb = T + (size_t)b * plane;
 
-    float acc[8][4];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    auto U_s = [&](int s) { return smem + s * SLOT; };
 
-    for (int k0 = 0; k0 < n; k0 += TK) {
-        __syncthreads();
-        for (int idx = tid; idx < TI * TK; idx += NTHREADS) {
-            const int r = idx / TK, c = idx % TK;
-            const int gr = i0 + r, gk = k0 + c;
-            float v = 0.f;
-            if (gr < n && gk < n) v = K1[(size_t)gr * ldk1 + gk];
-            As[c * AS_LD + r] = v;
+    // ---- U rows of the next step to load, strip lq and (column tile,
+    //      chunk) lw, into ring slot `slot` (one commit group, maybe empty).
+    //      Steps advance by counters, not by 64-bit divisions of a step index.
+    int lq = q_begin, lw = 0;
+    auto load_next = [&](int slot) {
+        if (lq < q_end) {
+            const int tile = lq / B, ch = lw % jtiles;
+            const int i0 = tile * SR, b = lq - tile * B;
+            const float* src = U + (size_t)b * plane;
+            float* dst = U_s(slot);
+            const int c0 = ch * JT, cpr = JT / VEC;
+            for (int e = tid; e < SR * cpr; e += NTHREADS) {
+                const int r = e / cpr, c = (e - r * cpr) * VEC;
+                const int i = i0 + r, gc = c0 + c;
+                const bool ok = i < n && gc < m;
+                cp_async<VEC>(dst + r * LDU + c,
+                              ok ? src + (size_t)i * m + gc : U, ok);
+            }
+            if (++lw == per_strip) {
+                lw = 0;
+                ++lq;
+            }
         }
-        for (int idx = tid; idx < TK * TJ; idx += NTHREADS) {
-            const int kk = idx / TJ, c = idx % TJ;
-            const int gk = k0 + kk, gc = j0 + c;
-            float v = 0.f;
-            if (gk < n && gc < m) v = Tb[(size_t)gk * m + gc];
-            Bs[kk * TJ + c] = v;
+        lk_tc::cp_async_commit();
+    };
+    // The mask tile of row tile i0 / SR, chunk ch, and K2^T[j][mm] =
+    // K2[c0 + mm][j0 + j] split into TF32 halves: plain loads, neighbouring
+    // threads on neighbouring columns, each thread's EACH loads all issued
+    // before the first is used (one round trip to L2, not EACH in a row).
+    constexpr int EACH = SR * KR_MAX / NTHREADS;
+    static_assert(EACH * NTHREADS == KR_MAX * KR_MAX, "K2^T and mask tiles alike");
+    auto load_mask = [&](int i0, int ch) {
+        const int c0 = ch * JT;
+        float v[EACH];
+#pragma unroll
+        for (int k = 0; k < EACH; ++k) {
+            const int e = tid + k * NTHREADS, r = e / JT, c = e - r * JT;
+            const int i = i0 + r, gc = c0 + c;
+            v[k] = e < SR * JT && i < n && gc < m ? mask[(size_t)i * m + gc] : 0.f;
         }
-        __syncthreads();
-        tile_fma(As, Bs, tx, ty, acc);
+#pragma unroll
+        for (int k = 0; k < EACH; ++k) {
+            const int e = tid + k * NTHREADS, r = e / JT, c = e - r * JT;
+            if (e < SR * JT) M_s[r * LDU + c] = v[k];
+        }
+    };
+    auto load_k2t = [&](int jt, int ch) {
+        const int j0 = jt * JT, c0 = ch * JT;
+        float v[EACH];
+#pragma unroll
+        for (int k = 0; k < EACH; ++k) {
+            const int e = tid + k * NTHREADS, jl = e % JT, mm = e / JT;
+            const int gj = j0 + jl, gm = c0 + mm;
+            v[k] = e < JT * JT && gj < m && gm < m ? K2[(size_t)gm * ldk2 + gj] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < EACH; ++k) {
+            const int e = tid + k * NTHREADS, jl = e % JT, mm = e / JT;
+            if (e >= JT * JT) continue;
+            uint32_t h, l;
+            lk_tc::split(v[k], h, l);
+            *reinterpret_cast<float2*>(k2t + jl * LDK + 2 * mm) =
+                make_float2(__uint_as_float(h), __uint_as_float(l));
+        }
+    };
+
+    float acc[JQ_MAX][2][4];
+    int mask_i0 = -1;   // row of the resident mask tile
+#pragma unroll
+    for (int t = 0; t < STAGES - 1; ++t) load_next(t);
+    if (resident && q_begin < q_end) {   // under the first strips' copies
+        load_k2t(0, 0);                  // for the whole launch
+        mask_i0 = q_begin / B * SR;
+        load_mask(mask_i0, 0);
     }
+    int q = q_begin - 1, w = per_strip - 1;   // the step computed: strip q, w
+    for (int st = 0; st < steps; ++st) {
+        if (++w == per_strip) {
+            w = 0;
+            ++q;
+        }
+        const int s = st % STAGES, jt = w / jtiles, ch = w - jt * jtiles;
+        const int tile = q / B, i0 = tile * SR, b = q - tile * B;
+        lk_tc::cp_async_wait<STAGES - 2>();
+        __syncthreads();   // step st landed; step st - 1 is done with the ring
+        load_next((st + STAGES - 1) % STAGES);
+        if (!resident || i0 != mask_i0) {
+            if (!resident) load_k2t(jt, ch);
+            load_mask(i0, ch);
+            mask_i0 = i0;
+            __syncthreads();
+        }
+        if (ch == 0) {
+#pragma unroll
+            for (int jq = 0; jq < JQ_MAX; ++jq)
+#pragma unroll
+                for (int f = 0; f < 2; ++f)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[jq][f][e] = 0.f;
+        }
+        // The warp's 16 rows times every 16-column item: the operand split of
+        // lk_mvm_tc.cuh's stage R, the mask applied on the way into the
+        // fragments, the MMAs accumulating in place.
+        float* const Ur = U_s(s) + (warp * 16 + gid) * LDU;
+        const float* Mr = M_s + (warp * 16 + gid) * LDU;
+#pragma unroll
+        for (int mm = 0; mm < KR_MAX; mm += 8) {
+            if (mm >= JT) break;
+            float2 x0 = *reinterpret_cast<const float2*>(Ur + mm + 2 * tig);
+            float2 x1 = *reinterpret_cast<const float2*>(Ur + 8 * LDU + mm + 2 * tig);
+            const float2 m0 = *reinterpret_cast<const float2*>(Mr + mm + 2 * tig);
+            const float2 m1 = *reinterpret_cast<const float2*>(Mr + 8 * LDU + mm + 2 * tig);
+            x0.x *= m0.x; x0.y *= m0.y;
+            x1.x *= m1.x; x1.y *= m1.y;
+            uint32_t ah[4], al[4];
+            lk_tc::split(x0.x, ah[0], al[0]);
+            lk_tc::split(x1.x, ah[1], al[1]);
+            lk_tc::split(x0.y, ah[2], al[2]);
+            lk_tc::split(x1.y, ah[3], al[3]);
+#pragma unroll
+            for (int jq = 0; jq < JQ_MAX; ++jq) {
+                if (jq >= jq_n) break;
+#pragma unroll
+                for (int f = 0; f < 2; ++f) {
+                    // (hi, lo) of K2^T[j][mm + 2 tig] and [mm + 2 tig + 1]
+                    const float4 w = *reinterpret_cast<const float4*>(
+                        k2t + (jq * 16 + f * 8 + gid) * LDK + 2 * (mm + 2 * tig));
+                    const uint32_t h0 = __float_as_uint(w.x), h1 = __float_as_uint(w.z);
+                    lk_tc::mma_tf32(acc[jq][f], al, h0, h1);
+                    lk_tc::mma_tf32(acc[jq][f], ah, __float_as_uint(w.y), __float_as_uint(w.w));
+                    lk_tc::mma_tf32(acc[jq][f], ah, h0, h1);
+                }
+            }
+        }
+        if (ch != jtiles - 1) continue;
 
-    // Epilogue at tile (i, j): mask and U read once, here.
-    const float noise = *noise_ptr;
-    const float* Ub = U + (size_t)b * plane;
-    float* outb = out + (size_t)b * plane;
+        // ---- the warp's rows of T: over its own rows of the slot it has
+        //      just read, then out in rows of 16-byte stores
+        __syncwarp();
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-        const int gr = i0 + 8 * ty + r;
-        if (gr >= n) continue;
+        for (int jq = 0; jq < JQ_MAX; ++jq) {
+            if (jq >= jq_n) break;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const int gc = j0 + 4 * tx + c;
-            if (gc >= m) continue;
-            const size_t o = (size_t)gr * m + gc;
-            const float mk = mask[o];
-            outb[o] = mk * acc[r][c] + noise * (mk * Ub[o]);
+            for (int f = 0; f < 2; ++f)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    *reinterpret_cast<float2*>(Ur + 8 * h * LDU + jq * 16 + f * 8 + 2 * tig) =
+                        make_float2(acc[jq][f][2 * h], acc[jq][f][2 * h + 1]);
+        }
+        __syncwarp();
+        const float* rows_s = U_s(s) + warp * 16 * LDU;
+        float* const Tb = T + (size_t)b * plane;
+        const int j0 = jt * JT, cpr = JT / VEC;
+        for (int e = lane; e < 16 * cpr; e += 32) {
+            const int r = e / cpr, c = (e - r * cpr) * VEC;
+            const int i = i0 + warp * 16 + r, gc = j0 + c;
+            if (i >= n || gc >= m) continue;
+            if constexpr (VEC == 4) {
+                *reinterpret_cast<float4*>(Tb + (size_t)i * m + gc) =
+                    *reinterpret_cast<const float4*>(rows_s + r * LDU + c);
+            } else {
+                Tb[(size_t)i * m + gc] = rows_s[r * LDU + c];
+            }
         }
     }
 }
 
-}  // namespace
+}  // namespace lk_two_stage
 
-// Launches stage R on `stream`; returns the CUDA error code of the launch
-// (0 = success). Does not synchronise and allocates nothing.
+// Launches stage R on `stream` with the grid of `plan` (the wrapper's
+// planner): plan->blocks persistent blocks over plan->strips strips.
+// Returns the CUDA error code of the launch (0 = success;
+// cudaErrorInvalidValue for a plan that does not cover the rows). Does not
+// synchronise and allocates nothing.
 extern "C" int lk_mvm_stage_right_launch(const void* U, const void* mask,
                                          const void* K2, long long ldk2,
                                          void* T, int B, int n, int m,
+                                         const lk_two_stage::StreamPlan* plan,
                                          void* stream) {
+    using namespace lk_two_stage;
     if (B <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-    const long long rows = (long long)B * n;
-    const long long gx = (rows + TI - 1) / TI;
-    const long long gy = ((long long)m + TJ - 1) / TJ;
-    if (gx > 2147483647LL || gy > 65535) return (int)cudaErrorInvalidConfiguration;
-    const dim3 grid((unsigned)gx, (unsigned)gy, 1);
-    stage_right_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)U, (const float*)mask, (const float*)K2, ldk2,
-        (float*)T, rows, n, m);
+    if (plan->strip_rows != SR
+        || (long long)plan->strips != (long long)B * ((n + SR - 1) / SR)
+        || plan->blocks < 1 || plan->blocks > plan->strips)
+        return (int)cudaErrorInvalidValue;
+    const uintptr_t ptrs = (uintptr_t)U | (uintptr_t)T;
+    const bool vec4 = ptrs % 16 == 0 && m % 4 == 0;
+    const bool full = m > 48 && m <= KR_MAX;
+    void (*kernel)(const float*, const float*, const float*, long long, float*,
+                   int, int, int, int) =
+        vec4 ? (full ? stage_right_kernel<4, true> : stage_right_kernel<4, false>)
+             : (full ? stage_right_kernel<1, true> : stage_right_kernel<1, false>);
+    // Over 48 KB of dynamic shared memory has to be asked for, once per
+    // instantiation and device. (Two threads racing here set the same value.)
+    constexpr int MAX_DEVICES = 64;
+    static bool smem_set[4][MAX_DEVICES] = {};
+    const int which = 2 * full + vec4;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= MAX_DEVICES || !smem_set[which][dev]) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+        if (err != cudaSuccess) return (int)err;
+        if (dev < MAX_DEVICES) smem_set[which][dev] = true;
+    }
+    kernel<<<plan->blocks, NTHREADS, BYTES, (cudaStream_t)stream>>>(
+        (const float*)U, (const float*)mask, (const float*)K2, ldk2, (float*)T,
+        B, n, m, plan->strips);
     return (int)cudaGetLastError();
 }
 
-// Launches stage L on `stream`; same contract as stage R.
+// Launches stage L on `stream` with the grid of `plan` (the wrapper's
+// planner, as for K1); same contract as stage R.
 extern "C" int lk_mvm_stage_left_launch(const void* K1, long long ldk1,
                                         const void* T, const void* mask,
                                         const void* U, const void* noise,
                                         void* out, int B, int n, int m,
-                                        void* stream) {
-    if (B <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-    const long long gy = ((long long)n + TI - 1) / TI;
-    const long long gz = ((long long)m + TJ - 1) / TJ;
-    if (gy > 65535 || gz > 65535) return (int)cudaErrorInvalidConfiguration;
-    const dim3 grid((unsigned)B, (unsigned)gy, (unsigned)gz);
-    stage_left_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)K1, ldk1, (const float*)T, (const float*)mask,
-        (const float*)U, (const float*)noise, (float*)out, n, m);
-    return (int)cudaGetLastError();
+                                        const lk_tc::Plan* plan, void* stream) {
+    lk_tc::Args p;
+    p.A = (const float*)K1;
+    p.lda = ldk1;
+    p.K2 = nullptr;
+    p.ldk2 = 0;
+    p.um = (const float*)T;
+    p.mask_p = nullptr;
+    p.mask_e = (const float*)mask;
+    p.u_e = (const float*)U;
+    p.noise = (const float*)noise;
+    p.out = (float*)out;
+    p.B = B;
+    p.n_rows = n;
+    p.n = n;
+    p.m = m;
+    p.plan = *plan;
+    return lk_tc::launch<false, true>(p, 0, stream);
 }
 
 // Human-readable name of an error code returned by the launch functions.

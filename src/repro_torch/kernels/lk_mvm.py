@@ -29,8 +29,11 @@ the (B, n, m) intermediate going through device memory between them.
     them: :func:`lk_mvm_stage_right` (``T = (mask * U) @ K2``, kernel K2a) and
     :func:`lk_mvm_stage_left` (``mask * (K1 @ T) + noise * (mask * U)``,
     kernel K2b), both in ``csrc/lk_mvm_two_stage.cu``. They take the place of
-    the reference's ``lk_mvm_two_stage``. Each stage has its plain version
-    beside it, and :func:`lk_mvm_two_stage_plain` composes them.
+    the reference's ``lk_mvm_two_stage``. K2b is the tensor-core body of K1
+    with T loaded instead of computed (grid from :func:`plan_launch`); K2a
+    is a streaming 3xTF32 pass over strips of rows (grid from
+    :func:`plan_stream`). Each stage has its plain version beside it, and
+    :func:`lk_mvm_two_stage_plain` composes them.
 
 :func:`lk_mvm_fused_rows`
     The single-pass kernel for ONE row shard of the grid (kernel K3,
@@ -46,8 +49,12 @@ the (B, n, m) intermediate going through device memory between them.
     kernels.
 
 :func:`plan_launch`
-    The host-side planner of K1's and K3's launch: output tiles, panels and
-    the split of the k sweep over a thread-block cluster.
+    The host-side planner of K1's, K2b's and K3's launch: output tiles,
+    panels and the split of the k sweep over a thread-block cluster.
+
+:func:`plan_stream`
+    The host-side planner of K2a's launch: strips of rows and the persistent
+    blocks that walk them.
 """
 from __future__ import annotations
 
@@ -63,16 +70,20 @@ __all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain",
            "lk_mvm_two_stage", "lk_mvm_two_stage_plain", "lk_mvm_stage_right",
            "lk_mvm_stage_right_plain", "lk_mvm_stage_left",
            "lk_mvm_stage_left_plain", "lk_mvm_fused_rows",
-           "lk_mvm_fused_rows_plain", "LaunchPlan", "plan_launch"]
+           "lk_mvm_fused_rows_plain", "LaunchPlan", "plan_launch",
+           "StreamPlan", "plan_stream"]
 
 _PRECISIONS = ("f32", "bf16")
-# Block tile of the tensor-core body of K1 and K3 (csrc/lk_mvm_tc.cuh: BM,
-# BN, TK, MAX_SPLITS). plan_launch decides the whole grid from them and the
+# Block tile of the tensor-core body of K1, K2b and K3 (csrc/lk_mvm_tc.cuh:
+# BM, BN, TK, MAX_SPLITS). plan_launch decides the whole grid from them and the
 # kernel launches it as it is; its launcher rejects a plan that does not
 # cover the output, so a mismatch raises instead of computing wrong values.
 TC_ROWS, TC_COLS, TC_K, TC_MAX_SPLITS = 256, 128, 32, 8
 # Streaming multiprocessors of an H100 SXM; the kernel holds one block each.
 H100_SMS = 132
+# K2a (csrc/lk_mvm_two_stage.cu: SR): rows of (B n) per strip, and the
+# persistent blocks per SM that walk the strips (two fit in shared memory).
+STREAM_ROWS, STREAM_BLOCKS_PER_SM = 64, 2
 _LIB = None
 _LIB_TWO_STAGE = None
 _LIB_ROWS = None
@@ -102,12 +113,14 @@ def _two_stage_library():
     if _LIB_TWO_STAGE is None:
         lib = load_library("lk_mvm_two_stage")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # (U, mask, K2, ldk2, T, B, n, m, stream)
-        lib.lk_mvm_stage_right_launch.argtypes = [p, p, p, ll, p, i, i, i, p]
+        # (U, mask, K2, ldk2, T, B, n, m, stream plan, stream)
+        lib.lk_mvm_stage_right_launch.argtypes = [
+            p, p, p, ll, p, i, i, i, ctypes.POINTER(_CStreamPlan), p]
         lib.lk_mvm_stage_right_launch.restype = i
-        # (K1, ldk1, T, mask, U, noise, out, B, n, m, stream)
+        # (K1, ldk1, T, mask, U, noise, out, B, n, m, plan, stream)
         lib.lk_mvm_stage_left_launch.argtypes = [p, ll, p, p, p, p, p,
-                                                 i, i, i, p]
+                                                 i, i, i,
+                                                 ctypes.POINTER(_CPlan), p]
         lib.lk_mvm_stage_left_launch.restype = i
         lib.lk_mvm_two_stage_error_string.argtypes = [i]
         lib.lk_mvm_two_stage_error_string.restype = ctypes.c_char_p
@@ -200,7 +213,7 @@ class _CPlan(ctypes.Structure):
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    """One launch of K1 or K3: ``row_tiles`` x ``panels`` output tiles of
+    """One launch of K1, K2b or K3: ``row_tiles`` x ``panels`` output tiles of
     TC_ROWS rows by TC_COLS flattened (b, j) columns (``batch_per_panel``
     batch members of a ``col_tile``-wide column tile), each summed by
     ``splits`` blocks of one thread-block cluster over ``k_tiles`` tiles of
@@ -222,6 +235,13 @@ class LaunchPlan:
     def blocks(self) -> int:
         return self.tiles * self.splits
 
+    @property
+    def panel_cols(self) -> int:
+        """The columns stage L multiplies per panel: 128, or 64 when the
+        plan is narrow."""
+        return TC_COLS if self.batch_per_panel * self.col_tile > TC_COLS // 2 \
+            else TC_COLS // 2
+
     def c_struct(self) -> _CPlan:
         """The plan as the kernel's launcher takes it."""
         return _CPlan(**{f: getattr(self, f) for f, _ in _CPlan._fields_})
@@ -234,17 +254,25 @@ class LaunchPlan:
                 for r in range(s)]
 
 
-def plan_launch(B: int, n_local: int, n: int, m: int) -> LaunchPlan:
-    """How K1 (``n_local = n``) or K3 tiles the work, and the split count:
-    the grid the kernel launches.
+def plan_launch(B: int, n_local: int, n: int, m: int, *,
+                narrow: bool = False) -> LaunchPlan:
+    """How K1 or K2b (``n_local = n``) or K3 tiles the work, and the split
+    count: the grid the kernel launches.
 
     With fewer than two tiles per SM of an H100 the k sweep is split over a
     cluster of s <= 8 blocks (at most one per k tile), s = ceil(2 * SMs /
     tiles), so that B = 1 still streams K1 from enough SMs; with enough
     tiles s = 1. The cluster of a launch is its ``splits`` blocks.
+
+    ``narrow`` (K2b, whose T comes from memory): when the whole batch fits
+    in half a panel, a panel holds just the batch, and the kernel runs its
+    half-width instantiation on it (at B = 1 and m = 64: 64 columns, not
+    128 of which 64 are empty).
     """
     col_tile = min(64, -(-m // 16) * 16)
     bpp = min(TC_COLS // col_tile, 4)
+    if narrow and B * col_tile <= TC_COLS // 2:
+        bpp = B
     row_tiles = -(-n_local // TC_ROWS)
     panels = -(-B // bpp) * -(-m // col_tile)
     k_tiles = -(-n // TC_K)
@@ -255,6 +283,58 @@ def plan_launch(B: int, n_local: int, n: int, m: int) -> LaunchPlan:
     return LaunchPlan(n=n, row_tiles=row_tiles, panels=panels,
                       k_tiles=k_tiles, col_tile=col_tile,
                       batch_per_panel=bpp, splits=splits)
+
+
+class _CStreamPlan(ctypes.Structure):
+    """``lk_two_stage::StreamPlan`` of csrc/lk_mvm_two_stage.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("strip_rows", "strips", "blocks")]
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """One launch of K2a: ``strips`` strips of ``strip_rows`` rows of one
+    batch member each (strip q is row tile q // B of member q % B), walked by
+    ``blocks`` persistent blocks, block j taking the contiguous strips
+    [j * strips // blocks, (j + 1) * strips // blocks)."""
+
+    B: int
+    n: int
+    strip_rows: int
+    strips: int
+    blocks: int
+
+    def c_struct(self) -> _CStreamPlan:
+        """The plan as the kernel's launcher takes it."""
+        return _CStreamPlan(**{f: getattr(self, f)
+                               for f, _ in _CStreamPlan._fields_})
+
+    def row_ranges(self, block: int) -> list[tuple[int, int]]:
+        """The rows [r0, r1) of the (B n, m) matrix that block ``block``
+        computes, in its order: the kernel's own rule."""
+        out = []
+        for q in range(block * self.strips // self.blocks,
+                       (block + 1) * self.strips // self.blocks):
+            tile, b = divmod(q, self.B)
+            i0 = tile * self.strip_rows
+            out.append((b * self.n + i0,
+                        b * self.n + min(i0 + self.strip_rows, self.n)))
+        return out
+
+
+def plan_stream(B: int, n: int, m: int) -> StreamPlan:
+    """K2a's grid: strips of STREAM_ROWS rows of one batch member, ordered
+    row tile by row tile (so a block's strips share the mask tile it holds),
+    and as many persistent blocks as strips up to STREAM_BLOCKS_PER_SM per
+    SM of an H100, each loading K2 once and taking a contiguous range of
+    strips with the next ones in flight. (``m`` does not change the grid:
+    wider rows are swept in 64-column chunks inside the block.)"""
+    del m
+    strips = B * -(-n // STREAM_ROWS)
+    if strips >= 2**31:
+        raise ValueError(f"{strips} strips are more than a launch takes")
+    return StreamPlan(B=B, n=n, strip_rows=STREAM_ROWS, strips=strips,
+                      blocks=min(strips, STREAM_BLOCKS_PER_SM * H100_SMS))
 
 
 def lk_mvm_fused_plain(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
@@ -415,20 +495,22 @@ def lk_mvm_stage_right(u: torch.Tensor, mask: torch.Tensor,
                        K2: torch.Tensor) -> torch.Tensor:
     """Kernel K2a: ``T[b] = (mask * u[b]) @ K2``, float32 (B, n, m) -> (B, n, m).
 
-    One launch of ``stage_right_kernel`` on the current stream for a CUDA
-    tensor (or a raise); the plain version for a CPU tensor.
-    ``lk_mvm_stage_right.launches`` counts kernel launches.
+    One launch of ``stage_right_kernel`` (3xTF32 on the tensor cores,
+    persistent blocks over the grid of :func:`plan_stream`) on the current
+    stream for a CUDA tensor (or a raise); the plain version for a CPU
+    tensor. ``lk_mvm_stage_right.launches`` counts kernel launches.
     """
     B, n, m = _check_stage_args(u, mask, "K2", K2)
     if u.device.type == "cpu":
         return lk_mvm_stage_right_plain(u, mask, K2)
     T = torch.empty_like(u)
+    plan = plan_stream(B, n, m)
     lib = _two_stage_library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lk_mvm_stage_right_launch(
             u.data_ptr(), mask.data_ptr(), K2.data_ptr(), K2.stride(0),
-            T.data_ptr(), B, n, m, stream)
+            T.data_ptr(), B, n, m, ctypes.byref(plan.c_struct()), stream)
     _raise_on_launch_error(rc, lib.lk_mvm_two_stage_error_string,
                            "lk_mvm_stage_right", (B, n, m))
     lk_mvm_stage_right.launches += 1
@@ -443,8 +525,9 @@ def lk_mvm_stage_left(K1: torch.Tensor, T: torch.Tensor, mask: torch.Tensor,
     """Kernel K2b: ``out[b] = mask * (K1 @ T[b]) + noise * (mask * u[b])``,
     float32. ``noise`` is read through a device pointer.
 
-    One launch of ``stage_left_kernel`` on the current stream for a CUDA
-    tensor (or a raise); the plain version for a CPU tensor.
+    One launch of the tensor-core body of ``csrc/lk_mvm_tc.cuh`` with T
+    loaded (3xTF32, the grid of :func:`plan_launch`) on the current stream
+    for a CUDA tensor (or a raise); the plain version for a CPU tensor.
     ``lk_mvm_stage_left.launches`` counts kernel launches.
     """
     B, n, m = _check_stage_args(u, mask, "K1", K1, T=T)
@@ -452,12 +535,14 @@ def lk_mvm_stage_left(K1: torch.Tensor, T: torch.Tensor, mask: torch.Tensor,
         return lk_mvm_stage_left_plain(K1, T, mask, u, noise)
     noise_t = _noise_scalar(noise, u.device)
     out = torch.empty_like(u)
+    plan = plan_launch(B, n, n, m, narrow=True)
     lib = _two_stage_library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lk_mvm_stage_left_launch(
             K1.data_ptr(), K1.stride(0), T.data_ptr(), mask.data_ptr(),
-            u.data_ptr(), noise_t.data_ptr(), out.data_ptr(), B, n, m, stream)
+            u.data_ptr(), noise_t.data_ptr(), out.data_ptr(), B, n, m,
+            ctypes.byref(plan.c_struct()), stream)
     _raise_on_launch_error(rc, lib.lk_mvm_two_stage_error_string,
                            "lk_mvm_stage_left", (B, n, m))
     lk_mvm_stage_left.launches += 1

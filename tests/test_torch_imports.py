@@ -77,8 +77,10 @@ def test_kernel_source_calls_no_library_product():
             assert banned not in code, f"{name} mentions {banned}"
         assert "__global__" in code and 'extern "C"' in code
         assert "torch/extension.h" not in src
-        if name in ("lk_mvm_fused.cu", "lk_mvm_fused_rows.cu"):
-            # K1 and K3: one tensor-core body, no FMA main loop left
+        if name in ("lk_mvm_fused.cu", "lk_mvm_fused_rows.cu",
+                    "lk_mvm_two_stage.cu"):
+            # K1, K2b and K3: one tensor-core body (K2a beside it in the
+            # two-stage source), no FMA main loop left
             assert '#include "lk_mvm_tc.cuh"' in src
             assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32" in code
             assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16" in code

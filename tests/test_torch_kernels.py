@@ -380,7 +380,8 @@ def test_build_failure_is_raised_not_swallowed(tmp_path, monkeypatch):
 # the tensor-core body of K1 / K3: its library's digest, its launch planner
 # and the arithmetic of its f32 mode (3xTF32), emulated on the CPU
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("name", ["lk_mvm_fused", "lk_mvm_fused_rows"])
+@pytest.mark.parametrize("name", ["lk_mvm_fused", "lk_mvm_fused_rows",
+                                  "lk_mvm_two_stage"])
 def test_library_digest_covers_the_shared_header(name, tmp_path):
     """An edited header under csrc/ gives another library name, so a stale
     build is never loaded; the digest is otherwise stable."""
@@ -436,30 +437,95 @@ def test_split_planner_partitions_k_in_whole_tiles(shape):
     assert plan.blocks == plan.tiles * plan.splits
 
 
+# K2a's grid rule at the (B, n, m) of chip_smoke.py's KERNEL_SHAPES.
+STREAM_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257), (1, 2000, 52),
+                 (16, 2000, 52), (17, 2000, 52), (65, 2000, 52),
+                 (1, 8192, 64), (16, 8192, 64), (65, 8192, 64)]
+
+
+@pytest.mark.parametrize("shape", STREAM_SHAPES, ids=str)
+def test_stream_planner_covers_every_row_once(shape):
+    """plan_stream's strips, as the blocks take them, cover the B n rows of
+    (mask * U) @ K2 exactly once; each strip lies inside one batch member;
+    the persistent blocks are at most two per SM of an H100, and each
+    block's strips share one or two row tiles (the mask tile it holds)."""
+    from repro_torch.kernels.lk_mvm import (H100_SMS, STREAM_ROWS,
+                                            plan_stream)
+    B, n, m = shape
+    plan = plan_stream(B, n, m)
+    assert plan.strip_rows == STREAM_ROWS == 64
+    assert plan.strips == B * -(-n // STREAM_ROWS)
+    assert plan.blocks == min(plan.strips, 2 * H100_SMS)
+    covered = np.zeros(B * n, dtype=np.int64)
+    for block in range(plan.blocks):
+        ranges = plan.row_ranges(block)
+        assert ranges, f"block {block} has no strip"
+        for r0, r1 in ranges:
+            assert 0 < r1 - r0 <= STREAM_ROWS
+            assert r0 // n == (r1 - 1) // n       # one batch member
+            covered[r0:r1] += 1
+        tiles = {(r0 % n) // STREAM_ROWS for r0, _ in ranges}
+        assert len(tiles) <= 2 or len(ranges) > B
+    assert (covered == 1).all()
+    c = plan.c_struct()
+    assert (c.strip_rows, c.strips, c.blocks) == (
+        plan.strip_rows, plan.strips, plan.blocks)
+
+
 def test_split_planner_fills_the_card_at_batch_one():
     from repro_torch.kernels.lk_mvm import plan_launch
     plan = plan_launch(1, 8192, 8192, 64)
     assert plan.splits > 1 and plan.blocks >= 132
     assert plan_launch(65, 8192, 8192, 64).splits == 1
+    # K2b's narrow plan: the same grid on a 64-column panel at B = 1, the
+    # usual one as soon as the batch fills more than half a panel
+    narrow = plan_launch(1, 8192, 8192, 64, narrow=True)
+    assert narrow.panel_cols == 64 and plan.panel_cols == 128
+    assert (narrow.splits, narrow.blocks) == (plan.splits, plan.blocks)
+    assert narrow.blocks >= 132
+    assert plan_launch(2, 8192, 8192, 64, narrow=True) == \
+        plan_launch(2, 8192, 8192, 64)
+    assert plan_launch(4, 50, 50, 16, narrow=True).panel_cols == 64
 
 
-def _tc_fused(K1, K2, mask, u, noise, passes):
+def _tc_route(route, K1, K2, mask, u, noise, passes):
+    """One route's arithmetic with its tensor-core products emulated in
+    ``passes`` TF32 passes: K1 (``fused``, both products, T never rounded
+    to storage), K2a alone (``stage_right``: T on the tensor cores, stage L
+    the plain float32 product), K2b alone (``stage_left``: the plain float32
+    T, stage L on the tensor cores) or both (``two_stage``)."""
     um = mask * u
-    T = tc_matmul(um, K2, passes)
-    return mask * tc_matmul(K1, T, passes) + noise * um
+    tc_R = route in ("fused", "stage_right", "two_stage")
+    tc_L = route in ("fused", "stage_left", "two_stage")
+    T = tc_matmul(um, K2, passes) if tc_R else um @ K2
+    KT = tc_matmul(K1, T, passes) if tc_L else K1 @ T
+    return mask * KT + noise * um
 
 
-@pytest.mark.parametrize("shape", AWKWARD_SHAPES)
-def test_3xtf32_emulation_matches_reference_kernel(shape):
-    """The f32 mode's arithmetic against the reference's Pallas kernel in
-    interpret mode: within 1e-4 * max|ref| (chip_smoke.py's tolerance), and
-    closer than a single TF32 pass."""
-    K1, K2, mask, u = _problem(*shape, seed=3)
-    ref = np.asarray(ref_lk_mvm_fused(
+def _tc_reference(route, K1, K2, mask, u, noise):
+    """The reference's Pallas kernel of the route, in interpret mode."""
+    kernel = ref_lk_mvm_fused if route == "fused" else ref_lk_mvm_two_stage
+    return np.asarray(kernel(
         jnp.asarray(K1), jnp.asarray(K2), jnp.asarray(mask), jnp.asarray(u),
-        0.37, block_n=16, block_m=16, interpret=True))
+        noise, block_n=16, block_m=16, interpret=True))
+
+
+TC_ROUTES = ["fused", "stage_right", "stage_left", "two_stage"]
+
+
+@pytest.mark.parametrize("shape,route", [
+    pytest.param(shape, route, id=f"shape{i}" if route == "fused"
+                 else f"{route}-shape{i}")
+    for route in TC_ROUTES for i, shape in enumerate(AWKWARD_SHAPES)])
+def test_3xtf32_emulation_matches_reference_kernel(shape, route):
+    """The f32 arithmetic of K1 (``fused``) and of K2a, K2b and the pair
+    against the reference's Pallas kernel of the same route in interpret
+    mode: within 1e-4 * max|ref| (chip_smoke.py's tolerance), and closer
+    than a single TF32 pass."""
+    K1, K2, mask, u = _problem(*shape, seed=3)
+    ref = _tc_reference(route, K1, K2, mask, u, 0.37)
     args = _t(K1, K2, mask, u)
-    err = {p: np.abs(_tc_fused(*args, 0.37, p).numpy() - ref).max()
+    err = {p: np.abs(_tc_route(route, *args, 0.37, p).numpy() - ref).max()
            for p in (1, 3)}
     scale = np.abs(ref).max()
     assert err[3] <= 1e-4 * scale
@@ -468,12 +534,18 @@ def test_3xtf32_emulation_matches_reference_kernel(shape):
 
 def test_3xtf32_emulation_holds_the_float64_oracle_at_the_fit_shape():
     """At (17, 2000, 52), the fit's stacked solve, three passes stay within
-    1e-4 * max|oracle| and one pass is further off: why f32 mode takes three."""
+    1e-4 * max|oracle| on every route (K1, K2a, K2b, the pair) and one pass
+    is further off: why the f32 mode and the two-stage kernels take three.
+    One pass misses the tolerance wherever the (n = 2000)-deep K1 product
+    runs on the tensor cores."""
     K1, K2, mask, u = _problem(17, 2000, 52, seed=4)
     args = _t(K1, K2, mask, u)
     truth = lk_mvm_ref(*(a.double() for a in args), 0.1)
-    err = {p: float((_tc_fused(*args, 0.1, p).double() - truth).abs().max())
-           for p in (1, 3)}
     scale = float(truth.abs().max())
-    assert err[3] <= 1e-4 * scale
-    assert err[1] > 1e-4 * scale        # one pass would miss the tolerance
+    for route in TC_ROUTES:
+        err = {p: float((_tc_route(route, *args, 0.1, p).double()
+                         - truth).abs().max()) for p in (1, 3)}
+        assert err[3] <= 1e-4 * scale, route
+        assert err[1] > err[3], route
+        if route != "stage_right":
+            assert err[1] > 1e-4 * scale, route   # one pass would miss it
