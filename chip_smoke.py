@@ -10,31 +10,40 @@ second launch of themselves, bit for bit, with the grid they launched
 reported), then drives the port's paths at full width and checks that they
 ran through the kernels:
 
+* the route tuner (K6): the route of every (n, m, B) bucket the main paths
+  sweep on the ``cuda`` engine, K1 or K2a + K2b, timed on the card, printed
+  with its times before the paths run; the budget model of every kernel
+  instantiation held against ``cudaFuncGetAttributes`` in the build phase;
 * serving (fitted state -> ``posterior(state)`` -> ``final`` / ``mean`` /
-  ``samples``) through the ``cuda`` engine: every CG iteration one launch of
-  the fused kernel (K1);
+  ``samples``) through the ``cuda`` engine: every CG iteration one sweep of
+  the routed kernels (one launch of K1, or one each of K2a and K2b);
 * fitting (``fit`` -> MLL value and gradient -> L-BFGS) at the paper's
-  LCBench shape, through K1 (the ``cuda`` engine) and through the two-stage
-  kernels K2a + K2b (``make_mll_iterative(cfg, KernelMVM(fused=False))``):
-  every objective evaluation costs the stacked solve's CG iterations plus 2
-  launches of each;
+  LCBench shape, through the routed ``cuda`` engine, and through K1 and the
+  two-stage kernels K2a + K2b by name (``make_mll_iterative(cfg,
+  KernelMVM(fused=True / False))``): every objective evaluation costs the
+  stacked solve's CG iterations plus 2 sweeps;
 * the ``distributed`` engine inside an NCCL process group of one rank (so
   its all-gather runs): a float32 state served with every CG sweep one launch
   of the row-shard kernel K3, a float64 fit through its exact body, and the
   row-sharded ``dist_mll_value``;
-* ``rbf_gram_op``, the RBF Gram matrix through kernel K4.
+* ``rbf_gram_op``, the RBF Gram matrix through kernel K4, written by the
+  kernel in the caller's float64;
+* the reference's own TPU kernels: ``tests/fixtures/reference_kernels.npz``
+  holds their outputs (Pallas, interpret mode) at small ragged shapes, and
+  K1, K2a + K2b and K4 are held against it.
 
 Any failed check raises; nothing is caught, so the exit code is non-zero.
 Without a CUDA device the script exits non-zero before printing any result.
 
-Phases, one JSON line each: device, build, kernels, serve (n=8192, m=64,
+Phases, one JSON line each: device, build (with the budget model against
+the runtime), kernels, reference (the .npz), routes, serve (n=8192, m=64,
 ``final`` and ``mean`` also timed on the float64 ``iterative`` engine),
 serve_lcbench (n=2000, m=52, also against the ``iterative`` engine), exact
 (n=24, m=16 against the ``dense`` engine), fit (n=2000, m=52, d=7),
 distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64 fit), gram
-(n=8192 and n=2000, d=7). Then a summary line ``{"kernels": [...]}``, the
-card's name and power limit as ``nvidia-smi`` gives them, and last
-``{"ok": true, "device": {...}}``.
+(n=8192 and n=2000, d=7), routes_used (every bucket the tuner resolved).
+Then a summary line ``{"kernels": [...]}``, the card's name and power limit
+as ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -78,7 +87,12 @@ from repro_torch.data import sample_task  # noqa: E402
 from repro_torch.distributed import dist_mll_value  # noqa: E402
 from repro_torch.kernels import rbf_gram_op  # noqa: E402
 from repro_torch.kernels._build import build_log, load_library  # noqa: E402
-from repro_torch.kernels.gram import rbf_gram_cuda, rbf_gram_plain  # noqa: E402
+from repro_torch.kernels.autotune import (autotune_route,  # noqa: E402
+                                          cache_contents)
+from repro_torch.kernels.budget import (INSTANTIATIONS,  # noqa: E402
+                                        device_limits, kernel_attributes)
+from repro_torch.kernels.gram import (plan_gram, rbf_gram_cuda,  # noqa: E402
+                                      rbf_gram_plain)
 from repro_torch.kernels.lk_mvm import (  # noqa: E402
     lk_mvm_fused, lk_mvm_fused_plain, lk_mvm_fused_rows,
     lk_mvm_fused_rows_plain, lk_mvm_stage_left, lk_mvm_stage_left_plain,
@@ -130,10 +144,27 @@ GRAM_SHAPES = [(130, 70, 10), (16, 16, 260), (2000, 2000, 7),
                (8192, 8192, 7)]
 GRAM_TIMED = GRAM_SHAPES[2:]
 GRAM_MAIN_SHAPE = (8192, 8192, 7)
+# Each shape with float32 inputs (K in float32) and float64 inputs (K in
+# float64, written by the kernel).
+GRAM_DTYPES = (torch.float32, torch.float64)
 # K4 against its plain version and against the float64 oracle: float32 with
 # another summation order, as the reference holds its kernel (3e-5), in units
 # of max|K|.
 GRAM_TOL = 3e-5
+# The reference's TPU kernels' outputs (tests/fixtures/make_reference_kernels.py)
+# and the tolerances the CPU tests hold the plain versions to against them.
+REFERENCE_NPZ = (Path(__file__).resolve().parent / "tests" / "fixtures"
+                 / "reference_kernels.npz")
+# Every (n, m, B) the main paths sweep on the cuda engine, whose route the
+# tuner resolves before they run: serve (n=8192, m=64) and serve_lcbench
+# (n=2000, m=52): final() B=65, mean B=1, samples B=16; fit (n=2000, m=52):
+# the stacked solve B=17, A(probes) B=16, A(alpha) B=1; exact (24, 16, 1).
+ROUTE_SHAPES = [(8192, 64, 65), (8192, 64, 1), (8192, 64, 16),
+                (2000, 52, 65), (2000, 52, 1), (2000, 52, 16),
+                (2000, 52, 17), (24, 16, 1)]
+# The wrappers each route launches per sweep.
+ROUTE_KERNELS = {"fused": ("lk_mvm_fused",),
+                 "two_stage": ("lk_mvm_stage_right", "lk_mvm_stage_left")}
 # Largest gap between the posterior means of the cuda and the iterative
 # engine, in units of cg_tol * max|mean|. CG bounds the 2-norm of each solve's
 # residual by cg_tol * ||y||, not the largest of ~10^5 cell-wise gaps between
@@ -252,7 +283,8 @@ def plan_row(B: int, n_local: int, n: int, m: int,
     launched (its launcher rejects any other): the split of the k sweep, the
     cluster (1, 1, splits), the blocks on the card and the panel's width
     (``narrow``: K2b's plan)."""
-    plan = plan_launch(B, n_local, n, m, narrow=narrow)
+    plan = plan_launch(B, n_local, n, m, sms=device_limits(DEV).sms,
+                       narrow=narrow)
     return {"splits": plan.splits, "cluster": [1, 1, plan.splits],
             "grid": [plan.panels, plan.row_tiles, plan.splits],
             "blocks": plan.blocks, "tiles": plan.tiles,
@@ -291,7 +323,8 @@ def bound_pair_ms(B: int, n: int, m: int,
 def stream_row(B: int, n: int, m: int) -> dict:
     """K2a's plan at this shape, which is the grid it launched (its
     launcher rejects any other): persistent blocks over strips of rows."""
-    plan = plan_stream(B, n, m)
+    limits = device_limits(DEV)
+    plan = plan_stream(B, n, m, sms=limits.sms, limits=limits)
     return {"grid": [plan.blocks], "blocks": plan.blocks,
             "strips": plan.strips, "strip_rows": plan.strip_rows}
 
@@ -324,11 +357,13 @@ def bound_rows_ms(B: int, n_local: int, n: int, m: int,
     return _bound(flops, nbytes, datapath)
 
 
-def bound_gram_ms(n: int, p: int, d: int) -> tuple[float, str]:
+def bound_gram_ms(n: int, p: int, d: int, in_bytes: int = 4,
+                  out_bytes: int = 4) -> tuple[float, str]:
     """bound_ms of the Gram kernel K4: 2 n p d flops (float32 FMAs); x1,
-    x2 read once, K written once."""
+    x2 and the lengthscales read once at their itemsize, K written once at
+    its itemsize."""
     flops = 2.0 * n * p * d
-    nbytes = 4.0 * (n * p + (n + p) * d)
+    nbytes = out_bytes * n * p + in_bytes * (n + p + 1) * d
     return _bound(flops, nbytes, "f32 FMA")
 
 
@@ -471,6 +506,11 @@ def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
         row = {"name": name, "tpu": tpu, "precision": "f32",
                "shape": [B, n, m], "max_err": err, "tol": tol,
                "ref_scale": scale, "bitwise_repeat": True, **grid}
+        if name == "lk_mvm_two_stage":
+            # whether the route changes the answer's bits (recorded: K2a
+            # rounds T as K1's stage R does, and K2b is K1's stage L)
+            row["bitwise_equal_to_fused"] = bool(torch.equal(
+                out, lk_mvm_fused(K1, K2, mask, u, noise)))
         if name == "lk_mvm_stage_left" and B == 1 and n >= 8192:
             check_fills_card(row)
         if name != "lk_mvm_stage_right":
@@ -550,6 +590,8 @@ def fused_rows_rows() -> list[dict]:
                     library_ms=time_ms(lambda: mask_r * torch.matmul(
                         K1r, torch.matmul(um_full, K2))
                         + noise * mask_r * u_r),
+                    device_ms=device_ms(lambda: lk_mvm_fused_rows(
+                        *args, precision=precision)),
                     **tc_bounds(bound_rows_ms, B, n_local, n, m,
                                 precision=precision))
             rows_out.append(row)
@@ -561,50 +603,149 @@ def fused_rows_rows() -> list[dict]:
     return rows_out
 
 
+def gram_inputs(n: int, p: int, d: int, gen: torch.Generator,
+                dtype: torch.dtype = torch.float32):
+    """Configurations in [0, 1), lengthscales around 1, in ``dtype``."""
+    x1 = torch.rand((n, d), generator=gen, device=DEV, dtype=torch.float64)
+    x2 = torch.rand((p, d), generator=gen, device=DEV, dtype=torch.float64)
+    ls = torch.exp(0.3 * torch.randn((d,), generator=gen, device=DEV,
+                                     dtype=torch.float64))
+    return x1.to(dtype), x2.to(dtype), ls.to(dtype)
+
+
+def gram_no_cast(x1, x2, ls, os_) -> dict:
+    """One call's peak of newly allocated device memory against its output's
+    bytes: the kernel writes K in x1's dtype itself, so nothing of the size
+    of K but K is allocated (a float32 K cast afterwards would add n p 4
+    bytes). Returns the numbers; the caller checks them."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = rbf_gram_cuda(x1, x2, ls, os_)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - out.numel() \
+        * out.element_size()
+    return {"out_bytes": out.numel() * out.element_size(),
+            "extra_bytes": extra, "float32_K_bytes": out.numel() * 4}
+
+
 def gram_rows() -> list[dict]:
     """Kernel K4 against its plain version and the float64 oracle on the
-    card at GRAM_SHAPES (outputscale a device tensor), timed at GRAM_TIMED."""
+    card at GRAM_SHAPES, float32 and float64 inputs (K in the inputs' dtype,
+    outputscale a device tensor), against a second launch bit for bit; timed
+    at GRAM_TIMED, where the float64 call is also shown to allocate nothing
+    beside K (no cast pass)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 11)
     out_rows = []
     for (n, p, d) in GRAM_SHAPES:
-        x1 = torch.rand((n, d), generator=gen, device=DEV)
-        x2 = torch.rand((p, d), generator=gen, device=DEV)
-        ls = torch.exp(0.3 * torch.randn((d,), generator=gen, device=DEV))
-        os_ = torch.tensor(1.7, device=DEV)
-        ref = rbf_gram_plain(x1, x2, ls, os_)
-        out = rbf_gram_cuda(x1, x2, ls, os_)
-        torch.cuda.synchronize()
-        check(out.shape == (n, p) and out.dtype == torch.float32,
-              f"rbf_gram output {out.shape}/{out.dtype}")
-        check(bool(torch.isfinite(out).all()), "rbf_gram output not finite")
-        scale = float(ref.abs().max())
-        err = float((out - ref).abs().max())
-        truth = 1.7 * torch.exp(-0.5 * torch.cdist(
-            x1.double() / ls.double(), x2.double() / ls.double()) ** 2)
-        err64 = float((out.double() - truth).abs().max())
-        tol = GRAM_TOL * scale
-        row = {"name": "rbf_gram", "tpu": "src/repro/kernels/gram.py:81",
-               "precision": "f32", "shape": [n, p, d], "max_err": err,
-               "tol": tol, "ref_scale": scale, "max_err_vs_float64": err64}
-        if (n, p, d) in GRAM_TIMED:
-            bound, bound_by = bound_gram_ms(n, p, d)
-            z1, z2 = x1 / ls, x2 / ls
-            row.update(
-                blocks=-(-n // 64) * -(-p // 64),
-                ms=time_ms(lambda: rbf_gram_cuda(x1, x2, ls, os_)),
-                plain_ms=time_ms(lambda: rbf_gram_plain(x1, x2, ls, os_)),
-                library_ms=time_ms(lambda: os_ * torch.exp(
-                    -0.5 * torch.cdist(z1, z2) ** 2)),
-                bound_ms=bound, bound_by=bound_by)
-        out_rows.append(row)
-        check(err <= tol, f"rbf_gram at {(n, p, d)}: max err {err:.3e} > "
-                          f"tol {tol:.3e}")
-        check(err64 <= tol, f"rbf_gram vs float64 at {(n, p, d)}: "
-                            f"{err64:.3e} > tol {tol:.3e}")
-        del x1, x2, ref, out, truth
-        torch.cuda.empty_cache()
+        base = gram_inputs(n, p, d, gen, torch.float64)
+        for dtype in GRAM_DTYPES:
+            x1, x2, ls = (x.to(dtype) for x in base)
+            truth = 1.7 * torch.exp(-0.5 * torch.cdist(
+                x1.double() / ls.double(), x2.double() / ls.double()) ** 2)
+            os_ = torch.tensor(1.7, device=DEV)
+            ref = rbf_gram_plain(x1, x2, ls, os_)
+            out = rbf_gram_cuda(x1, x2, ls, os_)
+            again = rbf_gram_cuda(x1, x2, ls, os_)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"rbf_gram {dtype} at {(n, p, d)}:"
+                  " two launches gave different bits")
+            check(out.shape == (n, p) and out.dtype == dtype,
+                  f"rbf_gram output {out.shape}/{out.dtype} for {dtype} x")
+            check(bool(torch.isfinite(out).all()), "rbf_gram output not finite")
+            scale = float(ref.abs().max())
+            err = float((out - ref).abs().max())
+            err64 = float((out.double() - truth).abs().max())
+            tol = GRAM_TOL * scale
+            item = torch.empty((), dtype=dtype).element_size()
+            plan = plan_gram(n, p, d, sms=device_limits(DEV).sms,
+                             limits=device_limits(DEV))
+            row = {"name": "rbf_gram", "tpu": "src/repro/kernels/gram.py:81",
+                   "precision": "f32", "out_dtype": str(dtype)[6:],
+                   "shape": [n, p, d], "max_err": err, "tol": tol,
+                   "ref_scale": scale, "max_err_vs_float64": err64,
+                   "bitwise_repeat": True,
+                   "grid": [plan.blocks], "col_tiles": plan.col_tiles,
+                   "row_chunks": plan.row_chunks}
+            if (n, p, d) in GRAM_TIMED:
+                bound, bound_by = bound_gram_ms(n, p, d, item, item)
+                z1, z2 = x1 / ls, x2 / ls
+                library = lambda: os_ * torch.exp(  # noqa: E731
+                    -0.5 * torch.cdist(z1, z2) ** 2)
+                kernel = lambda: rbf_gram_cuda(x1, x2, ls, os_)  # noqa: E731
+                row.update(
+                    ms=time_ms(kernel), device_ms=device_ms(kernel),
+                    plain_ms=time_ms(lambda: rbf_gram_plain(x1, x2, ls, os_)),
+                    library_ms=time_ms(library),
+                    library_device_ms=device_ms(library),
+                    bound_ms=bound, bound_by=bound_by)
+                row["store_TBps"] = n * p * item / row["device_ms"] / 1e9
+                row["bound_share"] = bound / row["device_ms"]
+                del z1, z2
+                if dtype == torch.float64:
+                    row["no_cast"] = gram_no_cast(x1, x2, ls, os_)
+                    check(row["no_cast"]["extra_bytes"] < (1 << 20),
+                          f"rbf_gram float64 at {(n, p, d)} allocated "
+                          f"{row['no_cast']['extra_bytes']} bytes beside K")
+            out_rows.append(row)
+            check(err <= tol, f"rbf_gram {dtype} at {(n, p, d)}: max err "
+                              f"{err:.3e} > tol {tol:.3e}")
+            check(err64 <= tol, f"rbf_gram {dtype} vs float64 at {(n, p, d)}:"
+                                f" {err64:.3e} > tol {tol:.3e}")
+            del x1, x2, ls, ref, out, again, truth
+            torch.cuda.empty_cache()
+        del base
     return out_rows
+
+
+def reference_rows(kernels=("lk_mvm_fused", "lk_mvm_two_stage",
+                            "rbf_gram")) -> list[dict]:
+    """The CUDA kernels against the reference's own TPU kernels: the inputs
+    and outputs of ``tests/fixtures/reference_kernels.npz`` (Pallas in
+    interpret mode, ragged small shapes), K1 and K2a + K2b within
+    KERNEL_TOL, K4 within GRAM_TOL (float32 and float64 K)."""
+    rows = []
+    with np.load(REFERENCE_NPZ) as z:
+        ref = dict(z)
+    dev = lambda a: torch.from_numpy(a).to(DEV)  # noqa: E731
+    noise = torch.tensor(float(ref["noise"]), device=DEV)
+    i = 0
+    while f"mvm{i}_u" in ref:
+        K1, K2, mask, u = (dev(ref[f"mvm{i}_{k}"])
+                           for k in ("K1", "K2", "mask", "u"))
+        for name, fn, key in (("lk_mvm_fused", lk_mvm_fused, "fused"),
+                              ("lk_mvm_two_stage", lk_mvm_two_stage,
+                               "two_stage")):
+            if name not in kernels:
+                continue
+            want = dev(ref[f"mvm{i}_{key}"])
+            got = fn(K1, K2, mask, u, noise)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            tol = KERNEL_TOL["f32"] * float(want.abs().max())
+            rows.append({"name": name, "reference": f"lk_mvm_{key}",
+                         "shape": list(u.shape), "max_err": err, "tol": tol})
+            check(got.dtype == want.dtype and err <= tol,
+                  f"{name} vs the reference's kernel at {tuple(u.shape)}: "
+                  f"{err:.3e} > {tol:.3e}")
+        i += 1
+    i = 0
+    while "rbf_gram" in kernels and f"gram{i}_x1" in ref:
+        x1, x2, ls = (dev(ref[f"gram{i}_{k}"]) for k in ("x1", "x2", "ls"))
+        want = dev(ref[f"gram{i}_out"])
+        got = rbf_gram_cuda(x1, x2, ls, float(ref["outputscale"]))
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = GRAM_TOL * float(want.abs().max())
+        rows.append({"name": "rbf_gram", "reference": "rbf_gram_pallas",
+                     "shape": [x1.shape[0], x2.shape[0], x1.shape[1]],
+                     "dtype": str(got.dtype)[6:], "max_err": err, "tol": tol})
+        check(got.dtype == want.dtype and err <= tol,
+              f"rbf_gram vs the reference's kernel at {tuple(x1.shape)}: "
+              f"{err:.3e} > {tol:.3e}")
+        i += 1
+    return rows
 
 
 def make_state(task_seed: int, n: int, m: int, d: int,
@@ -639,25 +780,79 @@ class PlainFloat32Engine(IterativeEngine):
                                        accurate=A.accurate)
 
 
-class Request:
-    """Times one request and holds its solves against the launch counter
-    of one kernel wrapper (K1's unless told otherwise)."""
+def sweeps(launched: dict) -> int:
+    """MVM sweeps of the cuda engine in a launch count: one launch of K1, or
+    one of K2b (each after one of K2a), per sweep."""
+    check(launched["lk_mvm_stage_right"] == launched["lk_mvm_stage_left"],
+          f"K2a and K2b launched unequally: {launched}")
+    return launched["lk_mvm_fused"] + launched["lk_mvm_stage_left"]
 
-    def __init__(self, name: str, wrapper=lk_mvm_fused):
+
+class Request:
+    """Times one request and holds its solves against the launch counts:
+    ``launches`` is the cuda engine's sweeps (K1 or K2a + K2b, whichever the
+    tuner routed), or one wrapper's launches when one is given; ``by_kernel``
+    each wrapper's."""
+
+    def __init__(self, name: str, wrapper=None):
         self.name = name
         self.wrapper = wrapper
 
     def __enter__(self):
         torch.cuda.synchronize()
-        self.launches0 = self.wrapper.launches
+        self.before = launch_counts()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
         self.seconds = time.perf_counter() - self.t0
-        self.launches = self.wrapper.launches - self.launches0
+        self.by_kernel = launch_counts(since=self.before)
+        if exc[0] is None:
+            self.launches = (sweeps(self.by_kernel) if self.wrapper is None
+                             else self.by_kernel[self.wrapper.__name__])
         return False
+
+
+def route_rows() -> list[dict]:
+    """Every bucket the tuner has resolved in this process: the route, how,
+    and the candidates' times (ms, one whole wrapper call from an idle
+    device, median of 7) and errors against the float64 oracle."""
+    return [{"bucket_B_n_m": [k[2], k[0], k[1]], "precision": k[3],
+             "device": k[4], "sms": k[5], "route": c.route, "mode": c.mode,
+             "times_ms": c.times_ms, "errors": c.errors, "tol": c.tol}
+            for k, c in cache_contents().items()]
+
+
+def phase_routes() -> dict:
+    """The route of every (n, m, B) of ROUTE_SHAPES, tuned on the card
+    before the paths run (so no request below pays for the timing), with
+    the seconds each resolution took."""
+    rows = []
+    for n, m, B in ROUTE_SHAPES:
+        t0 = time.perf_counter()
+        route = autotune_route(n, m, B, device=DEV)
+        torch.cuda.synchronize()
+        rows.append({"shape_B_n_m": [B, n, m], "route": route,
+                     "seconds": time.perf_counter() - t0})
+    return {"phase": "routes", "resolved": rows, "buckets": route_rows()}
+
+
+def routed(n: int, m: int, B: int) -> str:
+    """The route the cuda engine takes at (B, n, m): the tuner's cached
+    choice (resolved in phase_routes)."""
+    return autotune_route(n, m, B, device=DEV)
+
+
+def check_route(req: Request, n: int, m: int, B: int) -> None:
+    """The request's sweeps all went through the route the tuner chose at
+    (B, n, m), and through nothing else."""
+    want = ROUTE_KERNELS[routed(n, m, B)]
+    for name, count in req.by_kernel.items():
+        expected = req.launches if name in want else 0
+        check(count == expected, f"{req.name} at (B, n, m) = {(B, n, m)}: "
+              f"{count} launches of {name}, expected {expected} "
+              f"(route {routed(n, m, B)})")
 
 
 def float32_sweep_error(state, x) -> dict:
@@ -715,12 +910,14 @@ def phase_serve(phase: str, n: int, m: int, d: int, n_new: int,
     check(post.solve_count == 1, "final() must be ONE stacked solve")
     check(s["columns"] == 65, "stacked solve must carry 65 columns")
     check(req.launches == s["iters"],
-          f"final: {req.launches} launches for {s['iters']} CG iterations")
+          f"final: {req.launches} sweeps for {s['iters']} CG iterations")
+    check_route(req, n, m, 65)
     check(mean.shape == (n,) and var.shape == (n,), "final() shapes")
     check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()
                and (var > 0).all()), "final() values")
     out["requests"].append({"request": "final", "seconds": req.seconds,
-                            "launches": req.launches, **s})
+                            "launches": req.launches,
+                            "route": routed(n, m, 65), **s})
     x_final = post.solve_info.x
 
     # Request 2: the same again. State cache hit: no solve, no launch.
@@ -743,24 +940,26 @@ def phase_serve(phase: str, n: int, m: int, d: int, n_new: int,
         mean3 = post3.mean
     answers = {"final": (mean, var), "new_configs_mean": mean3}
     s = check_solve(post3, req, cg_tol)
-    check(req.launches == s["iters"], "mean: launches != CG iterations")
+    check(req.launches == s["iters"], "mean: sweeps != CG iterations")
+    check_route(req, n, m, 1)
     check(mean3.shape == (n + n_new, m) and bool(torch.isfinite(mean3).all()),
           "mean at new configs")
     out["requests"].append({"request": "new_configs_mean",
                             "seconds": req.seconds, "launches": req.launches,
-                            **s})
+                            "route": routed(n, m, 1), **s})
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 2)
     with Request("new_configs_samples") as req:
         samp = post3.samples(gen, 16)
     s = check_solve(post3, req, cg_tol)
     check(post3.solve_count == 2, "samples after mean must be one more solve")
-    check(req.launches == s["iters"], "samples: launches != CG iterations")
+    check(req.launches == s["iters"], "samples: sweeps != CG iterations")
+    check_route(req, n, m, 16)
     check(samp.shape == (16, n + n_new, m)
           and bool(torch.isfinite(samp).all()), "samples at new configs")
     out["requests"].append({"request": "new_configs_samples",
                             "seconds": req.seconds, "launches": req.launches,
-                            **s})
+                            "route": routed(n, m, 16), **s})
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     if time_iterative:
         out["iterative"] = iterative_requests(state, Xs, answers)
@@ -921,12 +1120,30 @@ class LoggedKernelMVM(KernelMVM):
                 if hasattr(A, "last_result")]
 
 
+def evaluation_launches(n: int, m: int, iters: list[int],
+                        route: str = "cuda") -> dict:
+    """Launches of each kernel over MLL evaluations whose stacked solves
+    took ``iters`` CG iterations: per evaluation, one sweep per iteration
+    at B = slq_probes + 1 and two in the gradient (A(alpha) at B = 1,
+    A(probes) at B = slq_probes), each on the route named or, for "cuda",
+    the tuner's route of its bucket."""
+    probes = FIT_CONFIG["slq_probes"]
+    out = {}
+    for B, count in ((probes + 1, sum(iters)), (1, len(iters)),
+                     (probes, len(iters))):
+        r = routed(n, m, B) if route == "cuda" else route
+        for name in ROUTE_KERNELS[r]:
+            out[name] = out.get(name, 0) + count
+    return out
+
+
 def phase_fit(n: int, m: int, d: int) -> dict:
     """The fit path at full width. (1) MLL value and gradient at the init on
-    one set of probes through three MVMs; (2) fit with 10 L-BFGS iterations
-    on the float64 iterative engine and on the cuda engine (K1), with the
-    probes fit() draws itself, which are the same: the same seeded
-    generator on the same device."""
+    one set of probes through four MVMs: the float64 iterative engine, the
+    routed cuda engine, K1 and K2a + K2b by name; (2) fit with 10 L-BFGS
+    iterations on the float64 iterative engine and on the routed cuda
+    engine, with the probes fit() draws itself, which are the same: the
+    same seeded generator on the same device."""
     task = sample_task(SEED, n=n, m=m, d=d)
     cfg = LKGPConfig(backend="iterative", lbfgs_iters=FIT_LBFGS_ITERS,
                      **FIT_CONFIG)
@@ -955,12 +1172,13 @@ def phase_fit(n: int, m: int, d: int) -> dict:
     # (1) the MLL at the init
     engines = {"iterative": LoggedIterativeEngine(),
                "cuda": LoggedKernelEngine()}
-    two_stage = LoggedKernelMVM(fused=False)
+    named = {"fused": LoggedKernelMVM(fused=True),
+             "two_stage": LoggedKernelMVM(fused=False)}
     routes = {"iterative": (make_mll(cfg, engines["iterative"]),
                             engines["iterative"]),
               "cuda": (make_mll(cfg, engines["cuda"]), engines["cuda"]),
-              "two_stage": (make_mll_iterative(cfg, mvm_impl=two_stage),
-                            two_stage)}
+              **{r: (make_mll_iterative(cfg, mvm_impl=mvm), mvm)
+                 for r, mvm in named.items()}}
     values = {}
     for route, (mll, log) in routes.items():
         torch.cuda.synchronize()
@@ -972,10 +1190,8 @@ def phase_fit(n: int, m: int, d: int) -> dict:
         launches = launch_counts(since=before)
         (solve,) = log.solves
         iters = solve["iters"]
-        want = {"iterative": {},
-                "cuda": {"lk_mvm_fused": iters + 2},
-                "two_stage": {"lk_mvm_stage_right": iters + 2,
-                              "lk_mvm_stage_left": iters + 2}}[route]
+        want = ({} if route == "iterative"
+                else evaluation_launches(n, m, [iters], route))
         for name, count in launches.items():
             check(count == want.get(name, 0),
                   f"mll via {route}: {count} launches of {name}, expected "
@@ -989,7 +1205,7 @@ def phase_fit(n: int, m: int, d: int) -> dict:
         check(np.isfinite(v) and bool(torch.isfinite(g).all()),
               f"mll via {route} not finite")
     v64, g64 = values["iterative"]
-    for route in ("cuda", "two_stage"):
+    for route in ("cuda", "fused", "two_stage"):
         v, g = values[route]
         row = out["mll"][route]
         row["value_gap"] = abs(v - v64) / abs(v64)
@@ -1027,16 +1243,15 @@ def phase_fit(n: int, m: int, d: int) -> dict:
         iters = [sv["iters"] for sv in solves]
         check(len(solves) == res.n_evals,
               f"fit via {backend}: {len(solves)} solves, {res.n_evals} evals")
-        want = sum(i + 2 for i in iters) if backend == "cuda" else 0
-        check(launches["lk_mvm_fused"] == want,
-              f"fit via {backend}: {launches['lk_mvm_fused']} launches of "
-              f"lk_mvm_fused, expected {want}")
-        check(launches["lk_mvm_stage_right"] == 0
-              and launches["lk_mvm_stage_left"] == 0,
-              f"fit via {backend} launched the two-stage kernels")
+        want = evaluation_launches(n, m, iters) if backend == "cuda" else {}
+        for name, count in launches.items():
+            check(count == want.get(name, 0),
+                  f"fit via {backend}: {count} launches of {name}, expected "
+                  f"{want.get(name, 0)}")
         flat = _flatten_params(state.params)
         row = {"seconds": seconds, "n_iters": res.n_iters,
                "n_evals": res.n_evals, "converged": res.converged,
+               "ms_per_cg_iter": seconds / sum(iters) * 1e3,
                "fun": res.fun, "f_init": f_init,
                "raw_params": flat.tolist(),
                "cg_iters_per_eval": statistics.mean(iters),
@@ -1321,8 +1536,11 @@ def phase_distributed(n: int, m: int, d: int, n_new: int,
 def phase_gram(shapes=((8192, 64), (2000, 52))) -> dict:
     """``rbf_gram_op`` (kernel K4) on the serve task's normalised configs
     (n = 8192) and at the LCBench shape (n = 2000), d = 7, prior-mean
-    lengthscales, against the plain version and against K1 of
-    ``gram_matrices`` (float64, exact) minus its jitter."""
+    lengthscales, float64 as the state holds them: K comes back in float64
+    from the kernel itself (nothing of K's size allocated beside it), equal
+    bit for bit over two calls, against the plain version and against K1 of
+    ``gram_matrices`` (float64, exact) minus its jitter; then K4 against the
+    reference's TPU kernel's outputs (the .npz)."""
     out = {"phase": "gram", "shapes": []}
     for n, m in shapes:
         state = make_state(SEED, n, m, 7)
@@ -1331,17 +1549,23 @@ def phase_gram(shapes=((8192, 64), (2000, 52))) -> dict:
         cfg = state.config
         before = rbf_gram_cuda.launches
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         K = rbf_gram_op(Xn, Xn, ls)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        extra = torch.cuda.max_memory_allocated() - base \
+            - K.numel() * K.element_size()
         launches = rbf_gram_cuda.launches - before
+        again = rbf_gram_op(Xn, Xn, ls)
         K1, _ = gram_matrices(state.params, Xn, tn, cfg.t_kernel, cfg.jitter)
         K1 = K1 - cfg.jitter * torch.eye(n, dtype=K1.dtype, device=DEV)
         plain = rbf_gram_plain(Xn, Xn, ls)
         tol = GRAM_TOL * float(K1.abs().max())
         row = {"n": n, "d": 7, "dtype": str(K.dtype).replace("torch.", ""),
                "seconds": seconds, "launches": launches,
+               "extra_bytes_beside_K": extra,
                "max_err_vs_plain": float((K - plain).abs().max()),
                "max_err_vs_gram_matrices": float((K - K1).abs().max()),
                "tol": tol}
@@ -1349,11 +1573,16 @@ def phase_gram(shapes=((8192, 64), (2000, 52))) -> dict:
         check(launches == 1, f"rbf_gram_op at n={n}: {launches} launches")
         check(K.shape == (n, n) and K.dtype == torch.float64,
               f"rbf_gram_op output {K.shape}/{K.dtype}")
+        check(extra < (1 << 20), f"rbf_gram_op at n={n} allocated {extra} "
+                                 f"bytes beside its float64 K")
+        check(torch.equal(K, again), f"rbf_gram_op at n={n}: two calls gave "
+                                     "different bits")
         check(row["max_err_vs_plain"] <= tol
               and row["max_err_vs_gram_matrices"] <= tol,
               f"rbf_gram_op at n={n}: {row}")
-        del K, K1, plain, state
+        del K, again, K1, plain, state
         torch.cuda.empty_cache()
+    out["reference"] = reference_rows(("rbf_gram",))
     return out
 
 
@@ -1371,13 +1600,55 @@ def build_all() -> dict:
             "ptxas": [ln for ln in log["compiler_output"].splitlines()
                       if "registers" in ln or "spill" in ln]}
     return {"phase": "build", "seconds": time.perf_counter() - t0,
-            "tc_tile": [TC_ROWS, TC_COLS, TC_K], "libraries": logs}
+            "tc_tile": [TC_ROWS, TC_COLS, TC_K], "libraries": logs,
+            **budget_rows()}
+
+
+def budget_rows() -> dict:
+    """The budget model (kernels/budget.py) of every kernel instantiation
+    against what the CUDA runtime reports for it at its launch: shared
+    memory (static and dynamic) and threads equal, registers within the
+    ``__launch_bounds__`` cap, and the model's blocks per SM at the
+    registers the compiler used equal to the runtime's occupancy (at the
+    cap, at most it: that is what the planners size their grids by). The
+    device's limits are read through the runtime and its SM count through
+    PyTorch; the two must agree."""
+    limits = device_limits(DEV)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    check(limits.sms == sms, f"SM count {limits.sms} != PyTorch's {sms}")
+    rows = []
+    for b in INSTANTIATIONS.values():
+        a = kernel_attributes(b)
+        at_regs = b.blocks_per_sm(limits, regs=a["num_regs"])
+        row = {"name": b.name, "regs": a["num_regs"], "reg_cap": b.reg_cap,
+               "spill_bytes": a["local_bytes"],
+               "smem": [a["static_smem"], a["dynamic_smem"]],
+               "model_smem": [b.static_smem, b.dynamic_smem],
+               "threads": a["threads"], "blocks_per_sm": a["blocks_per_sm"],
+               "model_blocks_per_sm": at_regs,
+               "model_blocks_at_cap": b.blocks_per_sm(limits)}
+        rows.append(row)
+        check(row["smem"] == row["model_smem"]
+              and a["max_dynamic_smem"] >= b.dynamic_smem,
+              f"budget of {b.name}: shared memory {row['smem']} (max dynamic "
+              f"{a['max_dynamic_smem']}) != model {row['model_smem']}")
+        check(a["threads"] == b.threads <= a["max_threads"],
+              f"budget of {b.name}: {a['max_threads']} threads at most")
+        check(a["num_regs"] <= b.reg_cap,
+              f"budget of {b.name}: {a['num_regs']} registers > cap "
+              f"{b.reg_cap}")
+        check(at_regs == a["blocks_per_sm"]
+              and 1 <= row["model_blocks_at_cap"] <= at_regs,
+              f"budget of {b.name}: model {at_regs} (at the cap "
+              f"{row['model_blocks_at_cap']}) blocks per SM, runtime "
+              f"{a['blocks_per_sm']}")
+    return {"device_limits": dataclasses.asdict(limits), "budget": rows}
 
 
 def summary_row(rows, name, source, replaces, shape, launches) -> dict:
     row = next(r for r in rows if r["name"] == name
                and r["shape"] == list(shape) and r["precision"] == "f32"
-               and "ms" in r)
+               and r.get("out_dtype", "float32") == "float32" and "ms" in r)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "shape": list(shape), "precision": "f32",
             "launches": launches, "max_abs_err": row["max_err"],
@@ -1399,6 +1670,11 @@ def main() -> None:
 
     rows = phase_kernels() + fused_rows_rows() + gram_rows()
     emit({"phase": "kernels", "kernels": rows})
+    emit({"phase": "reference", "npz": str(REFERENCE_NPZ.name),
+          "kernels": reference_rows()})
+
+    # K6: the route of every bucket the main paths sweep, timed here.
+    emit(phase_routes())
 
     # Main path 1, serving: launches are counted from zero over this phase.
     reset_launch_counts()
@@ -1406,11 +1682,15 @@ def main() -> None:
         "serve", n=8192, m=64, d=7, n_new=256, compare_iterative=False,
         time_iterative=True)
     serve_launches = launch_counts()
-    serve["launches"] = serve_launches["lk_mvm_fused"]
+    serve["launches"] = serve_launches
     serve["float32_sweep_error"] = sweep_error()
     emit(serve)
-    check(serve_launches["lk_mvm_fused"] > 0,
-          "the serving path never launched the kernel")
+    # every kernel of every route the serving buckets took was launched
+    for B in (65, 1, 16):
+        for name in ROUTE_KERNELS[routed(8192, 64, B)]:
+            check(serve_launches[name] > 0,
+                  f"the serving path never launched {name}, the route of "
+                  f"B = {B}")
     del serve, sweep_error
     torch.cuda.empty_cache()
 
@@ -1457,18 +1737,23 @@ def main() -> None:
     emit(gram_out)
     check(gram_totals["rbf_gram"] > 0, "rbf_gram_op never launched K4")
 
+    # Every bucket the tuner resolved in this run, with its route and times.
+    emit({"phase": "routes_used", "buckets": route_rows()})
+
     csrc = "src/repro_torch/kernels/csrc/"
+    main_paths = {k: serve_launches[k] + fit_totals[k]
+                  for k in ("lk_mvm_fused", "lk_mvm_stage_right",
+                            "lk_mvm_stage_left")}
     emit({"kernels": [
         summary_row(rows, "lk_mvm_fused", csrc + "lk_mvm_fused.cu",
                     "src/repro/kernels/lk_mvm.py:253", MAIN_SHAPE,
-                    serve_launches["lk_mvm_fused"]
-                    + fit_totals["lk_mvm_fused"]),
+                    main_paths["lk_mvm_fused"]),
         summary_row(rows, "lk_mvm_stage_right", csrc + "lk_mvm_two_stage.cu",
                     "src/repro/kernels/lk_mvm.py:170", FIT_MAIN_SHAPE,
-                    fit_totals["lk_mvm_stage_right"]),
+                    main_paths["lk_mvm_stage_right"]),
         summary_row(rows, "lk_mvm_stage_left", csrc + "lk_mvm_two_stage.cu",
                     "src/repro/kernels/lk_mvm.py:185", FIT_MAIN_SHAPE,
-                    fit_totals["lk_mvm_stage_left"]),
+                    main_paths["lk_mvm_stage_left"]),
         summary_row(rows, "lk_mvm_fused_rows", csrc + "lk_mvm_fused_rows.cu",
                     "src/repro/kernels/lk_mvm.py:371", ROWS_MAIN_SHAPE,
                     dist_totals["lk_mvm_fused_rows"]),

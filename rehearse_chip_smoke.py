@@ -5,6 +5,7 @@
     python3 rehearse_chip_smoke.py kernels
     python3 rehearse_chip_smoke.py distributed --n 300
     python3 rehearse_chip_smoke.py gram
+    python3 rehearse_chip_smoke.py routes
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -14,8 +15,11 @@ can be seen before a run on the card. The kernel wrappers run their plain
 versions on CPU tensors; here each plain version also counts as a launch of
 its wrapper, so the launch checks run too. The distributed phase runs in a
 ``gloo`` process group of one rank (the card's run uses NCCL), and the gram
-phase sends ``rbf_gram_op`` to the kernel wrapper as the card does. Timings
-printed here are CPU times of the plain versions, never a device metric.
+phase sends ``rbf_gram_op`` to the kernel wrapper as the card does. The
+device's limits are the H100's of the budget model, and the route tuner
+answers by its CPU rule (the fused kernel), so the launch checks of the
+routed cuda engine run as on the card with that route. Timings printed here
+are CPU times of the plain versions, never a device metric.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ def _patch_cuda_for_cpu() -> None:
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         setattr(torch.cuda, name, lambda *a, **k: None)
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.memory_allocated = lambda *a, **k: 0
 
 
 def _patch_port_for_cpu() -> None:
@@ -82,7 +87,7 @@ def _cpu_time_ms(fn, **_):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phase", choices=("fit", "kernels", "distributed",
-                                      "gram"))
+                                      "gram", "routes"))
     ap.add_argument("--n", type=int, default=300,
                     help="configurations of the fit phase (m=52, d=7), "
                          "of the distributed phase's serving (m=64, d=7) and "
@@ -91,8 +96,10 @@ def main() -> None:
     _patch_cuda_for_cpu()
     _patch_port_for_cpu()
     import chip_smoke as cs
+    from repro_torch.kernels.budget import H100_SXM
     cs.DEV = CPU
     cs.time_ms = cs.device_ms = _cpu_time_ms
+    cs.device_limits = lambda device: H100_SXM
     if args.phase == "fit":
         cs.reset_launch_counts()
         out = cs.phase_fit(n=args.n, m=52, d=7)
@@ -120,6 +127,8 @@ def main() -> None:
         out = cs.phase_gram(shapes=((args.n, 64), (args.n // 2, 52)))
         out["launches"] = cs.launch_counts()
         print(json.dumps(out))
+    elif args.phase == "routes":
+        print(json.dumps(cs.phase_routes()))
     else:
         cs.KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
                             (17, 40, 52)]
@@ -130,6 +139,7 @@ def main() -> None:
         cs.GRAM_SHAPES = [(130, 70, 10), (16, 16, 260), (200, 200, 7)]
         cs.GRAM_TIMED = [(200, 200, 7)]
         rows = cs.phase_kernels() + cs.fused_rows_rows() + cs.gram_rows()
+        rows += cs.reference_rows()
         print(json.dumps({"phase": "kernels", "rows": len(rows),
                           "worst_err_over_tol": max(
                               r["max_err"] / r["tol"] for r in rows

@@ -13,10 +13,11 @@ What is ported so far is the path that fits a model and serves it:
 (or ``state_from_reference(...)`` in place of ``fit``) through the
 ``dense``, ``iterative``, ``cuda`` and ``distributed`` inference engines. On
 the ``cuda`` engine every CG iteration of the fit's marginal likelihood and
-of the posterior solves is one launch of the hand-written fused
-latent-Kronecker MVM kernel (``kernels/csrc/lk_mvm_fused.cu``); the two-stage
-kernels (``kernels/csrc/lk_mvm_two_stage.cu``) are threaded into the
-objective with ``make_mll_iterative(config, KernelMVM(fused=False))``. The
+of the posterior solves is one sweep of the hand-written latent-Kronecker
+MVM kernels: the fused kernel (``kernels/csrc/lk_mvm_fused.cu``) or the
+two-stage pair (``kernels/csrc/lk_mvm_two_stage.cu``), whichever the route
+tuner (``kernels/autotune.py``) timed faster at the sweep's shape bucket; a
+route is named with ``make_mll_iterative(config, KernelMVM(fused=...))``. The
 ``distributed`` engine splits the grid's rows over a ``torch.distributed``
 group, float32 row blocks through the row-shard kernel
 (``kernels/csrc/lk_mvm_fused_rows.cu``); the RBF Gram kernel

@@ -13,10 +13,11 @@ and the solves against it. Four implementations are registered:
 * ``iterative`` - batched block CG + SLQ (the paper's method) on the plain
                   tensor MVM, O(n^2 m + n m^2) per sweep, in the state's dtype.
 * ``cuda``      - the iterative engine with every MVM routed through the
-                  hand-written fused GPU kernel
-                  (:func:`repro_torch.kernels.lk_mvm.lk_mvm_fused`),
-                  differentiable through :class:`KernelMVMFunction`. It fills
-                  the slot the reference calls ``pallas``, and that name is
+                  hand-written GPU kernels on the route the tuner picks
+                  (the fused kernel K1 or the two-stage pair K2a + K2b,
+                  :mod:`repro_torch.kernels.autotune`), differentiable
+                  through :class:`KernelMVMFunction`. It fills the slot
+                  the reference calls ``pallas``, and that name is
                   accepted as an alias.
 * ``distributed`` - the iterative engine with the grid's rows split over the
                   ranks of a ``torch.distributed`` group: each rank computes
@@ -372,9 +373,11 @@ class KernelMVMFunction(torch.autograd.Function):
     per operator: the forward sweep and ``du`` go through ``lk_mvm_op(*fast,
     force_kernel=True, fused=fused)``, i.e. the kernel on a CUDA tensor (K1
     with ``fused=True``, K2a + K2b with ``fused=False``) and its float32 plain
-    version on a CPU tensor. ``fast=None`` sends the sweeps to ``lk_mvm_op``
-    by device on the state-dtype tensors themselves: the float64 oracle for
-    CPU tensors, which is what a finite-difference check needs.
+    version on a CPU tensor. ``fused`` is the route the operator resolved,
+    so the backward launches what the forward did. ``fast=None`` sends the
+    sweeps to ``lk_mvm_op`` by device on the state-dtype tensors
+    themselves: the float64 oracle for CPU tensors, which is what a
+    finite-difference check needs.
 
     The MVM is bilinear in (K1, K2, u), so the backward is closed-form, as
     the reference's ``_pallas_mvm_bwd``: ``dK1``, ``dK2`` and ``dnoise`` are
@@ -417,6 +420,15 @@ class KernelOperator(LatentKroneckerOperator):
     or one launch each of the two-stage kernels (``fused=False``),
     differentiable in K1, K2, u and noise through :class:`KernelMVMFunction`.
 
+    ``fused=None`` (the default) routes by the tuner
+    (:func:`repro_torch.kernels.autotune.autotune_route`): the route of each
+    batch bucket is resolved ONCE for the operator, at its first sweep of
+    that bucket (the batch is not known before), and kept in ``routes``
+    (bucket -> fused), so every CG iteration of a solve and the backward's
+    sweeps launch the same kernels whatever the tuner's cache does
+    meanwhile. A bucket's first sweep on a CUDA device may time the
+    candidates (once per process and bucket).
+
     ``K1, K2, mask, noise`` stay in the state's dtype (the backward's
     products run in it); the kernels compute in float32 whatever that dtype
     is, so their float32 copies are made ONCE, here, as ``fast``. Per sweep
@@ -432,7 +444,7 @@ class KernelOperator(LatentKroneckerOperator):
     every other sweep from the kernel.
     """
 
-    def __init__(self, K1, K2, mask, noise, fused: bool = True):
+    def __init__(self, K1, K2, mask, noise, fused: bool | None = None):
         noise = torch.as_tensor(noise, dtype=K1.dtype, device=K1.device)
         accurate = None
         if K1.dtype == torch.float64:
@@ -442,16 +454,32 @@ class KernelOperator(LatentKroneckerOperator):
         self.fast = tuple(x.detach().to(torch.float32).contiguous()
                           for x in (K1, K2, mask, noise))
         self.fused = fused
+        self.routes: dict[int, bool] = {}
+
+    def route(self, u) -> bool:
+        """The route of a sweep of ``u`` (True: K1, False: K2a + K2b)."""
+        if self.fused is not None:
+            return self.fused
+        from ..kernels.autotune import autotune_route, bucket
+        n, m = self.mask.shape
+        B = u.numel() // (n * m)
+        key = bucket(B)
+        fused = self.routes.get(key)
+        if fused is None:
+            fused = self.routes[key] = autotune_route(
+                n, m, B, precision="f32", device=u.device) == "fused"
+        return fused
 
     def __call__(self, u):
         return KernelMVMFunction.apply(self.K1, self.K2, self.mask, u,
-                                       self.noise, self.fast, self.fused)
+                                       self.noise, self.fast, self.route(u))
 
 
 class KernelMVM:
     """The differentiable kernel MVM as ``mvm(K1, K2, mask, u, noise=...)``,
     in the slot of the reference's ``_pallas_mvm_kw``. ``fused`` picks the
-    kernel: the fused one (K1) or the two-stage pair (K2a + K2b).
+    kernel: the fused one (K1, ``True``), the two-stage pair (K2a + K2b,
+    ``False``) or the tuner's route per operator (``None``, the default).
 
     ``make_mll_iterative(cfg, mvm_impl=KernelMVM(fused=False))`` threads the
     two-stage kernels into the objective. The engine it builds asks
@@ -460,7 +488,7 @@ class KernelMVM:
     Called directly, each call builds a :class:`KernelOperator` for itself.
     """
 
-    def __init__(self, fused: bool = True):
+    def __init__(self, fused: bool | None = None):
         self.fused = fused
 
     def operator(self, K1, K2, mask, noise) -> KernelOperator:
@@ -472,14 +500,15 @@ class KernelMVM:
 
 @register_engine("cuda")
 class KernelEngine(IterativeEngine):
-    """CG + SLQ with every operator sweep one launch of ``lk_mvm_fused``
-    (:class:`KernelOperator`, differentiable). As the reference's
-    ``PallasEngine`` it always takes the fused kernel; the two-stage kernels
-    are reached through ``make_mll_iterative(cfg, KernelMVM(fused=False))``.
+    """CG + SLQ with every operator sweep through the MVM kernels
+    (:class:`KernelOperator`, differentiable), on the route the tuner picks
+    per operator and batch bucket (K1, or K2a + K2b), as the reference's
+    ``PallasEngine`` takes its tuner's blocks. A named route is reached
+    through ``make_mll_iterative(cfg, KernelMVM(fused=True or False))``.
     """
 
     def operator_from_grams(self, K1, K2, mask, noise):
-        return KernelOperator(K1, K2, mask, noise, fused=True)
+        return KernelOperator(K1, K2, mask, noise, fused=None)
 
 
 # --------------------------------------------------------------------------

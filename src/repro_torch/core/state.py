@@ -38,7 +38,8 @@ __all__ = [
     "log_prior", "resolve_backend", "fit",
 ]
 
-# "cuda" is the engine whose every MVM is the hand-written fused GPU kernel.
+# "cuda" is the engine whose every MVM goes through the hand-written GPU
+# kernels, on the route the tuner picks (K1, or K2a + K2b).
 # The reference calls the same slot "pallas"; that name is accepted as an
 # alias so a configuration carried across from the reference round-trips.
 # "distributed" splits the grid's rows over a torch.distributed group.
@@ -62,8 +63,8 @@ class LKGPConfig:
 
     ``backend`` selects the inference engine: ``"dense"`` (exact Cholesky),
     ``"iterative"`` (block CG on the plain tensor MVM), ``"cuda"`` (block CG
-    with every MVM routed through the fused GPU kernel; ``"pallas"`` is an
-    alias), ``"distributed"`` (block CG with the grid's rows split over a
+    with every MVM routed through the GPU kernels on the tuner's route;
+    ``"pallas"`` is an alias), ``"distributed"`` (block CG with the grid's rows split over a
     ``torch.distributed`` group, float32 row blocks through the row-shard
     kernel). ``"auto"`` resolves from the legacy ``mll_method`` /
     ``use_pallas`` fields and the observation count. Fields that belong to

@@ -54,6 +54,14 @@ extern "C" int lk_mvm_fused_launch(const void* K1, long long ldk1,
     return lk_tc::launch<true>(p, bf16, stream);
 }
 
+// The runtime's view of the instantiations this launcher picks from
+// (lk_tc::attributes: 0 f32 / 16-byte copies, 1 f32 / 4-byte, 2 bf16 /
+// 16-byte, 3 bf16 / 4-byte); the budget model (kernels/budget.py) is held
+// against it.
+extern "C" int lk_mvm_fused_attributes(int which, KernelAttr* out) {
+    return lk_tc::attributes<true>(which, out);
+}
+
 // Human-readable name of an error code returned by lk_mvm_fused_launch.
 extern "C" const char* lk_mvm_fused_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);

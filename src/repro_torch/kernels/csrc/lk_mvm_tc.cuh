@@ -94,6 +94,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "kernel_attr.cuh"
+
 namespace lk_tc {
 
 namespace cg = cooperative_groups;
@@ -684,6 +686,25 @@ inline int launch(const Args& p, int bf16, void* stream) {
     err = cudaLaunchKernelEx(&cfg, kernel, p);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+// The runtime's view of the body's instantiations that launch<MASKED>()
+// picks without T_LOADED, at their launch: which = 0 f32 with 16-byte
+// copies, 1 f32 with 4-byte copies, 2 bf16 16-byte, 3 bf16 4-byte (the
+// order of kernels/budget.py's entries).
+template <bool MASKED>
+inline int attributes(int which, KernelAttr* out) {
+    switch (which) {
+    case 0: return kernel_attributes(lk_mvm_tc_kernel<false, 4, MASKED>, NTHREADS,
+                                     Layout<false>::BYTES, out);
+    case 1: return kernel_attributes(lk_mvm_tc_kernel<false, 1, MASKED>, NTHREADS,
+                                     Layout<false>::BYTES, out);
+    case 2: return kernel_attributes(lk_mvm_tc_kernel<true, 4, MASKED>, NTHREADS,
+                                     Layout<true>::BYTES, out);
+    case 3: return kernel_attributes(lk_mvm_tc_kernel<true, 1, MASKED>, NTHREADS,
+                                     Layout<true>::BYTES, out);
+    default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace lk_tc

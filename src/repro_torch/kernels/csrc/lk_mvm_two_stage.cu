@@ -45,11 +45,14 @@
 // the ring slot it has just read and stores them as rows of 16-byte stores,
 // so the only block-wide barrier per strip is the ring's. m > 64 sweeps
 // 64-column chunks of the reduction and 64-column output tiles, reloading
-// K2's and the mask's chunk per step. Its reduction is at most 64 deep per
-// chunk, so its MMAs accumulate straight into the output fragment (24 per
-// output at m = 64; the truncation that made K1 sum each k step apart
-// builds up over n / 8 * 3 MMAs, not 24), and K2^T keeps each value's two
-// TF32 halves side by side, one 16-byte shared load per B fragment.
+// K2's and the mask's chunk per step. Each k step's three MMAs go into a
+// zeroed fragment that a rounding FADD adds to the output fragment, as in
+// K1's stage R: accumulating the 24 MMAs of m = 64 in place let the tensor
+// cores' truncation bias T toward zero by ~5e-7 of itself, ten times the
+// bias of this order (emulated in tests/test_torch_kernels.py), and CG
+// solutions amplify it (at n = 8192 the routed serve needed 12-21 % more
+// iterations; PERF.md). K2^T keeps each value's two TF32 halves side by
+// side, one 16-byte shared load per B fragment.
 
 #include "lk_mvm_tc.cuh"
 
@@ -210,7 +213,7 @@ stage_right_kernel(const float* __restrict__ U, const float* __restrict__ mask,
         }
         // The warp's 16 rows times every 16-column item: the operand split of
         // lk_mvm_tc.cuh's stage R, the mask applied on the way into the
-        // fragments, the MMAs accumulating in place.
+        // fragments, each k step's three MMAs summed apart and added.
         float* const Ur = U_s(s) + (warp * 16 + gid) * LDU;
         const float* Mr = M_s + (warp * 16 + gid) * LDU;
 #pragma unroll
@@ -236,9 +239,15 @@ stage_right_kernel(const float* __restrict__ U, const float* __restrict__ mask,
                     const float4 w = *reinterpret_cast<const float4*>(
                         k2t + (jq * 16 + f * 8 + gid) * LDK + 2 * (mm + 2 * tig));
                     const uint32_t h0 = __float_as_uint(w.x), h1 = __float_as_uint(w.z);
-                    lk_tc::mma_tf32(acc[jq][f], al, h0, h1);
-                    lk_tc::mma_tf32(acc[jq][f], ah, __float_as_uint(w.y), __float_as_uint(w.w));
-                    lk_tc::mma_tf32(acc[jq][f], ah, h0, h1);
+                    // a zeroed fragment per k step, added with a rounding
+                    // FADD: the tensor cores' accumulation truncates, and
+                    // truncating into the running sum biases T toward zero
+                    float d[4] = {0.f, 0.f, 0.f, 0.f};
+                    lk_tc::mma_tf32(d, al, h0, h1);
+                    lk_tc::mma_tf32(d, ah, __float_as_uint(w.y), __float_as_uint(w.w));
+                    lk_tc::mma_tf32(d, ah, h0, h1);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[jq][f][e] += d[e];
                 }
             }
         }
@@ -343,6 +352,35 @@ extern "C" int lk_mvm_stage_left_launch(const void* K1, long long ldk1,
     p.m = m;
     p.plan = *plan;
     return lk_tc::launch<false, true>(p, 0, stream);
+}
+
+// The runtime's view of the instantiations the two launchers pick from, at
+// their launch: which = 0..3 stage L (K2b) with a 128-column panel and
+// 16-byte copies, 128 / 4-byte, 64 / 16-byte, 64 / 4-byte; 4..7 stage R
+// (K2a) with 16-byte copies and 48 < m <= 64, 16-byte other m, 4-byte
+// 48 < m <= 64, 4-byte other m (the order of kernels/budget.py's entries).
+extern "C" int lk_mvm_two_stage_attributes(int which, KernelAttr* out) {
+    using lk_tc::lk_mvm_tc_kernel;
+    using lk_two_stage::stage_right_kernel;
+    constexpr int L_BYTES = lk_tc::Layout<false>::BYTES, T = lk_tc::NTHREADS;
+    constexpr int HALF = lk_tc::BN / 2;
+    switch (which) {
+    case 0: return kernel_attributes(lk_mvm_tc_kernel<false, 4, false, true>, T, L_BYTES, out);
+    case 1: return kernel_attributes(lk_mvm_tc_kernel<false, 1, false, true>, T, L_BYTES, out);
+    case 2: return kernel_attributes(lk_mvm_tc_kernel<false, 4, false, true, HALF>, T,
+                                     L_BYTES, out);
+    case 3: return kernel_attributes(lk_mvm_tc_kernel<false, 1, false, true, HALF>, T,
+                                     L_BYTES, out);
+    case 4: return kernel_attributes(stage_right_kernel<4, true>, lk_two_stage::NTHREADS,
+                                     lk_two_stage::BYTES, out);
+    case 5: return kernel_attributes(stage_right_kernel<4, false>, lk_two_stage::NTHREADS,
+                                     lk_two_stage::BYTES, out);
+    case 6: return kernel_attributes(stage_right_kernel<1, true>, lk_two_stage::NTHREADS,
+                                     lk_two_stage::BYTES, out);
+    case 7: return kernel_attributes(stage_right_kernel<1, false>, lk_two_stage::NTHREADS,
+                                     lk_two_stage::BYTES, out);
+    default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // Human-readable name of an error code returned by the launch functions.

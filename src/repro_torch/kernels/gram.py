@@ -5,11 +5,13 @@ Computes   K[i, j] = outputscale * exp(-0.5 * ||(x1_i - x2_j) / l||^2)
 :func:`rbf_gram_cuda`
     One launch of the hand-written CUDA kernel ``csrc/rbf_gram.cu`` (kernel
     K4, in the place of the reference's TPU kernel ``rbf_gram_pallas`` in
-    ``repro/kernels/gram.py``). The wrapper forms ``z = x / l``; the kernel
-    accumulates ``z1_i . z2_j`` and both row norms over d and applies the exp
-    epilogue before its one write of K. It computes in float32 and returns
-    x1's dtype. A CUDA tensor launches the kernel or raises; a CPU tensor
-    runs the plain version.
+    ``repro/kernels/gram.py``). The kernel reads x1, x2 and the lengthscales
+    as they are (float32 or float64), forms ``z = x / l`` where it loads
+    them, accumulates ``z1_i . z2_j`` and the row norms in float32 and
+    writes K from its epilogue in x1's dtype: no pass before or after it.
+    Its grid is :func:`plan_gram`'s: persistent blocks, as many as the
+    budget model lets share each SM of the device. A CUDA tensor launches
+    the kernel or raises; a CPU tensor runs the plain version.
 
 :func:`rbf_gram_plain`
     The same function in plain PyTorch with the same rounding points. The
@@ -22,14 +24,22 @@ As in the reference, ``gram_matrices`` does not go through this kernel
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from ._build import load_library
+from .budget import (GRAM_VARIANTS, H100_SXM, INSTANTIATIONS, DeviceLimits,
+                     device_limits)
 from .lk_mvm import _raise_on_launch_error, _refuse_autograd
 
-__all__ = ["rbf_gram_cuda", "rbf_gram_plain"]
+__all__ = ["rbf_gram_cuda", "rbf_gram_plain", "GramPlan", "plan_gram"]
 
+# csrc/rbf_gram.cu: columns of a warp's column tile (32 lanes x 4), warps of a
+# block, and the largest d kept in registers by each instantiation.
+GRAM_COLS, GRAM_WARPS = 128, 8
+_DTYPES = (torch.float32, torch.float64)
 _LIB = None
 
 
@@ -39,8 +49,10 @@ def _library():
     if _LIB is None:
         lib = load_library("rbf_gram")
         p, i = ctypes.c_void_p, ctypes.c_int
-        # (z1, z2, outputscale, out, n, p, d, stream)
-        lib.rbf_gram_launch.argtypes = [p, p, p, p, i, i, i, p]
+        # (x1, x2, ls, x_double, outputscale, out, out_double, n, p, d, plan,
+        #  stream)
+        lib.rbf_gram_launch.argtypes = [p, p, p, i, p, p, i, i, i, i,
+                                        ctypes.POINTER(_CGramPlan), p]
         lib.rbf_gram_launch.restype = i
         lib.rbf_gram_error_string.argtypes = [i]
         lib.rbf_gram_error_string.restype = ctypes.c_char_p
@@ -48,9 +60,75 @@ def _library():
     return _LIB
 
 
-def _scaled_inputs(x1, x2, lengthscale):
-    """``z = x / l`` in the inputs' dtype, then float32, as the reference
-    (which divides before its kernel and casts inside it)."""
+class _CGramPlan(ctypes.Structure):
+    """``rbf::GramPlan`` of csrc/rbf_gram.cu, field for field."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("col_tiles", "row_chunks",
+                                            "blocks")]
+
+
+@dataclass(frozen=True)
+class GramPlan:
+    """One launch of K4: ``col_tiles`` column tiles of GRAM_COLS columns,
+    each cut into ``row_chunks`` ranges of rows (range q holds rows
+    [q n // row_chunks, (q + 1) n // row_chunks)); unit u = (tile u //
+    row_chunks, range u % row_chunks) is walked by warp u mod (8 blocks) of
+    the ``blocks`` persistent blocks."""
+
+    n: int
+    p: int
+    col_tiles: int
+    row_chunks: int
+    blocks: int
+
+    def c_struct(self) -> _CGramPlan:
+        """The plan as the kernel's launcher takes it."""
+        return _CGramPlan(**{f: getattr(self, f) for f, _ in _CGramPlan._fields_})
+
+    def units(self, warp: int) -> list[tuple[int, int, int]]:
+        """(column tile, first row, end row) of each unit that warp ``warp``
+        of the grid walks, in its order: the kernel's own rule."""
+        out, step = [], self.blocks * GRAM_WARPS
+        for u in range(warp, self.col_tiles * self.row_chunks, step):
+            c, q = divmod(u, self.row_chunks)
+            out.append((c, q * self.n // self.row_chunks,
+                        (q + 1) * self.n // self.row_chunks))
+        return out
+
+
+def gram_variant(d: int) -> str:
+    """The K4 instantiation ``d`` takes: d <= 8 and d <= 16 in registers,
+    larger d in chunks (csrc/rbf_gram.cu: rbf::Variant)."""
+    return next((name for name, dk in GRAM_VARIANTS[:2] if d <= dk),
+                GRAM_VARIANTS[2][0])
+
+
+@functools.lru_cache(maxsize=256)
+def plan_gram(n: int, p: int, d: int, *, sms: int,
+              limits: DeviceLimits = H100_SXM) -> GramPlan:
+    """K4's grid on a card of ``sms`` SMs: persistent blocks, as many per SM
+    as the budget of ``d``'s instantiation admits under ``limits`` (three or
+    two on an H100), at most one warp per unit; the rows of each column tile
+    cut into as many ranges as there are warps per column tile, each at
+    least 8 rows long."""
+    if min(n, p, d) <= 0:
+        raise ValueError("empty operand")
+    per_sm = INSTANTIATIONS[f"K4 xf32 outf32 {gram_variant(d)}"].blocks_per_sm(
+        limits)
+    if per_sm < 1:
+        raise ValueError(f"K4's block does not fit an SM of {limits}")
+    col_tiles = -(-p // GRAM_COLS)
+    warps = per_sm * sms * GRAM_WARPS
+    row_chunks = max(1, min(warps // col_tiles, -(-n // 8)))
+    units = col_tiles * row_chunks
+    if max(col_tiles, row_chunks) >= 2**31:
+        raise ValueError(f"({n}, {p}) is more than a launch takes")
+    blocks = min(per_sm * sms, -(-units // GRAM_WARPS))
+    return GramPlan(n=n, p=p, col_tiles=col_tiles, row_chunks=row_chunks,
+                    blocks=blocks)
+
+
+def _check_inputs(x1, x2, lengthscale):
     if x1.ndim != 2 or x2.ndim != 2 or x1.shape[1] != x2.shape[1]:
         raise ValueError(f"x1 and x2 must be (n, d) and (p, d), got "
                          f"{tuple(x1.shape)} and {tuple(x2.shape)}")
@@ -64,6 +142,12 @@ def _scaled_inputs(x1, x2, lengthscale):
     if not (x1.dtype.is_floating_point and x2.dtype.is_floating_point):
         raise TypeError("x1 and x2 must be floating point")
     _refuse_autograd(x1, x2, lengthscale)
+
+
+def _scaled_inputs(x1, x2, lengthscale):
+    """``z = x / l`` in the inputs' dtype, then float32, as the reference
+    (which divides before its kernel and casts inside it)."""
+    _check_inputs(x1, x2, lengthscale)
     f32 = torch.float32
     z1 = (x1 / lengthscale).to(f32).contiguous()
     z2 = (x2 / lengthscale).to(f32).contiguous()
@@ -102,9 +186,12 @@ def rbf_gram_cuda(x1: torch.Tensor, x2: torch.Tensor,
 
     ``lengthscale`` is (d,); ``outputscale`` a number or a 0-d tensor (read by
     the kernel through a device pointer: no host sync). Computes in float32,
-    returns (n, p) in x1's dtype.
+    returns (n, p) in x1's dtype, written by the kernel itself.
 
-    On a CUDA tensor this launches the kernel on the current stream without
+    On a CUDA tensor, x1, x2 and the lengthscales are float32 or float64;
+    the kernel divides in the dtype the three promote to (float64 if any is
+    float64), which gives the bits of ``(x / l).to(float32)``, and x1 is
+    float32 or float64. It launches the kernel on the current stream without
     synchronising, or raises; it never falls back to the plain version. On a
     CPU tensor it runs :func:`rbf_gram_plain`. ``rbf_gram_cuda.launches``
     counts kernel launches.
@@ -115,24 +202,39 @@ def rbf_gram_cuda(x1: torch.Tensor, x2: torch.Tensor,
     if x1.device.type != "cuda":
         raise ValueError(f"rbf_gram_cuda runs on cuda or cpu tensors, not "
                          f"{x1.device}")
-    z1, z2 = _scaled_inputs(x1, x2, lengthscale)
-    (n, d), p = z1.shape, z2.shape[0]
+    _check_inputs(x1, x2, lengthscale)
+    for name, x in (("x1", x1), ("x2", x2), ("lengthscale", lengthscale)):
+        if x.dtype not in _DTYPES:
+            raise TypeError(f"the Gram kernel takes float32 or float64 "
+                            f"{name}, got {x.dtype}")
+    (n, d), p = x1.shape, x2.shape[0]
     if n == 0 or p == 0 or d == 0:
         raise ValueError("empty operand")
     if max(n, p, d) >= 2**31:
         raise ValueError("n, p and d must fit in 32-bit integers")
+    # The division's dtype. Casting float32 to float64 is exact, and a
+    # float32 quotient rounded from float64 is the float32 quotient.
+    tx = torch.float64 if torch.float64 in (x1.dtype, x2.dtype,
+                                            lengthscale.dtype) \
+        else torch.float32
+    a, b = (x.detach().to(tx).contiguous() for x in (x1, x2))
+    ls = lengthscale.detach().to(tx).expand(d).contiguous()
     scale = _scale_scalar(outputscale, x1.device)
-    out = torch.empty((n, p), dtype=torch.float32, device=x1.device)
+    out = torch.empty((n, p), dtype=x1.dtype, device=x1.device)
+    limits = device_limits(x1.device)
+    plan = plan_gram(n, p, d, sms=limits.sms, limits=limits)
     lib = _library()
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rbf_gram_launch(z1.data_ptr(), z2.data_ptr(),
-                                 scale.data_ptr(), out.data_ptr(), n, p, d,
-                                 stream)
+        rc = lib.rbf_gram_launch(a.data_ptr(), b.data_ptr(), ls.data_ptr(),
+                                 int(tx == torch.float64), scale.data_ptr(),
+                                 out.data_ptr(),
+                                 int(out.dtype == torch.float64), n, p, d,
+                                 ctypes.byref(plan.c_struct()), stream)
     _raise_on_launch_error(rc, lib.rbf_gram_error_string, "rbf_gram",
                            (n, p, d))
     rbf_gram_cuda.launches += 1
-    return out.to(x1.dtype)
+    return out
 
 
 rbf_gram_cuda.launches = 0

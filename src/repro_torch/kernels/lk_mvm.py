@@ -65,6 +65,7 @@ from dataclasses import dataclass
 import torch
 
 from ._build import load_library
+from .budget import H100_SXM, INSTANTIATIONS, DeviceLimits, device_limits
 
 __all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain",
            "lk_mvm_two_stage", "lk_mvm_two_stage_plain", "lk_mvm_stage_right",
@@ -79,11 +80,11 @@ _PRECISIONS = ("f32", "bf16")
 # kernel launches it as it is; its launcher rejects a plan that does not
 # cover the output, so a mismatch raises instead of computing wrong values.
 TC_ROWS, TC_COLS, TC_K, TC_MAX_SPLITS = 256, 128, 32, 8
-# Streaming multiprocessors of an H100 SXM; the kernel holds one block each.
-H100_SMS = 132
-# K2a (csrc/lk_mvm_two_stage.cu: SR): rows of (B n) per strip, and the
-# persistent blocks per SM that walk the strips (two fit in shared memory).
-STREAM_ROWS, STREAM_BLOCKS_PER_SM = 64, 2
+# K2a (csrc/lk_mvm_two_stage.cu: SR): rows of (B n) per strip.
+STREAM_ROWS = 64
+# K2a's persistent blocks per SM: as many as its budget lets share an SM (two
+# at the H100's limits).
+STREAM_BUDGET = "K2a 16B full"
 _LIB = None
 _LIB_TWO_STAGE = None
 _LIB_ROWS = None
@@ -254,15 +255,17 @@ class LaunchPlan:
                 for r in range(s)]
 
 
-def plan_launch(B: int, n_local: int, n: int, m: int, *,
+def plan_launch(B: int, n_local: int, n: int, m: int, *, sms: int,
                 narrow: bool = False) -> LaunchPlan:
     """How K1 or K2b (``n_local = n``) or K3 tiles the work, and the split
-    count: the grid the kernel launches.
+    count: the grid the kernel launches on a card of ``sms`` SMs (the
+    wrappers pass the device's count, from
+    :func:`repro_torch.kernels.budget.device_limits`).
 
-    With fewer than two tiles per SM of an H100 the k sweep is split over a
-    cluster of s <= 8 blocks (at most one per k tile), s = ceil(2 * SMs /
-    tiles), so that B = 1 still streams K1 from enough SMs; with enough
-    tiles s = 1. The cluster of a launch is its ``splits`` blocks.
+    With fewer than two tiles per SM the k sweep is split over a cluster of
+    s <= 8 blocks (at most one per k tile), s = ceil(2 * sms / tiles), so
+    that B = 1 still streams K1 from enough SMs; with enough tiles s = 1.
+    The cluster of a launch is its ``splits`` blocks.
 
     ``narrow`` (K2b, whose T comes from memory): when the whole batch fits
     in half a panel, a panel holds just the batch, and the kernel runs its
@@ -277,7 +280,7 @@ def plan_launch(B: int, n_local: int, n: int, m: int, *,
     panels = -(-B // bpp) * -(-m // col_tile)
     k_tiles = -(-n // TC_K)
     tiles = row_tiles * panels
-    fill = 2 * H100_SMS
+    fill = 2 * sms
     splits = 1 if tiles >= fill else min(TC_MAX_SPLITS, k_tiles,
                                          math.ceil(fill / tiles))
     return LaunchPlan(n=n, row_tiles=row_tiles, panels=panels,
@@ -322,19 +325,24 @@ class StreamPlan:
         return out
 
 
-def plan_stream(B: int, n: int, m: int) -> StreamPlan:
-    """K2a's grid: strips of STREAM_ROWS rows of one batch member, ordered
-    row tile by row tile (so a block's strips share the mask tile it holds),
-    and as many persistent blocks as strips up to STREAM_BLOCKS_PER_SM per
-    SM of an H100, each loading K2 once and taking a contiguous range of
+def plan_stream(B: int, n: int, m: int, *, sms: int,
+                limits: DeviceLimits = H100_SXM) -> StreamPlan:
+    """K2a's grid on a card of ``sms`` SMs: strips of STREAM_ROWS rows of
+    one batch member, ordered row tile by row tile (so a block's strips
+    share the mask tile it holds), and as many persistent blocks as strips
+    up to the blocks per SM that K2a's budget admits under ``limits`` (two
+    on an H100), each loading K2 once and taking a contiguous range of
     strips with the next ones in flight. (``m`` does not change the grid:
     wider rows are swept in 64-column chunks inside the block.)"""
     del m
     strips = B * -(-n // STREAM_ROWS)
     if strips >= 2**31:
         raise ValueError(f"{strips} strips are more than a launch takes")
+    per_sm = INSTANTIATIONS[STREAM_BUDGET].blocks_per_sm(limits)
+    if per_sm < 1:
+        raise ValueError(f"K2a's block does not fit an SM of {limits}")
     return StreamPlan(B=B, n=n, strip_rows=STREAM_ROWS, strips=strips,
-                      blocks=min(strips, STREAM_BLOCKS_PER_SM * H100_SMS))
+                      blocks=min(strips, per_sm * sms))
 
 
 def lk_mvm_fused_plain(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
@@ -384,7 +392,7 @@ def lk_mvm_fused(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
 
     ``block_n`` / ``block_m`` are accepted for signature parity with the
     reference and ignored: tile sizes are the kernel's own (compile-time
-    constants); a tuner with a shared-memory budget model is ROADMAP K6.
+    constants, their shared memory in :mod:`repro_torch.kernels.budget`).
     """
     del block_n, block_m
     n, m = _check_args(K1, K2, mask, u, precision)
@@ -400,7 +408,7 @@ def lk_mvm_fused(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
         raise ValueError("B, n and m must fit in 32-bit integers")
     noise_t = _noise_scalar(noise, u.device)
     out = torch.empty_like(u3)
-    plan = plan_launch(B, n, n, m)
+    plan = plan_launch(B, n, n, m, sms=device_limits(u.device).sms)
     lib = _library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -504,7 +512,8 @@ def lk_mvm_stage_right(u: torch.Tensor, mask: torch.Tensor,
     if u.device.type == "cpu":
         return lk_mvm_stage_right_plain(u, mask, K2)
     T = torch.empty_like(u)
-    plan = plan_stream(B, n, m)
+    limits = device_limits(u.device)
+    plan = plan_stream(B, n, m, sms=limits.sms, limits=limits)
     lib = _two_stage_library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -535,7 +544,7 @@ def lk_mvm_stage_left(K1: torch.Tensor, T: torch.Tensor, mask: torch.Tensor,
         return lk_mvm_stage_left_plain(K1, T, mask, u, noise)
     noise_t = _noise_scalar(noise, u.device)
     out = torch.empty_like(u)
-    plan = plan_launch(B, n, n, m, narrow=True)
+    plan = plan_launch(B, n, n, m, sms=device_limits(u.device).sms, narrow=True)
     lib = _two_stage_library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -693,7 +702,7 @@ def lk_mvm_fused_rows(K1_rows: torch.Tensor, K2: torch.Tensor,
         raise ValueError("B, n and m must fit in 32-bit integers")
     noise_t = _noise_scalar(noise, u_rows.device)
     out = torch.empty_like(u3)
-    plan = plan_launch(B, n_local, n, m)
+    plan = plan_launch(B, n_local, n, m, sms=device_limits(u_rows.device).sms)
     lib = _rows_library()
     with torch.cuda.device(u_rows.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -4,11 +4,13 @@ Counterpart of ``repro.kernels.ops``. The rule is by device, never by what
 happens to be installed: tensors on a CUDA device go through the kernel (or
 raise), tensors on the CPU go to the oracle - or, with ``force_kernel=True``,
 through the kernel wrapper's plain version, which keeps the kernel's float32
-rounding points.
+rounding points. Which MVM kernel runs is the route tuner's choice unless
+the caller names it.
 """
 from __future__ import annotations
 
 from .._device import check_on_device, resolve_device
+from .autotune import autotune_route
 from .gram import rbf_gram_cuda
 from .lk_mvm import lk_mvm_cuda
 from .ref import lk_mvm_ref, rbf_gram_ref
@@ -18,19 +20,24 @@ __all__ = ["lk_mvm_op", "rbf_gram_op"]
 
 def lk_mvm_op(K1, K2, mask, u, noise=0.0, *, force_kernel: bool = False,
               block_n: int | None = None, block_m: int | None = None,
-              fused: bool = True, precision: str = "f32", device=None):
+              fused: bool | None = None, precision: str = "f32", device=None):
     """A(u) = mask * (K1 @ (mask*u) @ K2) + noise * (mask*u).
 
     ``device=None`` means the GPU; the tensors must live on the device named.
-    ``fused=False`` selects the two-stage kernels (K2a + K2b).
+    ``fused=True`` is the fused kernel K1, ``fused=False`` the two-stage
+    kernels K2a + K2b; ``fused=None`` asks the route tuner
+    (:func:`repro_torch.kernels.autotune.autotune_route`: timed on a CUDA
+    device, the reference's rule on the CPU), as the reference asks its
+    block tuner when no blocks are given.
     """
-    # The reference also goes two-stage by itself where no fused tiling fits
-    # its VMEM budget (large m). The fused kernel here sweeps m in chunks and
-    # has no row-strip limit, so that case does not arise on the card: fused
-    # stays as the caller set it. Choosing by a cost model is ROADMAP K6.
     dev = resolve_device(device)
     check_on_device(dev, K1=K1, K2=K2, mask=mask, u=u)
     if dev.type == "cuda" or force_kernel:
+        if fused is None:
+            n, m = mask.shape
+            B = u.numel() // max(n * m, 1)
+            fused = autotune_route(n, m, B, precision=precision,
+                                   device=dev) == "fused"
         return lk_mvm_cuda(K1, K2, mask, u, noise, block_n=block_n,
                            block_m=block_m, fused=fused, precision=precision)
     return lk_mvm_ref(K1, K2, mask, u, noise)

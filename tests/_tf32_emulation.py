@@ -1,7 +1,8 @@
 """CPU emulation of the tensor-core arithmetic of K1's and K3's f32 mode
 (``csrc/lk_mvm_tc.cuh``), shared by the kernel tests. It calls no port code:
 it shows, before the card is asked, why the f32 mode takes three TF32
-passes."""
+passes, and why each k step's MMAs are summed apart."""
+import numpy as np
 import torch
 
 
@@ -22,3 +23,32 @@ def tc_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
         al, bl = tf32(a - ah), tf32(b - bh)
         out = out + ah.double() @ bl.double() + al.double() @ bh.double()
     return out.float()
+
+
+def _toward_zero(x: np.ndarray) -> np.ndarray:
+    """float64 -> float32 rounded toward zero, as the tensor cores' float32
+    accumulation truncates."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def mma_3xtf32(a: torch.Tensor, b: torch.Tensor, per_step: bool) -> np.ndarray:
+    """float32 a @ b as a chain of m16n8k8 TF32 MMAs in 3xTF32 (lo*hi,
+    hi*lo, hi*hi per k step of 8), each MMA's sum truncated to float32.
+    ``per_step=False`` accumulates all of them in place in the output
+    fragment; ``per_step=True`` sums each k step's three into a zeroed
+    fragment and adds it to the output with a rounding float32 add."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    ah, bh, al, bl = (x.double().numpy() for x in (ah, bh, al, bl))
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        s = slice(k0, k0 + 8)
+        parts = (al[:, s] @ bh[s], ah[:, s] @ bl[s], ah[:, s] @ bh[s])
+        d = np.zeros_like(acc) if per_step else acc
+        for p in parts:
+            d = _toward_zero(d.astype(np.float64) + p)
+        acc = (acc + d).astype(np.float32) if per_step else d
+    return acc

@@ -139,3 +139,85 @@ def test_rbf_gram_wrapper_counts_only_kernel_launches(monkeypatch):
     x1, x2, ls = (torch.from_numpy(a) for a in _inputs(9, 11, 3, seed=7))
     rbf_gram_cuda(x1, x2, ls, 1.0)
     assert rbf_gram_cuda.launches == before
+
+
+@pytest.mark.parametrize("dt1,dt2", [("float32", "float64"),
+                                     ("float64", "float32"),
+                                     ("float64", "float64")])
+def test_rbf_gram_output_dtype_follows_x1(dt1, dt2):
+    """The kernel writes x1's dtype from its epilogue (the reference's
+    ``out_shape=... x1.dtype``); so does the wrapper's plain version."""
+    x1, x2, ls = _inputs(19, 23, 5, seed=8, dtype=np.float64)
+    t1 = torch.from_numpy(x1).to(getattr(torch, dt1))
+    t2 = torch.from_numpy(x2).to(getattr(torch, dt2))
+    got = rbf_gram_cuda(t1, t2, torch.from_numpy(ls), 1.1)
+    assert got.dtype == t1.dtype and got.shape == (19, 23)
+
+
+def test_rbf_gram_float64_output_is_the_float32_result_cast():
+    """For float64 inputs the values are the float32 computation's, cast:
+    the same bits as the float32 result from the same z = (x / l) rounded
+    to float32 (divided by ones, which is exact), converted to float64."""
+    x1, x2, ls = (torch.from_numpy(a) for a in
+                  _inputs(37, 29, 7, seed=9, dtype=np.float64))
+    got = rbf_gram_plain(x1, x2, ls, 0.8)
+    assert got.dtype == torch.float64
+    z1, z2 = ((x / ls).to(torch.float32) for x in (x1, x2))
+    f32 = rbf_gram_plain(z1, z2, torch.ones(7), 0.8)
+    assert f32.dtype == torch.float32
+    assert torch.equal(got, f32.to(torch.float64))
+
+
+def test_rbf_gram_divides_before_rounding_to_float32():
+    """The kernel forms z = x / l where it loads x, in the dtype x, x2 and l
+    promote to, then rounds to float32: the bits of ``(x / l).to(float32)``.
+    Shown through the plain version, which rounds at that point: mixed
+    float32 x and float64 l divide in float64; and for float32 x and l a
+    division in float64 rounded to float32 is the float32 division (float64
+    has more than twice float32's precision), which is why the kernel may
+    divide a float32 x2 in float64 when x1 is float64."""
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.uniform(-3, 3, (4000,)).astype(np.float32))
+    l32 = torch.from_numpy(np.exp(rng.standard_normal(4000)).astype(
+        np.float32))
+    assert torch.equal((x.double() / l32.double()).float(), x / l32)
+    x1, x2, ls = _inputs(31, 17, 6, seed=11)
+    ls64 = torch.from_numpy(ls).double() * (1 + 1e-9)   # not a float32
+    t1, t2 = torch.from_numpy(x1), torch.from_numpy(x2)
+    got = rbf_gram_plain(t1, t2, ls64, 1.3)
+    assert got.dtype == torch.float32
+    z1 = (t1.double() / ls64).float()
+    z2 = (t2.double() / ls64).float()
+    assert torch.equal(got, rbf_gram_plain(z1, z2, torch.ones(6), 1.3))
+    # dividing in float32 instead would have rounded differently somewhere
+    assert not torch.equal(z1, t1 / ls64.float())
+
+
+@pytest.mark.parametrize("n,p,d,sms", [(8192, 8192, 7, 132),
+                                       (2000, 2000, 7, 132),
+                                       (130, 70, 10, 132), (16, 16, 260, 132),
+                                       (8192, 8192, 7, 114), (5, 3000, 3, 132)])
+def test_gram_planner_covers_every_output_once(n, p, d, sms):
+    """plan_gram's units, as the warps of the grid walk them, cover every
+    (column tile, row) once; the grid is at most the blocks per SM that
+    d's instantiation admits (3 for d <= 8, 2 above) times the SMs given,
+    with about one unit per warp and no block without one; at n = p = 8192
+    the units fill 95 % of the warps the card holds."""
+    from repro_torch.kernels.gram import GRAM_COLS, GRAM_WARPS, plan_gram
+    plan = plan_gram(n, p, d, sms=sms)
+    per_sm = 3 if d <= 8 else 2
+    assert plan.col_tiles == -(-p // GRAM_COLS)
+    assert 1 <= plan.blocks <= per_sm * sms
+    units = plan.col_tiles * plan.row_chunks
+    assert units <= plan.blocks * GRAM_WARPS < units + GRAM_WARPS \
+        or plan.blocks == per_sm * sms
+    if (n, p) == (8192, 8192):
+        assert units >= 0.95 * per_sm * sms * GRAM_WARPS
+    seen = np.zeros((plan.col_tiles, n), dtype=np.int64)
+    for w in range(plan.blocks * GRAM_WARPS):
+        for c, r0, r1 in plan.units(w):
+            seen[c, r0:r1] += 1
+    assert (seen == 1).all()
+    c = plan.c_struct()
+    assert (c.col_tiles, c.row_chunks, c.blocks) == (
+        plan.col_tiles, plan.row_chunks, plan.blocks)

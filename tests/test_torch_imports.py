@@ -46,6 +46,7 @@ def test_port_has_the_modules_of_this_slice():
                 "core/solvers/base", "core/errors", "core/priors",
                 "core/slq", "core/lbfgs", "kernels/ref", "kernels/_build",
                 "kernels/lk_mvm", "kernels/gram", "kernels/ops",
+                "kernels/budget", "kernels/autotune",
                 "distributed/__init__", "distributed/lkgp_dist",
                 "data/curves"):
         assert f"src/repro_torch/{mod}.py" in have

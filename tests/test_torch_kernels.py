@@ -4,6 +4,8 @@ the reference's, and the dispatch rules of ``lk_mvm_op``.
 
 Inputs are made with numpy from a seed and handed to both frameworks.
 """
+import functools
+
 import jax
 
 jax.config.update("jax_enable_x64", True)
@@ -27,7 +29,7 @@ from repro_torch.kernels import (lk_mvm_cuda, lk_mvm_fused,
                                  lk_mvm_two_stage, lk_mvm_two_stage_plain,
                                  rbf_gram_op, rbf_gram_ref)
 from repro_torch.kernels import _build
-from _tf32_emulation import tc_matmul
+from _tf32_emulation import mma_3xtf32, tc_matmul
 
 # (B, n, m): n < 8, non-multiples of 8, B > 1, m spanning several blocks.
 AWKWARD_SHAPES = [(1, 5, 3), (1, 7, 19), (3, 32, 16), (2, 30, 21),
@@ -410,12 +412,16 @@ PLAN_SHAPES = [(1, 5, 5, 3), (3, 50, 50, 21), (2, 130, 130, 257),
                (1, 1000, 2000, 52), (17, 500, 2000, 52)]
 
 
+# The planners take the card's SM count; an H100 SXM has 132.
+H100_SMS = 132
+
+
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
 def test_split_planner_partitions_k_in_whole_tiles(shape):
-    from repro_torch.kernels.lk_mvm import (H100_SMS, TC_K, TC_MAX_SPLITS,
-                                            TC_ROWS, plan_launch)
+    from repro_torch.kernels.lk_mvm import (TC_K, TC_MAX_SPLITS, TC_ROWS,
+                                            plan_launch)
     B, n_local, n, m = shape
-    plan = plan_launch(B, n_local, n, m)
+    plan = plan_launch(B, n_local, n, m, sms=H100_SMS)
     assert plan.row_tiles == -(-n_local // TC_ROWS)
     assert 1 <= plan.splits <= TC_MAX_SPLITS == 8
     assert plan.splits <= plan.k_tiles == -(-n // TC_K)
@@ -449,10 +455,9 @@ def test_stream_planner_covers_every_row_once(shape):
     (mask * U) @ K2 exactly once; each strip lies inside one batch member;
     the persistent blocks are at most two per SM of an H100, and each
     block's strips share one or two row tiles (the mask tile it holds)."""
-    from repro_torch.kernels.lk_mvm import (H100_SMS, STREAM_ROWS,
-                                            plan_stream)
+    from repro_torch.kernels.lk_mvm import STREAM_ROWS, plan_stream
     B, n, m = shape
-    plan = plan_stream(B, n, m)
+    plan = plan_stream(B, n, m, sms=H100_SMS)
     assert plan.strip_rows == STREAM_ROWS == 64
     assert plan.strips == B * -(-n // STREAM_ROWS)
     assert plan.blocks == min(plan.strips, 2 * H100_SMS)
@@ -474,18 +479,53 @@ def test_stream_planner_covers_every_row_once(shape):
 
 def test_split_planner_fills_the_card_at_batch_one():
     from repro_torch.kernels.lk_mvm import plan_launch
-    plan = plan_launch(1, 8192, 8192, 64)
-    assert plan.splits > 1 and plan.blocks >= 132
-    assert plan_launch(65, 8192, 8192, 64).splits == 1
+    plan = functools.partial(plan_launch, sms=H100_SMS)
+    one = plan(1, 8192, 8192, 64)
+    assert one.splits > 1 and one.blocks >= 132
+    assert plan(65, 8192, 8192, 64).splits == 1
     # K2b's narrow plan: the same grid on a 64-column panel at B = 1, the
     # usual one as soon as the batch fills more than half a panel
-    narrow = plan_launch(1, 8192, 8192, 64, narrow=True)
-    assert narrow.panel_cols == 64 and plan.panel_cols == 128
-    assert (narrow.splits, narrow.blocks) == (plan.splits, plan.blocks)
+    narrow = plan(1, 8192, 8192, 64, narrow=True)
+    assert narrow.panel_cols == 64 and one.panel_cols == 128
+    assert (narrow.splits, narrow.blocks) == (one.splits, one.blocks)
     assert narrow.blocks >= 132
-    assert plan_launch(2, 8192, 8192, 64, narrow=True) == \
-        plan_launch(2, 8192, 8192, 64)
-    assert plan_launch(4, 50, 50, 16, narrow=True).panel_cols == 64
+    assert plan(2, 8192, 8192, 64, narrow=True) == plan(2, 8192, 8192, 64)
+    assert plan(4, 50, 50, 16, narrow=True).panel_cols == 64
+
+
+# What the planners gave before they read the card's SM count (an H100's
+# 132 was built in): (B, n, m) -> plan_launch's (tiles, splits) and
+# plan_stream's blocks.
+PLANS_AT_132 = {(1, 2000, 52): ((8, 1), 8, 32),
+                (16, 2000, 52): ((8, 8), 5, 264),
+                (17, 2000, 52): ((8, 9), 4, 264),
+                (1, 8192, 64): ((32, 1), 8, 128),
+                (65, 8192, 64): ((32, 33), 1, 264)}
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_planners_follow_the_device_sm_count(sms):
+    """plan_launch and plan_stream size their grids by the SM count they are
+    given (the wrappers pass the device's): at 132 exactly the plans of the
+    built-in H100 count, at 114 (an H100 PCIe) a different split count where
+    the tiles are few, and K2a's persistent blocks two per SM (its budget at
+    the H100's limits)."""
+    from repro_torch.kernels.lk_mvm import plan_launch, plan_stream
+    splits = {}
+    for (B, n, m), ((rows, panels), s132, blocks132) in PLANS_AT_132.items():
+        plan = plan_launch(B, n, n, m, sms=sms)
+        assert (plan.row_tiles, plan.panels) == (rows, panels)
+        fill = 2 * sms
+        assert plan.splits == (1 if plan.tiles >= fill else min(
+            8, plan.k_tiles, -(-fill // plan.tiles)))
+        splits[(B, n, m)] = plan.splits
+        stream = plan_stream(B, n, m, sms=sms)
+        assert stream.blocks == min(stream.strips, 2 * sms)
+        if sms == 132:
+            assert (plan.splits, stream.blocks) == (s132, blocks132)
+    if sms == 114:
+        assert splits[(16, 2000, 52)] == 4 != PLANS_AT_132[
+            (16, 2000, 52)][1]
 
 
 def _tc_route(route, K1, K2, mask, u, noise, passes):
@@ -549,3 +589,28 @@ def test_3xtf32_emulation_holds_the_float64_oracle_at_the_fit_shape():
         assert err[1] > err[3], route
         if route != "stage_right":
             assert err[1] > 1e-4 * scale, route   # one pass would miss it
+
+
+def test_k2a_sums_each_k_step_apart_against_truncation_drift():
+    """K2a's T = (mask * U) @ K2 at m = 64 as the tensor cores compute it
+    (3xTF32 MMAs whose float32 sums truncate): accumulating all 24 MMAs in
+    place in the output fragment biases T toward zero by ~5e-7 of |T|; a
+    zeroed fragment per k step added with a rounding add (what K2a and K1's
+    stage R do) cuts the bias tenfold. A bias that does not average out is
+    what CG solutions amplify: a float32 sweep at a solution of the n = 8192
+    serve task was off by 1.5e-2 of ||A x|| with the in-place K2a against
+    2.0e-3 through K1 (PERF.md)."""
+    rng = np.random.default_rng(21)
+    t = np.arange(64)
+    K2 = torch.from_numpy(np.exp(-np.abs(t[:, None] - t[None, :]) / 20.0)
+                          .astype(np.float32))
+    U = torch.from_numpy(rng.standard_normal((2048, 64)).astype(np.float32))
+    exact = U.double().numpy() @ K2.double().numpy()
+    bias = {}
+    for per_step in (False, True):
+        err = mma_3xtf32(U, K2, per_step).astype(np.float64) - exact
+        bias[per_step] = float(np.mean(err * np.sign(exact))
+                               / np.mean(np.abs(exact)))
+        assert np.abs(err).max() <= 1e-5 * np.abs(exact).max()
+    assert bias[False] < -2e-7                 # toward zero
+    assert abs(bias[True]) * 5 < abs(bias[False])
