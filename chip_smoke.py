@@ -22,6 +22,14 @@ ran through the kernels:
   two-stage kernels K2a + K2b by name (``make_mll_iterative(cfg,
   KernelMVM(fused=True / False))``): every objective evaluation costs the
   stacked solve's CG iterations plus 2 sweeps;
+* the freeze-thaw loop at the same shape on the routed ``cuda`` engine:
+  ``fit`` with the fixed-budget polish (twice: the same bits), ``extend``
+  with more epochs and ``refit``, ``extend`` with new configurations and
+  ``refit``, each evaluation's launches held to its CG iterations;
+* the batched dense path (``fit_batch``, ``stack_states``,
+  ``posterior_batch``) on 16 tasks: per-task ``fit`` and ``fit_batch``
+  bitwise equal, a task's posterior bitwise equal at batch sizes 1 and 16,
+  and the committed LCBench-format fixture through ``get_source``;
 * the ``distributed`` engine inside an NCCL process group of one rank (so
   its all-gather runs): a float32 state served with every CG sweep one launch
   of the row-shard kernel K3, a float64 fit through its exact body, and the
@@ -39,8 +47,10 @@ Phases, one JSON line each: device, build (with the budget model against
 the runtime), kernels, reference (the .npz), routes, serve (n=8192, m=64,
 ``final`` and ``mean`` also timed on the float64 ``iterative`` engine),
 serve_lcbench (n=2000, m=52, also against the ``iterative`` engine), exact
-(n=24, m=16 against the ``dense`` engine), fit (n=2000, m=52, d=7),
-distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64 fit), gram
+(n=24, m=16 against the ``dense`` engine), fit (n=2000, m=52, d=7), warm
+(n=2000 -> 2048, m=52, d=7), batch (16 tasks of n=48, m=20, d=4; the
+fixture), distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
+fit), gram
 (n=8192 and n=2000, d=7), routes_used (every bucket the tuner resolved).
 Then a summary line ``{"kernels": [...]}``, the card's name and power limit
 as ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
@@ -49,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import os
 import statistics
@@ -70,10 +81,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch.distributed as dist  # noqa: E402
 from repro_torch import state_from_reference  # noqa: E402
 from repro_torch.core import (DistributedEngine, LKGPConfig,  # noqa: E402
-                              fit, get_engine, gram_matrices, init_params,
-                              lk_mvm, log_prior, make_mll,
-                              make_mll_iterative, posterior,
-                              rademacher_probes)
+                              extend, fit, fit_batch, get_engine,
+                              gram_matrices, init_params, lk_mvm, log_prior,
+                              make_mll, make_mll_iterative, posterior,
+                              posterior_batch, rademacher_probes, refit,
+                              stack_states, unstack)
 from repro_torch.core.engines import (IterativeEngine,  # noqa: E402
                                       KernelEngine, KernelMVM,
                                       LatentKroneckerOperator)
@@ -83,7 +95,8 @@ from repro_torch.core.state import (_fit_transforms,  # noqa: E402
                                     _flatten_params, _unflatten_params)
 from repro_torch.core.transforms import (TTransform, XTransform,  # noqa: E402
                                          YTransform)
-from repro_torch.data import sample_task  # noqa: E402
+from repro_torch.data import (get_source, sample_suite,  # noqa: E402
+                              sample_task, stack_suite)
 from repro_torch.distributed import dist_mll_value  # noqa: E402
 from repro_torch.kernels import rbf_gram_op  # noqa: E402
 from repro_torch.kernels._build import build_log, load_library  # noqa: E402
@@ -582,16 +595,18 @@ def fused_rows_rows() -> list[dict]:
                       f"{(B, n_local, n, m)}: {row['max_err_vs_float64']:.3e}")
                 del truth
             if (B, n_local, n, m) in ROWS_TIMED:
+                def library():
+                    return (mask_r * torch.matmul(K1r, torch.matmul(
+                        um_full, K2)) + noise * mask_r * u_r)
                 row.update(
                     ms=time_ms(lambda: lk_mvm_fused_rows(
                         *args, precision=precision)),
                     plain_ms=time_ms(lambda: lk_mvm_fused_rows_plain(
                         *args, precision=precision)),
-                    library_ms=time_ms(lambda: mask_r * torch.matmul(
-                        K1r, torch.matmul(um_full, K2))
-                        + noise * mask_r * u_r),
+                    library_ms=time_ms(library),
                     device_ms=device_ms(lambda: lk_mvm_fused_rows(
                         *args, precision=precision)),
+                    library_device_ms=device_ms(library),
                     **tc_bounds(bound_rows_ms, B, n_local, n, m,
                                 precision=precision))
             rows_out.append(row)
@@ -1273,6 +1288,331 @@ def phase_fit(n: int, m: int, d: int) -> dict:
     return out
 
 
+# The warm phase: the freeze-thaw loop at the fit phase's LCBench shape on the
+# routed cuda engine (float64 state): a polished fit from the default init
+# (twice, for the bits), then more epochs and a polished refit, then new
+# configurations and a polished refit. Depth cut: 3 and 2 polish steps.
+WARM_POLISH_STEPS = 3
+WARM_REFIT_STEPS = 2
+WARM_MORE_EPOCHS = 4
+WARM_NEW_CONFIGS = 48   # n = 2000 + 48 = 2048: the same tuner bucket
+
+
+class WarmStep(Request):
+    """A Request over a polish on a logging engine: also the evaluations
+    (stacked solves) it ran and their CG iterations, and its launches held
+    to ``evaluation_launches`` of those iterations."""
+
+    def __init__(self, name: str, engine, n: int, m: int):
+        super().__init__(name)
+        self.engine, self.n, self.m = engine, n, m
+
+    def __enter__(self):
+        self.first = len(self.engine.solves)
+        return super().__enter__()
+
+    def row(self, res=None) -> dict:
+        iters = [sv["iters"] for sv in self.engine.solves[self.first:]]
+        want = evaluation_launches(self.n, self.m, iters)
+        for name, count in self.by_kernel.items():
+            check(count == want.get(name, 0),
+                  f"{self.name}: {count} launches of {name}, expected "
+                  f"{want.get(name, 0)} for CG iterations {iters}")
+        if res is not None:
+            check(len(iters) == res.n_evals,
+                  f"{self.name}: {len(iters)} solves, {res.n_evals} evals")
+        B = FIT_CONFIG["slq_probes"]
+        return {"step": self.name, "seconds": self.seconds,
+                "evaluations": len(iters),
+                "cg_iters_per_eval": (statistics.mean(iters) if iters
+                                      else 0.0),
+                "cg_iters": iters, "launches": self.by_kernel,
+                "routes": {f"B={b}": routed(self.n, self.m, b)
+                           for b in (B + 1, 1, B)}}
+
+
+def start_memory() -> int:
+    """Free what earlier phases left in reference cycles (a state and the
+    posterior cached on it), reset the peak, and return the device memory
+    still allocated: a phase's ``peak_memory_bytes`` includes it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def grown_mask(task, extra: int) -> tuple[np.ndarray, np.ndarray]:
+    """The task's curves each ``extra`` epochs further (capped at m)."""
+    m = task.mask.shape[1]
+    lens = np.minimum(task.mask.sum(1).astype(np.int64) + extra, m)
+    mask = (np.arange(m)[None, :] < lens[:, None]).astype(np.float64)
+    return task.Y_full * mask, mask
+
+
+def f64_objective(state) -> float:
+    """The state's parameters on the float64 iterative objective of its own
+    data, with the probes fit() draws for it (same seeded generator)."""
+    cfg = state.config
+    data = state.data
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(cfg.seed)
+    probes = rademacher_probes(gen, cfg.slq_probes, data.mask, torch.float64)
+    mll = make_mll(dataclasses.replace(cfg, backend="iterative"),
+                   get_engine("iterative"))
+    with torch.no_grad():
+        v = mll(state.params, data.X, data.t, data.Y, data.mask, probes)
+        return float(-(v + log_prior(state.params, state.d))
+                     / data.mask.sum())
+
+
+def phase_warm(n: int, m: int, d: int, n_new: int = 256) -> dict:
+    """The freeze-thaw loop through the routed cuda engine: (1) ``fit`` with
+    ``polish_steps=3`` from the default init (13 evaluations, each the
+    stacked solve's CG iterations plus 2 sweeps); (2) the same again, which
+    must give the same bits; (3) ``extend`` with every cut-off curve 4 epochs
+    longer, ``refit(polish_steps=2)``, ``final()`` held against the
+    ``iterative`` engine's; (4) ``extend`` with 48 new configurations,
+    ``refit(polish_steps=2)``, the mean at ``n_new`` new configurations, and
+    the polished parameters scored on the float64 objective."""
+    task = sample_task(SEED, n=n, m=m, d=d)
+    cfg = LKGPConfig(backend="cuda", **FIT_CONFIG)
+    cg_tol = cfg.cg_tol
+    out = {"phase": "warm", "n": n, "m": m, "d": d, "dtype": "float64",
+           "backend": "cuda", "cg_tol": cg_tol, "steps": [],
+           "allocated_at_start_bytes": start_memory()}
+
+    # (1) and (2): the polished fit, twice from the same inputs
+    fits = []
+    for name in ("polish_fit", "polish_fit_again"):
+        engine = LoggedKernelEngine()
+        with WarmStep(name, engine, n, m) as req:
+            state = fit(task.X, task.t, task.Y, task.mask, cfg,
+                        engine=engine, polish_steps=WARM_POLISH_STEPS)
+        res = state.fit_result
+        row = req.row(res)
+        row.update(fun=res.fun, optimizer=res.optimizer,
+                   n_evals=res.n_evals, converged=res.converged)
+        check(res.optimizer == "polish" and res.n_evals ==
+              1 + 4 * WARM_POLISH_STEPS, f"{name}: {res.optimizer}, "
+              f"{res.n_evals} evaluations")
+        fits.append(state)
+        out["steps"].append(row)
+    state, again = fits
+    f_init = f64_objective(dataclasses.replace(
+        state, params=init_params(d, device=DEV)))
+    f_fit = f64_objective(state)
+    res = state.fit_result
+    out["steps"][0].update(f_init_float64=f_init, fun_float64_objective=f_fit)
+    check(np.isfinite(res.fun) and res.fun < f_init and f_fit < f_init,
+          f"polish fit: objective {res.fun} (float64 {f_fit}) not below "
+          f"the init's {f_init}")
+    check(np.array_equal(res.x, again.fit_result.x),
+          "two polishes from the same inputs gave different bits")
+    out["polish_bitwise_repeat"] = True
+    del again, fits
+
+    # (3) more epochs, refit, final() against the iterative engine
+    new_Y, new_mask = grown_mask(task, WARM_MORE_EPOCHS)
+    grown = extend(state, new_Y, new_mask)
+    check(grown.fit_result is None and grown.engine is state.engine,
+          "extend must clear the fit and carry the engine")
+    engine = state.engine
+    with WarmStep("more_epochs_refit", engine, n, m) as req:
+        state = refit(grown, polish_steps=WARM_REFIT_STEPS)
+    row = req.row(state.fit_result)
+    row.update(fun=state.fit_result.fun,
+               observed=int(new_mask.sum()), observed_before=int(
+                   task.mask.sum()))
+    check(state.config == cfg and np.isfinite(state.fit_result.fun),
+          "refit: config persisted or objective not finite")
+    out["steps"].append(row)
+    with Request("more_epochs_final") as req:
+        post = posterior(state)
+        mean, var = post.final()
+    s = check_solve(post, req, cg_tol)
+    check(req.launches == s["iters"], "final: sweeps != CG iterations")
+    check_route(req, n, m, cfg.posterior_samples + 1)
+    st_it = dataclasses.replace(state, config=dataclasses.replace(
+        state.config, backend="iterative"))
+    with Request("more_epochs_final_iterative") as req_it:
+        post_it = posterior(st_it, cache=False)
+        mean_it, var_it = post_it.final()
+    check(not any(req_it.by_kernel.values()),
+          "the iterative engine launched kernels")
+    scale = float(mean_it.abs().max())
+    gap = float((mean - mean_it).abs().max())
+    tol = MEAN_TOL_VS_ITERATIVE * cg_tol * scale
+    out["steps"].append({
+        "step": "more_epochs_final", "seconds": req.seconds,
+        "launches": req.by_kernel, "route": routed(
+            n, m, cfg.posterior_samples + 1), **s,
+        "iterative": {"seconds": req_it.seconds,
+                      "iters": int(post_it.solve_info.iters)},
+        "mean_gap_vs_iterative": gap, "tol": tol, "scale": scale,
+        "var_gap_vs_iterative": float((var - var_it).abs().max())})
+    check(bool(torch.isfinite(mean).all() and (var > 0).all()),
+          "final() after refit: values")
+    check(gap <= tol, f"final() after refit vs iterative: gap {gap:.3e} > "
+                      f"{tol:.3e}")
+    del post, post_it, st_it
+
+    # (4) new configurations, refit, mean at new configurations
+    extra = sample_task(SEED + 5, n=WARM_NEW_CONFIGS, m=m, d=d)
+    wider = extend(state, extra.Y, extra.mask, new_X=extra.X)
+    f_start = f64_objective(wider)
+    n2 = wider.n
+    with WarmStep("new_configs_refit", engine, n2, m) as req:
+        state = refit(wider, polish_steps=WARM_REFIT_STEPS)
+    row = req.row(state.fit_result)
+    f_end = f64_objective(state)
+    row.update(n=n2, fun=state.fit_result.fun,
+               f_start_float64=f_start, fun_float64_objective=f_end)
+    check(np.isfinite(state.fit_result.fun) and np.isfinite(f_end),
+          "refit on new configurations: objective not finite")
+    out["steps"].append(row)
+    Xs = np.random.default_rng(SEED + 6).uniform(0, 1, (n_new, d))
+    with Request("new_configs_mean") as req:
+        post = posterior(state, Xs=Xs)
+        mean = post.mean
+    s = check_solve(post, req, cg_tol)
+    check(req.launches == s["iters"], "mean: sweeps != CG iterations")
+    check_route(req, n2, m, 1)
+    check(mean.shape == (n2 + n_new, m) and bool(torch.isfinite(mean).all()),
+          "mean at new configurations after refit")
+    out["steps"].append({"step": "new_configs_mean", "n": n2,
+                         "seconds": req.seconds, "launches": req.by_kernel,
+                         "route": routed(n2, m, 1), **s})
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+# The batch phase: 16 synthetic tasks, float64, the exact dense path.
+BATCH_TASKS = 16
+BATCH_SHAPE = dict(n=48, m=20, d=4)
+BATCH_POLISH_STEPS = 3
+BATCH_LBFGS_ITERS = 20   # depth cut (default 100)
+BATCH_POSTERIOR_TOL = 1e-9   # relative, against the lazy dense Posterior
+LCBENCH_FIXTURE = "tests/fixtures/lcbench_mini.npz"
+
+
+def phase_batch() -> dict:
+    """The batched dense path on the card: (1) ``fit_batch`` with the polish,
+    every task bitwise equal to ``fit(task, backend="dense")`` with the same
+    polish; (2) ``fit_batch`` with L-BFGS beside the sum of the per-task
+    fits; (3) ``posterior_batch`` of all 16 tasks against each task alone
+    (``stack_states([s_i])``): mean and exact final bitwise equal; (4) each
+    task against the lazy ``Posterior`` on ``dense``; (5) the LCBench
+    fixture through ``get_source``, ``stack_suite(pad=True)``,
+    ``fit_batch`` and ``posterior_batch``. No MVM kernel runs here."""
+    root = Path(__file__).resolve().parent
+    out = {"phase": "batch", "tasks": BATCH_TASKS, **BATCH_SHAPE,
+           "N": BATCH_SHAPE["n"] * BATCH_SHAPE["m"], "dtype": "float64",
+           "allocated_at_start_bytes": start_memory()}
+    before = launch_counts()
+    t_phase = time.perf_counter()
+    tasks = sample_suite(SEED, BATCH_TASKS, **BATCH_SHAPE)
+    X, t, Y, mask, _ = stack_suite(tasks)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - t0
+
+    # (1) polish: batch against per task, bit for bit
+    cfg = LKGPConfig()
+    batch, sec_batch = timed(lambda: fit_batch(
+        X, t, Y, mask, cfg, polish_steps=BATCH_POLISH_STEPS))
+    singles, sec_single = timed(lambda: [
+        fit(tk.X, tk.t, tk.Y, tk.mask, LKGPConfig(backend="dense"),
+            polish_steps=BATCH_POLISH_STEPS) for tk in tasks])
+    equal = [bool(np.array_equal(batch.fit_result.x[i], s.fit_result.x)
+                  and all(torch.equal(a, b) for a, b in zip(b_i.params,
+                                                            s.params)))
+             for i, (b_i, s) in enumerate(zip(unstack(batch), singles))]
+    out["polish"] = {"seconds_fit_batch": sec_batch,
+                     "seconds_per_task_fits": sec_single,
+                     "fun": batch.fit_result.fun,
+                     "n_evals": batch.fit_result.n_evals,
+                     "bitwise_equal_to_fit": equal}
+    check(all(equal), f"fit_batch polish != per-task fit polish: {equal}")
+    check(batch.fit_result.fun == float(sum(s.fit_result.fun
+                                            for s in singles)),
+          "fit_batch polish objective != the sum of the per-task fits'")
+
+    # (2) L-BFGS on the summed objective, beside the per-task fits
+    lb_cfg = LKGPConfig(lbfgs_iters=BATCH_LBFGS_ITERS)
+    lb, sec_lb = timed(lambda: fit_batch(X, t, Y, mask, lb_cfg))
+    per, sec_per = timed(lambda: [
+        fit(tk.X, tk.t, tk.Y, tk.mask, dataclasses.replace(
+            lb_cfg, backend="dense")) for tk in tasks])
+    out["lbfgs"] = {"lbfgs_iters": BATCH_LBFGS_ITERS,
+                    "seconds_fit_batch": sec_lb, "fun": lb.fit_result.fun,
+                    "n_evals": lb.fit_result.n_evals,
+                    "n_iters": lb.fit_result.n_iters,
+                    "seconds_per_task_fits": sec_per,
+                    "fun_sum_per_task": float(sum(s.fit_result.fun
+                                                  for s in per)),
+                    "n_evals_sum_per_task": sum(s.fit_result.n_evals
+                                                for s in per)}
+    check(np.isfinite(lb.fit_result.fun), "fit_batch L-BFGS: not finite")
+    del per, lb
+
+    # (3) posterior_batch: B = 16 against B = 1, bit for bit
+    states = unstack(batch)
+    full, sec_full = timed(lambda: posterior_batch(stack_states(states)))
+    (mean16, var16), sec_final = timed(full.final)
+    sec_one, bitwise = 0.0, []
+    for i, st in enumerate(states):
+        one, sec = timed(lambda: posterior_batch(stack_states([st])))
+        (m1, v1), sec2 = timed(one.final)
+        sec_one += sec + sec2
+        bitwise.append(bool(torch.equal(one.mean[0], full.mean[i])
+                            and torch.equal(m1[0], mean16[i])
+                            and torch.equal(v1[0], var16[i])))
+    out["posterior_batch"] = {"seconds_B16": sec_full + sec_final,
+                              "seconds_16_times_B1": sec_one,
+                              "bitwise_B1_equals_B16": bitwise}
+    check(all(bitwise), f"posterior_batch B=1 != B=16: {bitwise}")
+    check(bool(torch.isfinite(mean16).all() and (var16 > 0).all()),
+          "posterior_batch final(): values")
+
+    # (4) each task against the lazy dense posterior
+    gaps = []
+    for i, st in enumerate(states):
+        lazy = posterior(dataclasses.replace(st, config=dataclasses.replace(
+            st.config, backend="dense")), cache=False)
+        want = lazy.mean
+        gaps.append(float((full.mean[i] - want).abs().max()
+                          / want.abs().max()))
+    out["vs_lazy_dense"] = {"max_rel_gap": max(gaps),
+                            "tol": BATCH_POSTERIOR_TOL}
+    check(max(gaps) <= BATCH_POSTERIOR_TOL,
+          f"posterior_batch vs dense Posterior: {max(gaps):.3e}")
+
+    # (5) the LCBench fixture, padded
+    src = get_source(f"lcbench:{root / LCBENCH_FIXTURE}")
+    Xl, tl, Yl, ml, _ = stack_suite(src.tasks(), pad=True)
+    fixture, sec_fix = timed(lambda: fit_batch(
+        Xl, tl, Yl, ml, cfg, polish_steps=BATCH_POLISH_STEPS))
+    (fm, fv), sec_fix_post = timed(lambda: posterior_batch(fixture).final())
+    out["lcbench"] = {"dataset_id": src.dataset_id,
+                      "shape": list(Xl.shape[:2]) + [tl.shape[-1]],
+                      "seconds_fit_batch": sec_fix,
+                      "seconds_final": sec_fix_post,
+                      "fun": fixture.fit_result.fun}
+    check(fm.shape == (Xl.shape[0], Xl.shape[1])
+          and bool(torch.isfinite(fm).all() and (fv > 0).all()),
+          "LCBench fixture: final() values")
+    launched = launch_counts(since=before)
+    check(not any(launched.values()),
+          f"the batched dense path launched MVM kernels: {launched}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 # The distributed phase (its tolerances fixed before the first run on the
 # card, PERF.md). A float32 state of the serve task is served through the
 # distributed engine, every CG sweep one launch of K3; the float32 CG has no
@@ -1713,8 +2053,28 @@ def main() -> None:
     fit_iterative = {k: fit_out["fit"]["iterative"][k]
                      for k in ("fun", "n_evals")}
     del fit_out
+    torch.cuda.empty_cache()
 
-    # Main path 3, the distributed engine in an NCCL group of one rank.
+    # Main path 3, the freeze-thaw loop (polished fit, extend, refit):
+    # counted from zero over this phase, each step held to its evaluations.
+    reset_launch_counts()
+    warm_out = phase_warm(**FIT_SHAPE)
+    warm_totals = launch_counts()
+    warm_out["launches"] = warm_totals
+    emit(warm_out)
+    for B in (FIT_CONFIG["slq_probes"] + 1, 1, FIT_CONFIG["slq_probes"]):
+        for name in ROUTE_KERNELS[routed(FIT_SHAPE["n"], FIT_SHAPE["m"], B)]:
+            check(warm_totals[name] > 0, f"the warm path never launched "
+                  f"{name}, the route of B = {B}")
+    del warm_out
+    torch.cuda.empty_cache()
+
+    # Main path 4, the batched dense path (fit_batch, posterior_batch): no
+    # MVM kernel, which the phase checks.
+    emit(phase_batch())
+    torch.cuda.empty_cache()
+
+    # Main path 5, the distributed engine in an NCCL group of one rank.
     rendezvous = init_process_group("nccl")
     reset_launch_counts()
     dist_out = phase_distributed(n=8192, m=64, d=7, n_new=256,
@@ -1729,7 +2089,7 @@ def main() -> None:
     del serve_answers
     torch.cuda.empty_cache()
 
-    # Main path 4, the Gram op.
+    # Main path 6, the Gram op.
     reset_launch_counts()
     gram_out = phase_gram()
     gram_totals = launch_counts()
@@ -1741,7 +2101,7 @@ def main() -> None:
     emit({"phase": "routes_used", "buckets": route_rows()})
 
     csrc = "src/repro_torch/kernels/csrc/"
-    main_paths = {k: serve_launches[k] + fit_totals[k]
+    main_paths = {k: serve_launches[k] + fit_totals[k] + warm_totals[k]
                   for k in ("lk_mvm_fused", "lk_mvm_stage_right",
                             "lk_mvm_stage_left")}
     emit({"kernels": [

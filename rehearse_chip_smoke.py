@@ -6,6 +6,8 @@
     python3 rehearse_chip_smoke.py distributed --n 300
     python3 rehearse_chip_smoke.py gram
     python3 rehearse_chip_smoke.py routes
+    python3 rehearse_chip_smoke.py warm --n 300
+    python3 rehearse_chip_smoke.py batch
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -87,11 +89,11 @@ def _cpu_time_ms(fn, **_):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phase", choices=("fit", "kernels", "distributed",
-                                      "gram", "routes"))
+                                      "gram", "routes", "warm", "batch"))
     ap.add_argument("--n", type=int, default=300,
-                    help="configurations of the fit phase (m=52, d=7), "
-                         "of the distributed phase's serving (m=64, d=7) and "
-                         "of the gram phase")
+                    help="configurations of the fit and warm phases "
+                         "(m=52, d=7), of the distributed phase's serving "
+                         "(m=64, d=7) and of the gram phase")
     args = ap.parse_args()
     _patch_cuda_for_cpu()
     _patch_port_for_cpu()
@@ -129,6 +131,15 @@ def main() -> None:
         print(json.dumps(out))
     elif args.phase == "routes":
         print(json.dumps(cs.phase_routes()))
+    elif args.phase == "warm":
+        cs.reset_launch_counts()
+        out = cs.phase_warm(n=args.n, m=52, d=7, n_new=32)
+        out["launches"] = cs.launch_counts()
+        for row in out["steps"]:
+            row.pop("cg_iters", None)
+        print(json.dumps(out))
+    elif args.phase == "batch":
+        print(json.dumps(cs.phase_batch()))
     else:
         cs.KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
                             (17, 40, 52)]

@@ -10,7 +10,10 @@ What is ported so far is the path that fits a model and serves it:
 
     fit(X, t, Y, mask, config)  ->  posterior(state)  ->  .mean / .samples / .final
 
-(or ``state_from_reference(...)`` in place of ``fit``) through the
+(or ``state_from_reference(...)`` in place of ``fit``), its warm-start family
+(``extend`` / ``refit`` / the fixed-budget polish; ``fit_batch`` ->
+``posterior_batch`` for batches of small tasks) and the data layer
+(``repro_torch.data``), through the
 ``dense``, ``iterative``, ``cuda`` and ``distributed`` inference engines. On
 the ``cuda`` engine every CG iteration of the fit's marginal likelihood and
 of the posterior solves is one sweep of the hand-written latent-Kronecker

@@ -4,7 +4,9 @@ the port, as plain numpy arrays.
 This module needs nothing of the reference implementation: the caller turns
 a reference state into numpy (``np.asarray`` on each field) and its config
 into a dict (``dataclasses.asdict``), and reads the port's parameters back
-with :func:`params_to_numpy`.
+with :func:`params_to_numpy`. A batched state (the reference's
+``fit_batch``: every array with a leading task axis) crosses the same way,
+and is served by :func:`repro_torch.core.posterior.posterior_batch`.
 """
 from __future__ import annotations
 
@@ -27,17 +29,20 @@ _PARAM_FIELDS = LKGPParams._fields
 def params_from_numpy(arrays: Mapping[str, Any], *,
                       dtype: torch.dtype = torch.float64,
                       device=None) -> LKGPParams:
-    """Build :class:`LKGPParams` from a mapping of its four raw fields."""
+    """Build :class:`LKGPParams` from a mapping of its four raw fields:
+    ``raw_x_lengthscale`` of shape (d,) and three scalars, or, for a batch
+    of B tasks, (B, d) and three (B,) arrays."""
     dev = resolve_device(device)
     missing = [f for f in _PARAM_FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"params arrays are missing {missing}")
     fields = {f: torch.as_tensor(np.asarray(arrays[f]), dtype=dtype, device=dev)
               for f in _PARAM_FIELDS}
-    if fields["raw_x_lengthscale"].ndim != 1:
-        raise ValueError("raw_x_lengthscale must have shape (d,)")
+    lead = tuple(fields["raw_x_lengthscale"].shape[:-1])
+    if len(lead) > 1 or fields["raw_x_lengthscale"].ndim == 0:
+        raise ValueError("raw_x_lengthscale must have shape (d,) or (B, d)")
     for f in _PARAM_FIELDS[1:]:
-        fields[f] = fields[f].reshape(())
+        fields[f] = fields[f].reshape(lead)
     return LKGPParams(**fields)
 
 
@@ -68,6 +73,10 @@ def state_from_reference(arrays: Mapping[str, Any],
     ``t_tf.log_t1`` / ``t_tf.log_tm`` and ``y_tf.shift`` / ``y_tf.scale``.
     ``config`` is a dict of ``LKGPConfig`` fields (unknown keys are an
     error). ``device=None`` means the GPU.
+
+    A batched state (B tasks) has ``X`` (B, n, d), ``t`` (B, m), ``Y`` and
+    ``mask`` (B, n, m), parameters as :func:`params_from_numpy` takes them,
+    and every transform field with the leading B axis.
     """
     dev = resolve_device(device)
     if config is None:
@@ -90,13 +99,20 @@ def state_from_reference(arrays: Mapping[str, Any],
          if f"params.{f}" in arrays},
         dtype=dtype, device=dev)
     X, t, Y, mask = tensor("X"), tensor("t"), tensor("Y"), tensor("mask")
-    n, d = X.shape
-    m = t.shape[0]
-    if Y.shape != (n, m) or mask.shape != (n, m):
-        raise ValueError(f"Y and mask must have shape {(n, m)}, got "
+    if X.ndim not in (2, 3):
+        raise ValueError(f"X must have shape (n, d) or (B, n, d), got "
+                         f"{tuple(X.shape)}")
+    *lead, n, d = X.shape
+    lead = tuple(lead)
+    m = t.shape[-1]
+    if tuple(t.shape) != lead + (m,):
+        raise ValueError(f"t must have shape {lead + (m,)}, got "
+                         f"{tuple(t.shape)}")
+    if Y.shape != lead + (n, m) or mask.shape != lead + (n, m):
+        raise ValueError(f"Y and mask must have shape {lead + (n, m)}, got "
                          f"{tuple(Y.shape)} and {tuple(mask.shape)}")
-    if params.raw_x_lengthscale.shape != (d,):
-        raise ValueError(f"raw_x_lengthscale must have shape {(d,)}")
+    if params.raw_x_lengthscale.shape != lead + (d,):
+        raise ValueError(f"raw_x_lengthscale must have shape {lead + (d,)}")
     return LKGPState(
         params=params, X=X, t=t, Y=Y, mask=mask,
         x_tf=XTransform(lo=tensor("x_tf.lo"), hi=tensor("x_tf.hi")),

@@ -43,6 +43,7 @@ from typing import Callable, Protocol, runtime_checkable
 
 import torch
 
+from .caching import LRUCache
 from .mvm import kron_dense, lk_mvm
 from .slq import slq_logdet
 from .solvers import CGResult, StackedSolveResult, resolve_solver
@@ -56,6 +57,7 @@ __all__ = [
     "DegradedSolveError", "solve_tally", "KernelMVMFunction",
     "KernelOperator", "KernelMVM", "DistributedEngine",
     "DistributedOperator", "mll_cholesky", "make_mll", "make_mll_iterative",
+    "engine_cache_stats",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -144,8 +146,19 @@ def register_engine(name: str):
     return deco
 
 
-_ENGINE_SINGLETONS: dict[str, "InferenceEngine"] = {}
+# Bounded and instrumented like the objective caches it keys (see
+# core.state): the cap is far above the four registered engines, so nothing
+# is evicted in practice. An eviction would mint a new engine identity and
+# miss every cached objective keyed on the old one, which the counters make
+# visible.
+_ENGINE_SINGLETONS: LRUCache = LRUCache(16)
 _ENGINE_LOCK = threading.Lock()
+
+
+def engine_cache_stats() -> dict:
+    """Hit/miss/eviction counters of the engine singleton map."""
+    with _ENGINE_LOCK:
+        return _ENGINE_SINGLETONS.stats()
 
 
 def get_engine(name: str, **kwargs) -> "InferenceEngine":

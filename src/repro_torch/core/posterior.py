@@ -1,7 +1,9 @@
 """Lazy posterior over the latent grid, behind one ``PosteriorLike`` API.
 
-Counterpart of ``repro.core.posterior`` (the lazy :class:`Posterior`; the
-batched exact posterior is not ported yet).
+Counterpart of ``repro.core.posterior``: the lazy, engine-backed
+:class:`Posterior` and the exact dense :class:`BatchedPosterior` over a batch
+of tasks (from :func:`~repro_torch.core.state.fit_batch` or
+:func:`~repro_torch.core.state.stack_states`).
 
 A :class:`Posterior` is cheap to construct: nothing is computed until a
 property is read. The expensive CG solve of ``alpha = K^{-1} (Y * mask)``
@@ -24,6 +26,12 @@ Caching is *state-keyed*: :func:`posterior` attaches the lazy posterior to
 the state instance itself, so repeated ``posterior(state)`` calls on an
 unchanged state return the SAME object and reuse its resident solves.
 
+:class:`BatchedPosterior` computes each task with one single-task function
+called once per task, and stacks the results: a task's mean and exact final
+values are then the same bits whatever batch it came in (the serving
+guarantee that per-request equals coalesced), because no library call sees
+the batch size.
+
 Randomness: where the reference takes a PRNG key, this module takes a
 ``torch.Generator`` on the state's device. The default sample stream and
 ``final()``'s fallback stream are two distinct generators seeded from
@@ -41,9 +49,11 @@ from .._device import check_on_device, resolve_device
 from . import gp_kernels as gk
 from .engines import get_engine
 from .matheron import kronecker_correction, prior_residual_draws
+from .mvm import kron_dense
 from .state import LKGPState, resolve_backend
 
-__all__ = ["PosteriorLike", "Posterior", "posterior", "joint_grams"]
+__all__ = ["PosteriorLike", "Posterior", "posterior", "joint_grams",
+           "BatchedPosterior", "posterior_batch"]
 
 
 @runtime_checkable
@@ -274,6 +284,7 @@ class Posterior:
 # solves with it. The lock only guards the get-or-create so concurrent
 # serving threads share one posterior.
 _CACHE_ATTR = "_posterior_cache"
+_BATCH_CACHE_ATTR = "_posterior_batch_cache"
 _CACHE_LOCK = threading.Lock()
 
 
@@ -313,3 +324,224 @@ def posterior(state: LKGPState, Xs=None, engine=None,
     if not cache:
         return Posterior(state, Xs=Xs, engine=engine)
     return _state_cached(state, _CACHE_ATTR, lambda: Posterior(state))
+
+
+# -- batched exact posterior (one single-task call per task) ---------------
+def _task_grams(st: LKGPState):
+    """Transformed data and Grams of one unbatched task (K2 jittered, K1
+    not, as :func:`joint_grams`)."""
+    cfg, p = st.config, st.params
+    Xn, tn, Yn = st.x_tf(st.X), st.t_tf(st.t), st.y_tf(st.Y)
+    m = tn.shape[0]
+    K2 = gk.KERNELS_1D[cfg.t_kernel](
+        tn, tn, torch.exp(p.raw_t_lengthscale), torch.exp(p.raw_outputscale))
+    K2 = K2 + cfg.jitter * torch.eye(m, dtype=K2.dtype, device=K2.device)
+    K1 = gk.rbf_ard(Xn, Xn, torch.exp(p.raw_x_lengthscale))
+    return Yn, K1, K2, torch.exp(p.raw_noise)
+
+
+def _masked_chol(K1, K2, mask, noise):
+    """Kronecker product, its masked noisy matrix's Cholesky factor."""
+    mv = mask.reshape(-1)
+    Kfull = kron_dense(K1, K2)
+    Kd = Kfull * (mv[:, None] * mv[None, :])
+    Kd = Kd + torch.diag(noise * mv + (1.0 - mv))
+    return Kfull, torch.linalg.cholesky(Kd), mv
+
+
+def _reduce_mean(alpha, K1, K2):
+    """``K1 @ alpha @ K2`` as broadcast-multiply and reduce, the reference's
+    form: no GEMM whose tiling could depend on anything but this task."""
+    tmp = (alpha[:, :, None] * K2[None, :, :]).sum(dim=1)        # (n, m)
+    return (K1[:, :, None] * tmp[None, :, :]).sum(dim=1)
+
+
+def _task_products(st: LKGPState):
+    """One task's exact posterior mean (y units) over its grid and exact
+    predictive variance (with noise, y units) of each config's final value:
+    the reference's ``_batched_products_fn`` for one task."""
+    Yn, K1, K2, noise = _task_grams(st)
+    n, m = st.mask.shape
+    _, L, mv = _masked_chol(K1, K2, st.mask, noise)
+    ym = (Yn * st.mask).reshape(-1)
+    # Joint-covariance rows at the final-epoch cells, for the exact final
+    # variance, stacked with ym into ONE multi-column solve.
+    Krhs = ((K1[:, :, None] * K2[:, -1][None, None, :])
+            * st.mask[None]).reshape(n, n * m)
+    sol = torch.cholesky_solve(torch.cat([ym[:, None], Krhs.T], dim=1), L)
+    alpha = (sol[:, 0] * mv).reshape(n, m)
+    mean_t = _reduce_mean(alpha, K1, K2)
+    # var_i = K1[ii] K2[mm] - k_i^T A^{-1} k_i, k_i the masked joint row.
+    quad = (Krhs.T * sol[:, 1:]).sum(dim=0)
+    var_f = (torch.diagonal(K1) * K2[-1, -1] - quad).clamp_min(0.0)
+    return st.y_tf.inverse(mean_t), st.y_tf.inverse_var(var_f + noise)
+
+
+def _task_cov_products(st: LKGPState):
+    """One task's full-grid exact posterior: transformed mean, per-cell
+    predictive variance (y units, with noise) and the Cholesky factor of the
+    latent grid covariance (for joint samples): the reference's
+    ``_batched_cov_fn`` for one task."""
+    Yn, K1, K2, noise = _task_grams(st)
+    n, m = st.mask.shape
+    N = n * m
+    Kfull, L, mv = _masked_chol(K1, K2, st.mask, noise)
+    ym = (Yn * st.mask).reshape(-1)
+    # C = K - Kx A^-1 Kx^T, Kx the cross-covariance with its unobserved
+    # columns zeroed (those rows / columns of A are the identity).
+    Kx = Kfull * mv[None, :]
+    sol = torch.cholesky_solve(torch.cat([ym[:, None], Kx.T], dim=1), L)
+    alpha = (sol[:, 0] * mv).reshape(n, m)
+    mean_t = _reduce_mean(alpha, K1, K2)
+    C = Kfull - Kx @ sol[:, 1:]
+    var_grid = torch.diagonal(C).clamp_min(0.0).reshape(n, m)
+    jitter = st.config.jitter
+    Lc = torch.linalg.cholesky(
+        C + 10.0 * jitter * torch.eye(N, dtype=C.dtype, device=C.device))
+    return mean_t, st.y_tf.inverse_var(var_grid + noise), Lc
+
+
+def _task(state: LKGPState, i: int) -> LKGPState:
+    """Task i of a batched state, every tensor a fresh copy of its own (a
+    slice's offset can steer a library routine to another kernel)."""
+    def take(obj):
+        return type(obj)(*(a[i].clone() for a in obj))
+
+    return LKGPState(params=take(state.params), X=state.X[i].clone(),
+                     t=state.t[i].clone(), Y=state.Y[i].clone(),
+                     mask=state.mask[i].clone(), x_tf=take(state.x_tf),
+                     t_tf=take(state.t_tf), y_tf=take(state.y_tf),
+                     config=state.config)
+
+
+class BatchedPosterior:
+    """Exact dense posterior over a batch of tasks (a state with a leading
+    task axis from :func:`~repro_torch.core.state.fit_batch` or
+    :func:`~repro_torch.core.state.stack_states`).
+
+    Each task is computed by one single-task function (Cholesky of the
+    masked dense matrix, no Matheron MC: the per-task problems this path
+    serves are small), called once per task, and the results stacked, so a
+    task's ``mean`` and exact ``final()`` are bitwise the same at every
+    batch size. The Gram construction matches :func:`joint_grams` (jitter on
+    K2 only), so per-task results agree with :class:`Posterior` on the same
+    task.
+
+    Conforms to :class:`PosteriorLike`: ``variance`` is the exact per-cell
+    predictive variance (B, n, m); ``samples(generator, n_samples)`` draws
+    exact joint posterior functions (s, B, n, m) from each task's dense grid
+    covariance; ``final(generator, n_samples)`` without either returns the
+    exact final variance, with one estimates it from samples plus noise.
+    ``normals`` (shape (B, s, n * m)) replaces the generator's draws, so a
+    test can hand the reference's across. ``solve_info`` is None.
+    """
+
+    def __init__(self, state: LKGPState):
+        if state.X.ndim != 3:
+            raise ValueError("BatchedPosterior expects a batched state from "
+                             "fit_batch or stack_states; got X of shape "
+                             f"{tuple(state.X.shape)}")
+        self._state = state
+
+    @property
+    def solve_info(self):
+        """None: the exact dense path reports no iterative diagnostics."""
+        return None
+
+    @cached_property
+    def _tasks(self) -> list[LKGPState]:
+        return [_task(self._state, i) for i in range(self._state.X.shape[0])]
+
+    @cached_property
+    def _products(self):
+        means, vars_ = zip(*(_task_products(st) for st in self._tasks))
+        return torch.stack(means), torch.stack(vars_)
+
+    @cached_property
+    def _cov_products(self):
+        means, vars_, chols = zip(*(_task_cov_products(st)
+                                    for st in self._tasks))
+        return torch.stack(means), torch.stack(vars_), torch.stack(chols)
+
+    @cached_property
+    def _final_exact(self):
+        mean, var = self._products
+        return mean[:, :, -1], var
+
+    @property
+    def mean(self) -> torch.Tensor:
+        """Exact posterior means, (B, n, m), y units."""
+        return self._products[0]
+
+    @property
+    def variance(self) -> torch.Tensor:
+        """Exact per-cell predictive variance (+ noise), (B, n, m), y units."""
+        return self._cov_products[1]
+
+    def samples(self, generator, n_samples: int | None = None, *,
+                normals=None) -> torch.Tensor:
+        """Exact joint posterior samples, (s, B, n, m), y units.
+
+        Drawn from the dense latent grid covariance per task (no observation
+        noise, as :meth:`Posterior.samples`). ``normals`` of shape
+        (B, s, n * m) replaces the draws from ``generator``.
+        """
+        st = self._state
+        n_samples = n_samples or st.config.posterior_samples
+        mean_t, _, Lc = self._cov_products
+        B, n, m = st.Y.shape
+        shape = (B, n_samples, n * m)
+        if normals is None:
+            z = torch.randn(shape, dtype=mean_t.dtype, device=mean_t.device,
+                            generator=generator)
+        else:
+            z = torch.as_tensor(normals, dtype=mean_t.dtype,
+                                device=mean_t.device)
+            if tuple(z.shape) != shape:
+                raise ValueError(f"normals must have shape {shape}, got "
+                                 f"{tuple(z.shape)}")
+        draws = torch.stack([mean_t[b].reshape(1, n * m) + z[b] @ Lc[b].T
+                             for b in range(B)])
+        raw = draws.reshape(B, n_samples, n, m).transpose(0, 1)
+        scale, shift = st.y_tf.scale, st.y_tf.shift
+        return raw * scale[None, :, None, None] + shift[None, :, None, None]
+
+    def final(self, generator=None, n_samples: int | None = None, *,
+              normals=None):
+        """(mean, var) of the final-progression value, each (B, n).
+
+        With no ``generator``, ``n_samples`` or ``normals`` the variance is
+        exact; otherwise it is estimated from joint samples plus noise, as
+        the lazy posterior's Matheron protocol (``generator=None`` then takes
+        the stream ``(config.seed, 2)``).
+        """
+        if generator is None and n_samples is None and normals is None:
+            return self._final_exact
+        mean, _ = self._products
+        st = self._state
+        if generator is None and normals is None:
+            generator = _stream(st.config.seed, 2, st.device)
+        s = self.samples(generator, n_samples, normals=normals)[..., -1]
+        noise = torch.exp(st.params.raw_noise)                    # (B,)
+        var_mc = (s.var(dim=0, unbiased=False)
+                  + (noise * st.y_tf.scale ** 2)[:, None])
+        return mean[:, :, -1], var_mc
+
+
+def posterior_batch(state: LKGPState, cache: bool | None = None, *,
+                    device=None) -> BatchedPosterior:
+    """Batched exact posterior for a batched state.
+
+    ``device=None`` means the GPU (the state must live there). Same
+    state-keyed cache as :func:`posterior`: by default the batched posterior
+    (and its computed products) is shared across calls on the same state
+    object.
+    """
+    check_on_device(resolve_device(device), X=state.X, Y=state.Y,
+                    mask=state.mask, t=state.t)
+    if cache is None:
+        cache = state.config.posterior_cache
+    if not cache:
+        return BatchedPosterior(state)
+    return _state_cached(state, _BATCH_CACHE_ATTR,
+                         lambda: BatchedPosterior(state))

@@ -244,8 +244,9 @@ def test_fit_through_the_kernel_engine_on_the_cpu(task, monkeypatch):
 
 def test_fit_init_options(task):
     """polish_steps=0 returns the init bitwise with one evaluation; explicit
-    params, params0 and the reference's precedence; the paths not ported
-    raise NotImplementedError naming their ROADMAP items."""
+    params, params0 and the reference's precedence; polish_steps > 0 (as an
+    argument or from the config) runs the fixed-budget polish; the amortized
+    init, not ported, raises NotImplementedError naming its ROADMAP item."""
     cfg = LKGPConfig(backend="dense", lbfgs_iters=3)
     p0 = init_params(D, device="cpu")
     s0 = fit(task.X, task.t, task.Y, task.mask, cfg, polish_steps=0,
@@ -268,16 +269,20 @@ def test_fit_init_options(task):
     with pytest.raises(ValueError, match="unknown init"):
         fit(task.X, task.t, task.Y, task.mask, cfg, init="nope", device="cpu")
     for kw, item in ((dict(init="amortized"), "item 13"),
-                     (dict(amortizer=object()), "item 13"),
-                     (dict(polish_steps=3), "item 6")):
+                     (dict(amortizer=object()), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             fit(task.X, task.t, task.Y, task.mask, cfg, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 13"):
         fit(task.X, task.t, task.Y, task.mask,
             LKGPConfig(backend="dense", hyper_init="amortized"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fit(task.X, task.t, task.Y, task.mask,
-            LKGPConfig(backend="dense", polish_steps=2), device="cpu")
+    for state in (fit(task.X, task.t, task.Y, task.mask, cfg, polish_steps=3,
+                      device="cpu"),
+                  fit(task.X, task.t, task.Y, task.mask,
+                      LKGPConfig(backend="dense", polish_steps=3),
+                      device="cpu")):
+        res = state.fit_result
+        assert (res.optimizer, res.n_iters, res.n_evals, res.budget) == \
+            ("polish", 3, 13, 3)
 
 
 def test_fit_validates_observations(task):

@@ -48,7 +48,9 @@ def test_port_has_the_modules_of_this_slice():
                 "kernels/lk_mvm", "kernels/gram", "kernels/ops",
                 "kernels/budget", "kernels/autotune",
                 "distributed/__init__", "distributed/lkgp_dist",
-                "data/curves"):
+                "data/curves", "core/caching", "core/polish", "core/lkgp",
+                "data/transforms", "data/lcbench", "data/sources",
+                "data/__init__"):
         assert f"src/repro_torch/{mod}.py" in have
     for src in KERNEL_SOURCES:
         assert (PORT / "kernels" / "csrc" / src).is_file()
@@ -119,6 +121,9 @@ def test_build_directory_is_git_ignored():
 
 ENTRY_POINTS = {
     "resolve_device": lambda rt: rt.resolve_device(),
+    "fit_batch": lambda rt: rt.core.fit_batch(*_cpu_batch()),
+    "posterior_batch": lambda rt: rt.core.posterior_batch(
+        rt.core.stack_states([_cpu_state(rt)])),
     "init_params": lambda rt: rt.init_params(4),
     "params_from_numpy": lambda rt: rt.params_from_numpy({}),
     "state_from_reference": lambda rt: rt.state_from_reference({}),
@@ -131,6 +136,11 @@ def _cpu_task():
     from repro_torch.data import sample_task
     task = sample_task(0, n=5, m=4, d=4)
     return task.X, task.t, task.Y, task.mask
+
+
+def _cpu_batch():
+    from repro_torch.data import sample_suite, stack_suite
+    return stack_suite(sample_suite(0, 2, n=5, m=4, d=4))[:4]
 
 
 def _cpu_state(rt):
