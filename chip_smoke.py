@@ -131,11 +131,14 @@ PEAK_BYTES_PER_S = 3.35e12
 KERNEL_TOL = {"f32": 1e-4, "bf16": 2e-2}     # times max|plain|
 # Ragged small shapes, then the shapes the serving path hands the kernel:
 # B = 65 (y and 64 Matheron residuals), 16 (samples on demand), 1 (mean
-# only); and the fit path at n = 2000: B = 17 (y and 16 probes, the stacked
-# solve), 16 (A(probes) in the gradient), 1 (A(alpha)).
+# only); the fit path at n = 2000: B = 17 (y and 16 probes, the stacked
+# solve), 16 (A(probes) in the gradient), 1 (A(alpha)); and the same three
+# at n = 2048, where the warm phase's refit on new configurations and its
+# mean run.
 KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
                  (1, 2000, 52), (16, 2000, 52), (17, 2000, 52),
                  (65, 2000, 52),
+                 (1, 2048, 52), (16, 2048, 52), (17, 2048, 52),
                  (1, 8192, 64), (16, 8192, 64), (65, 8192, 64)]
 TIMED_SHAPES = KERNEL_SHAPES[3:]
 MAIN_SHAPE = (65, 8192, 64)
@@ -1372,8 +1375,9 @@ def phase_warm(n: int, m: int, d: int, n_new: int = 256) -> dict:
     must give the same bits; (3) ``extend`` with every cut-off curve 4 epochs
     longer, ``refit(polish_steps=2)``, ``final()`` held against the
     ``iterative`` engine's; (4) ``extend`` with 48 new configurations,
-    ``refit(polish_steps=2)``, the mean at ``n_new`` new configurations, and
-    the polished parameters scored on the float64 objective."""
+    ``refit(polish_steps=2)``, the mean at ``n_new`` new configurations held
+    against the ``iterative`` engine's, and the polished parameters scored
+    on the float64 objective."""
     task = sample_task(SEED, n=n, m=m, d=d)
     cfg = LKGPConfig(backend="cuda", **FIT_CONFIG)
     cg_tol = cfg.cg_tol
@@ -1479,9 +1483,25 @@ def phase_warm(n: int, m: int, d: int, n_new: int = 256) -> dict:
     check_route(req, n2, m, 1)
     check(mean.shape == (n2 + n_new, m) and bool(torch.isfinite(mean).all()),
           "mean at new configurations after refit")
-    out["steps"].append({"step": "new_configs_mean", "n": n2,
-                         "seconds": req.seconds, "launches": req.by_kernel,
-                         "route": routed(n2, m, 1), **s})
+    st_it = dataclasses.replace(state, config=dataclasses.replace(
+        state.config, backend="iterative"))
+    with Request("new_configs_mean_iterative") as req_it:
+        post_it = posterior(st_it, Xs=Xs, cache=False)
+        mean_it = post_it.mean
+    check(not any(req_it.by_kernel.values()),
+          "the iterative engine launched kernels")
+    scale = float(mean_it.abs().max())
+    gap = float((mean - mean_it).abs().max())
+    tol = MEAN_TOL_VS_ITERATIVE * cg_tol * scale
+    out["steps"].append({
+        "step": "new_configs_mean", "n": n2, "seconds": req.seconds,
+        "launches": req.by_kernel, "route": routed(n2, m, 1), **s,
+        "iterative": {"seconds": req_it.seconds,
+                      "iters": int(post_it.solve_info.iters)},
+        "mean_gap_vs_iterative": gap, "tol": tol, "scale": scale})
+    check(gap <= tol, f"mean at new configurations after refit vs "
+                      f"iterative: gap {gap:.3e} > {tol:.3e}")
+    del post, post_it, st_it
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     return out
 
@@ -1737,6 +1757,8 @@ def phase_distributed(n: int, m: int, d: int, n_new: int,
     normals = default_draws(n, m, s, SEED)
     engine = DistributedEngine()
     torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: peak_memory_bytes includes it
+    out["allocated_at_start_bytes"] = torch.cuda.memory_allocated()
     before = launch_counts()
 
     with Request("final", lk_mvm_fused_rows) as req:

@@ -50,7 +50,7 @@ from . import gp_kernels as gk
 from .engines import get_engine
 from .matheron import kronecker_correction, prior_residual_draws
 from .mvm import kron_dense
-from .state import LKGPState, resolve_backend
+from .state import LKGPState, resolve_backend, unstack
 
 __all__ = ["PosteriorLike", "Posterior", "posterior", "joint_grams",
            "BatchedPosterior", "posterior_batch"]
@@ -401,19 +401,6 @@ def _task_cov_products(st: LKGPState):
     return mean_t, st.y_tf.inverse_var(var_grid + noise), Lc
 
 
-def _task(state: LKGPState, i: int) -> LKGPState:
-    """Task i of a batched state, every tensor a fresh copy of its own (a
-    slice's offset can steer a library routine to another kernel)."""
-    def take(obj):
-        return type(obj)(*(a[i].clone() for a in obj))
-
-    return LKGPState(params=take(state.params), X=state.X[i].clone(),
-                     t=state.t[i].clone(), Y=state.Y[i].clone(),
-                     mask=state.mask[i].clone(), x_tf=take(state.x_tf),
-                     t_tf=take(state.t_tf), y_tf=take(state.y_tf),
-                     config=state.config)
-
-
 class BatchedPosterior:
     """Exact dense posterior over a batch of tasks (a state with a leading
     task axis from :func:`~repro_torch.core.state.fit_batch` or
@@ -450,7 +437,7 @@ class BatchedPosterior:
 
     @cached_property
     def _tasks(self) -> list[LKGPState]:
-        return [_task(self._state, i) for i in range(self._state.X.shape[0])]
+        return unstack(self._state)
 
     @cached_property
     def _products(self):

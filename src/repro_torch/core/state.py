@@ -643,8 +643,10 @@ def _map_state(fn, *states: LKGPState) -> LKGPState:
 
 
 def unstack(state: LKGPState) -> list[LKGPState]:
-    """Split a batched state from :func:`fit_batch` into per-task states."""
-    return [_map_state(lambda a, i=i: a[i], state)
+    """Split a batched state from :func:`fit_batch` into per-task states,
+    every tensor a fresh copy of its own (a slice's offset can steer a
+    library routine to another kernel)."""
+    return [_map_state(lambda a, i=i: a[i].clone(), state)
             for i in range(state.X.shape[0])]
 
 
