@@ -22,6 +22,14 @@ ran through the kernels:
   two-stage kernels K2a + K2b by name (``make_mll_iterative(cfg,
   KernelMVM(fused=True / False))``): every objective evaluation costs the
   stacked solve's CG iterations plus 2 sweeps;
+* the solver stack on the serving state: PCG with the rank-15
+  pivoted-Cholesky preconditioner (``final`` and the mean, every PCG
+  iteration one sweep of the routed kernels, held against CG's answers) and
+  SGD for the mean; the MLL and a 5-iteration fit through PCG at the LCBench
+  shape (PCG iterations + Lanczos sweeps + 2 launches an evaluation); the
+  guarded escalation ladder on cuda operators (a negated operator ending on
+  the dense fallback, a near-singular system, an armed flaky solver, the
+  strict policy, and ``final`` under ``strict`` bit for bit the default's);
 * the freeze-thaw loop at the same shape on the routed ``cuda`` engine:
   ``fit`` with the fixed-budget polish (twice: the same bits), ``extend``
   with more epochs and ``refit``, ``extend`` with new configurations and
@@ -46,7 +54,8 @@ Without a CUDA device the script exits non-zero before printing any result.
 Phases, one JSON line each: device, build (with the budget model against
 the runtime), kernels, reference (the .npz), routes, serve (n=8192, m=64,
 ``final`` and ``mean`` also timed on the float64 ``iterative`` engine),
-serve_lcbench (n=2000, m=52, also against the ``iterative`` engine), exact
+solvers (PCG and SGD on the serve state; the objective through PCG at
+n=2000, m=52; the ladder at n=64, m=32), serve_lcbench (n=2000, m=52, also against the ``iterative`` engine), exact
 (n=24, m=16 against the ``dense`` engine), fit (n=2000, m=52, d=7), warm
 (n=2000 -> 2048, m=52, d=7), batch (16 tasks of n=48, m=20, d=4; the
 fixture), distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
@@ -57,6 +66,7 @@ as ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -80,11 +90,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import torch.distributed as dist  # noqa: E402
 from repro_torch import state_from_reference  # noqa: E402
-from repro_torch.core import (DistributedEngine, LKGPConfig,  # noqa: E402
-                              extend, fit, fit_batch, get_engine,
-                              gram_matrices, init_params, lk_mvm, log_prior,
-                              make_mll, make_mll_iterative, posterior,
-                              posterior_batch, rademacher_probes, refit,
+from repro_torch.core import (DistributedEngine,  # noqa: E402
+                              GuardedSolveError, LKGPConfig,
+                              escalation_tally, extend, fit, fit_batch,
+                              get_engine, gram_matrices, guarded_solve,
+                              init_params, lk_mvm, log_prior, make_mll,
+                              make_mll_iterative, posterior, posterior_batch,
+                              rademacher_probes, refit,
+                              reset_escalation_tally, solve_tally,
                               stack_states, unstack)
 from repro_torch.core.engines import (IterativeEngine,  # noqa: E402
                                       KernelEngine, KernelMVM,
@@ -112,6 +125,8 @@ from repro_torch.kernels.lk_mvm import (  # noqa: E402
     lk_mvm_stage_right, lk_mvm_stage_right_plain, lk_mvm_two_stage,
     lk_mvm_two_stage_plain, TC_COLS, TC_K, TC_ROWS, plan_launch, plan_stream)
 from repro_torch.kernels.ref import lk_mvm_ref  # noqa: E402
+from repro_torch.testing import (NegatedOperator,  # noqa: E402
+                                 arm_flaky_solver, near_singular_problem)
 
 SEED = 0
 DEV = torch.device("cuda", 0)
@@ -134,13 +149,16 @@ KERNEL_TOL = {"f32": 1e-4, "bf16": 2e-2}     # times max|plain|
 # only); the fit path at n = 2000: B = 17 (y and 16 probes, the stacked
 # solve), 16 (A(probes) in the gradient), 1 (A(alpha)); and the same three
 # at n = 2048, where the warm phase's refit on new configurations and its
-# mean run.
+# mean run. The three small buckets after the ragged ones are those only the
+# exact phase (24 x 16) and the escalation ladder (64 x 32, and the
+# near-singular 8 x 6 problem) solve at: checked, not timed.
 KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
+                 (1, 24, 16), (1, 64, 32), (1, 8, 6),
                  (1, 2000, 52), (16, 2000, 52), (17, 2000, 52),
                  (65, 2000, 52),
                  (1, 2048, 52), (16, 2048, 52), (17, 2048, 52),
                  (1, 8192, 64), (16, 8192, 64), (65, 8192, 64)]
-TIMED_SHAPES = KERNEL_SHAPES[3:]
+TIMED_SHAPES = KERNEL_SHAPES[6:]
 MAIN_SHAPE = (65, 8192, 64)
 FIT_MAIN_SHAPE = (17, 2000, 52)
 KERNEL_SOURCES = ("lk_mvm_fused", "lk_mvm_two_stage", "lk_mvm_fused_rows",
@@ -174,10 +192,11 @@ REFERENCE_NPZ = (Path(__file__).resolve().parent / "tests" / "fixtures"
 # Every (n, m, B) the main paths sweep on the cuda engine, whose route the
 # tuner resolves before they run: serve (n=8192, m=64) and serve_lcbench
 # (n=2000, m=52): final() B=65, mean B=1, samples B=16; fit (n=2000, m=52):
-# the stacked solve B=17, A(probes) B=16, A(alpha) B=1; exact (24, 16, 1).
+# the stacked solve B=17, A(probes) B=16, A(alpha) B=1; exact (24, 16, 1);
+# the solvers phase's ladder (64, 32, 1) and near-singular system (8, 6, 1).
 ROUTE_SHAPES = [(8192, 64, 65), (8192, 64, 1), (8192, 64, 16),
                 (2000, 52, 65), (2000, 52, 1), (2000, 52, 16),
-                (2000, 52, 17), (24, 16, 1)]
+                (2000, 52, 17), (24, 16, 1), (64, 32, 1), (8, 6, 1)]
 # The wrappers each route launches per sweep.
 ROUTE_KERNELS = {"fused": ("lk_mvm_fused",),
                  "two_stage": ("lk_mvm_stage_right", "lk_mvm_stage_left")}
@@ -211,6 +230,19 @@ def emit(obj) -> None:
 def check(cond, message: str) -> None:
     if not cond:
         raise AssertionError(message)
+
+
+@contextlib.contextmanager
+def unescalated(phase: str):
+    """No solve of the block escalates: the ladder's tally is zero at its
+    end. A solve the ladder rescued (a jitter retry, another solver, the
+    dense fallback on a small grid) can return the right answer from a
+    failing kernel, so outside the ladder's own checks that is a failure."""
+    reset_escalation_tally()
+    yield
+    tally = escalation_tally()
+    check(not any(tally.values()), f"{phase}: the escalation ladder ran: "
+          f"{tally}")
 
 
 def nvidia_smi_line() -> str:
@@ -893,9 +925,13 @@ def check_solve(post, req: Request, cg_tol: float) -> dict:
     """Diagnostics of the request's CG solve: every column's TRUE residual
     ||b - A x|| / ||b||, taken through the float64 MVM, held to cg_tol. Every
     iteration is one sweep of the kernel; the true residuals (start, end,
-    ``replacements``) are the only sweeps that are not."""
+    ``replacements``) are the only sweeps that are not. The solve must be
+    healthy on its first attempt: a one-step trace (an escalated solve can
+    end on the dense fallback, whose answer hides a failing kernel)."""
     info = post.solve_info
     check(info is not None, f"{req.name}: no solve diagnostics")
+    check(info.trace is not None and [(s.stage, s.ok) for s in info.trace]
+          == [("attempt", True)], f"{req.name}: escalated, trace {info.trace}")
     worst = float(info.rel_residual.max())
     check(not bool(info.breakdown.any()), f"{req.name}: CG breakdown")
     check(worst <= cg_tol, f"{req.name}: residual {worst:.3e} > {cg_tol}")
@@ -1084,12 +1120,15 @@ def phase_exact() -> dict:
     with Request("exact") as req:
         post = posterior(state)
         got = post.mean
-    check_solve(post, req, cg_tol)
+    iters = check_solve(post, req, cg_tol)["iters"]
+    check(req.launches == iters,
+          f"exact: {req.launches} sweeps for {iters} CG iterations")
     ref = posterior(dense).mean
     rel = float((got - ref).abs().max() / ref.abs().max())
     check(rel <= 1e-2, f"cuda vs dense mean: relative gap {rel:.3e} > 1e-2")
     return {"phase": "exact", "n": n, "m": m, "cg_tol": cg_tol,
-            "rel_gap_vs_dense": rel, "tol": 1e-2, "launches": req.launches}
+            "rel_gap_vs_dense": rel, "tol": 1e-2, "launches": req.launches,
+            "iters": iters}
 
 
 def solve_summary(res) -> dict:
@@ -1139,16 +1178,18 @@ class LoggedKernelMVM(KernelMVM):
 
 
 def evaluation_launches(n: int, m: int, iters: list[int],
-                        route: str = "cuda") -> dict:
+                        route: str = "cuda", lanczos: int = 0) -> dict:
     """Launches of each kernel over MLL evaluations whose stacked solves
-    took ``iters`` CG iterations: per evaluation, one sweep per iteration
-    at B = slq_probes + 1 and two in the gradient (A(alpha) at B = 1,
-    A(probes) at B = slq_probes), each on the route named or, for "cuda",
-    the tuner's route of its bucket."""
+    took ``iters`` CG (or PCG) iterations: per evaluation, one sweep per
+    iteration at B = slq_probes + 1, ``lanczos`` Lanczos sweeps at B =
+    slq_probes (the separate SLQ of a PCG solve, which fuses no log-det; 0
+    for CG) and two in the gradient (A(alpha) at B = 1, A(probes) at B =
+    slq_probes), each on the route named or, for "cuda", the tuner's route
+    of its bucket."""
     probes = FIT_CONFIG["slq_probes"]
     out = {}
     for B, count in ((probes + 1, sum(iters)), (1, len(iters)),
-                     (probes, len(iters))):
+                     (probes, (1 + lanczos) * len(iters))):
         r = routed(n, m, B) if route == "cuda" else route
         for name in ROUTE_KERNELS[r]:
             out[name] = out.get(name, 0) + count
@@ -1288,6 +1329,367 @@ def phase_fit(n: int, m: int, d: int) -> dict:
               f"fit via {backend}: objective {res.fun} not below the "
               f"init's {f_init}")
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+# The solvers phase: PCG (the rank-15 pivoted-Cholesky preconditioner, the
+# reference's _DEFAULT_PCG_RANK and benchmarks/bench_scaling.py's rank) and
+# SGD (500 sweeps, the reference's default) on the serve phase's state
+# (n=8192, m=64, d=7, float64, routed cuda, cg_tol=0.01), the objective
+# through PCG at the fit phase's shape (depth cut: 5 L-BFGS iterations), and
+# the escalation ladder on cuda operators.
+SOLVER_PCG_RANK = 15
+SOLVER_SGD_ITERS = 500
+SOLVER_POWER_SWEEPS = 8     # sgd_solve's lr_iters: power-iteration sweeps
+SOLVER_FIT_LBFGS_ITERS = 5
+LADDER_SHAPE = dict(n=64, m=32, d=7)   # 2048 cells <= guard_dense_max
+LADDER_DENSE_TOL = 1e-10   # dense fallback vs the dense engine, relative
+
+
+def phase_solvers(n: int, m: int, d: int, n_new: int,
+                  reference: dict | None = None) -> dict:
+    """PCG and SGD on the card at full width, beside CG on the same state.
+
+    (1) PCG with ``precond_rank=15`` on the serve state: the pivoted
+    Cholesky's build time and bytes, then ``final()`` (B = 65) and the mean
+    at ``n_new`` new configurations (B = 1), each a PCG solve whose every
+    iteration is one sweep of the routed kernels (true residuals and the
+    preconditioner run no kernel), held against the serve phase's CG
+    answers (``reference``; recomputed when absent) by the
+    MEAN_TOL_VS_ITERATIVE rule. (2) SGD (``solver="sgd"``, 500 sweeps) for
+    the mean: launches = its sweeps + 8 power-iteration sweeps + 1 (the
+    start residual); a finite float64 residual, no breakdown (not reaching
+    cg_tol in 500 sweeps is allowed, as in the reference). (3) The MLL value
+    and gradient through PCG at the fit phase's shape (separate Lanczos SLQ)
+    against the CG objective on the same probes, then ``fit`` with 5 L-BFGS
+    iterations through PCG: launches per evaluation = PCG iterations +
+    slq_iters Lanczos sweeps + 2. (4) The ladder on cuda operators: a
+    negated operator ends on the dense fallback with the dense engine's
+    answer, ``near_singular_problem`` ends healthy, the armed flaky solver
+    costs one extra attempt, ``strict`` raises with a one-step trace, and
+    ``final()`` at n=8192 under ``strict`` is the serve phase's (escalate)
+    bit for bit."""
+    t_phase = time.perf_counter()
+    cfg = dict(backend="cuda", posterior_samples=64, seed=SEED)
+    state = make_state(SEED, n, m, d, **cfg)
+    cg_tol = state.config.cg_tol
+    rng = np.random.default_rng(SEED + 1)
+    Xs = rng.uniform(0, 1, (n_new, d))
+    if reference is None:
+        reference = {"final": posterior(state, cache=False).final(),
+                     "new_configs_mean": posterior(state, Xs=Xs,
+                                                   cache=False).mean}
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "solvers", "n": n, "m": m, "d": d, "dtype": "float64",
+           "backend": "cuda", "cg_tol": cg_tol,
+           "allocated_at_start_bytes": start_memory()}
+
+    # (1) PCG. The factor alone first, what every PCG request builds: on two
+    # operators, the first build paying any one-time library set-up.
+    pcg = dataclasses.replace(state, config=dataclasses.replace(
+        state.config, precond_rank=SOLVER_PCG_RANK))
+    K1a, K2 = joint_grams(state)
+    builds = []
+    before = launch_counts()
+    for _ in range(2):
+        A = get_engine("cuda").operator_from_grams(
+            K1a[:n, :n], K2, state.mask, torch.exp(state.params.raw_noise))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A.preconditioner(SOLVER_PCG_RANK)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+    out["precond"] = {"rank": SOLVER_PCG_RANK, "build_seconds": builds,
+                      "L_bytes": n * m * SOLVER_PCG_RANK * 8}
+    check(not any(launch_counts(since=before).values()),
+          "building the preconditioner launched an MVM kernel")
+    del A, K1a, K2
+    normals = default_draws(n, m, pcg.config.posterior_samples, SEED)
+    out["pcg"] = []
+    for request, B in (("final", 65), ("new_configs_mean", 1)):
+        with Request(f"pcg_{request}") as req:
+            if request == "final":
+                post = posterior(pcg, cache=False)
+                mean, var = post.final()
+            else:
+                post = posterior(pcg, Xs=Xs, cache=False)
+                mean = post.mean
+        info = post.solve_info
+        iters = int(info.iters)
+        check(post.solve_count == 1, f"pcg {request}: one solve")
+        check([(s.stage, s.solver, s.ok) for s in info.trace]
+              == [("attempt", "pcg", True)],
+              f"pcg {request}: trace {info.trace}")
+        check(not bool(info.breakdown.any()), f"pcg {request}: breakdown")
+        check(req.launches == iters,
+              f"pcg {request}: {req.launches} sweeps for {iters} PCG "
+              "iterations")
+        check_route(req, n, m, B)
+        if request == "final":
+            rel64 = float64_residuals(pcg, info.x, normals)
+            want, want_var = reference["final"]
+        else:
+            b = (pcg.y_tf(pcg.Y) * pcg.mask)[None]
+            r = b - post._operator.accurate(info.x)
+            rel64 = (torch.linalg.vector_norm(r, dim=(-2, -1))
+                     / torch.linalg.vector_norm(b, dim=(-2, -1)))
+            want = reference["new_configs_mean"]
+        check(bool(torch.isfinite(mean).all()), f"pcg {request}: values")
+        scale = float(want.abs().max())
+        row = {"request": request, "seconds": req.seconds,
+               "launches": req.by_kernel, "iters": iters,
+               "replacements": info.replacements,
+               "columns": int(info.rel_residual.numel()),
+               "route": routed(n, m, B),
+               "pcg_rel_residual": float(info.rel_residual.max()),
+               "float64_rel_residual": float(rel64.max()),
+               "mean_gap_vs_cg": float((mean - want).abs().max()),
+               "tol": MEAN_TOL_VS_ITERATIVE * cg_tol * scale, "scale": scale}
+        if request == "final":
+            row["var_gap_vs_cg"] = float((var - want_var).abs().max())
+        out["pcg"].append(row)
+        check(row["pcg_rel_residual"] <= cg_tol
+              and row["float64_rel_residual"] <= cg_tol,
+              f"pcg {request}: residual {row['pcg_rel_residual']:.3e}, "
+              f"float64 {row['float64_rel_residual']:.3e} > {cg_tol}")
+        check(abs(row["float64_rel_residual"] - row["pcg_rel_residual"])
+              <= 1e-6 * row["pcg_rel_residual"],
+              f"pcg {request}: its residual is not the float64 one")
+        check(row["mean_gap_vs_cg"] <= row["tol"],
+              f"pcg {request} vs cg: gap {row['mean_gap_vs_cg']:.3e} > "
+              f"{row['tol']:.3e}")
+        del post, info, rel64
+
+    # (2) SGD for the mean at the new configurations
+    sgd = dataclasses.replace(state, config=dataclasses.replace(
+        state.config, solver="sgd", sgd_iters=SOLVER_SGD_ITERS))
+    with Request("sgd_new_configs_mean") as req:
+        post = posterior(sgd, Xs=Xs, cache=False)
+        mean = post.mean
+    info = post.solve_info
+    iters = int(info.iters)
+    want = reference["new_configs_mean"]
+    out["sgd"] = {"request": "new_configs_mean", "seconds": req.seconds,
+                  "iters": iters, "power_iteration_sweeps":
+                  SOLVER_POWER_SWEEPS, "launches": req.by_kernel,
+                  "float64_rel_residual": float(info.rel_residual.max()),
+                  "trace": [s._asdict() for s in info.trace],
+                  "mean_gap_vs_cg": float((mean - want).abs().max()),
+                  "scale": float(want.abs().max())}
+    check(np.isfinite(out["sgd"]["float64_rel_residual"])
+          and not bool(info.breakdown.any())
+          and bool(torch.isfinite(mean).all()),
+          f"sgd: residual {out['sgd']['float64_rel_residual']}, breakdown "
+          f"{info.breakdown.tolist()}")
+    check(req.launches == iters + SOLVER_POWER_SWEEPS + 1,
+          f"sgd: {req.launches} sweeps for {iters} iterations + "
+          f"{SOLVER_POWER_SWEEPS} power sweeps + 1")
+    check_route(req, n, m, 1)
+    del post, info
+
+    # (4, last request at n=8192) final() under strict: the serve phase's
+    # answer (escalate, the default) bit for bit, a one-step trace
+    strict = dataclasses.replace(state, config=dataclasses.replace(
+        state.config, solve_policy="strict"))
+    with Request("strict_final") as req:
+        post = posterior(strict, cache=False)
+        mean, var = post.final()
+    want, want_var = reference["final"]
+    out["strict_final"] = {"seconds": req.seconds,
+                           "iters": int(post.solve_info.iters),
+                           "trace": [s._asdict()
+                                     for s in post.solve_info.trace],
+                           "bitwise_equal_to_escalate": bool(
+                               torch.equal(mean, want)
+                               and torch.equal(var, want_var))}
+    check(out["strict_final"]["bitwise_equal_to_escalate"],
+          "final() under strict differs from escalate")
+    check([(s.stage, s.ok) for s in post.solve_info.trace]
+          == [("attempt", True)], "strict final(): trace")
+    del post, mean, var, state, pcg, sgd, strict, reference
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+
+    out["objective"] = solver_objective(**FIT_SHAPE)
+    tally = escalation_tally()
+    check(not any(tally.values()), f"solvers: the ladder ran before its own "
+          f"checks: {tally}")
+    out["ladder"] = ladder_checks()
+    out["escalation_tally"] = escalation_tally()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def solver_objective(n: int, m: int, d: int) -> dict:
+    """The MLL value and gradient through PCG (``precond_rank=15``, SLQ by
+    separate Lanczos sweeps) against the CG objective on the same probes,
+    both on the routed cuda engine, then ``fit`` through PCG."""
+    task = sample_task(SEED, n=n, m=m, d=d)
+    cfg = LKGPConfig(backend="cuda", lbfgs_iters=SOLVER_FIT_LBFGS_ITERS,
+                     **FIT_CONFIG)
+    cfg_pcg = dataclasses.replace(cfg, precond_rank=SOLVER_PCG_RANK)
+    X, t, Y, mask = (torch.as_tensor(a, device=DEV)
+                     for a in (task.X, task.t, task.Y, task.mask))
+    Y = torch.where(mask > 0, Y, torch.zeros_like(Y))
+    x_tf, t_tf, y_tf = _fit_transforms(X, t, Y, mask)
+    data = (x_tf(X), t_tf(t), y_tf(Y), mask)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(cfg.seed)
+    probes = rademacher_probes(gen, cfg.slq_probes, mask, torch.float64)
+    flat0 = _flatten_params(init_params(d, device=DEV))
+    out = {"n": n, "m": m, "d": d, "precond_rank": SOLVER_PCG_RANK,
+           "mll": {}}
+    values = {}
+    for name, c in (("cg", cfg), ("pcg", cfg_pcg)):
+        engine = LoggedKernelEngine()
+        mll = make_mll(c, engine)
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        x = flat0.clone().requires_grad_()
+        v = mll(_unflatten_params(x, d), *data, probes)
+        (g,) = torch.autograd.grad(v, x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts(since=before)
+        (solve,) = engine.solves
+        lanczos = c.slq_iters if name == "pcg" else 0
+        want = evaluation_launches(n, m, [solve["iters"]], lanczos=lanczos)
+        for k, count in launches.items():
+            check(count == want.get(k, 0),
+                  f"mll via {name}: {count} launches of {k}, expected "
+                  f"{want.get(k, 0)} ({solve['iters']} iterations + "
+                  f"{lanczos} Lanczos sweeps + 2)")
+        values[name] = (float(v.detach()), g)
+        out["mll"][name] = {"value": values[name][0], "seconds": seconds,
+                            "iters": solve["iters"],
+                            "replacements": solve["replacements"],
+                            "worst_rel_residual": solve["worst_rel_residual"],
+                            "launches": launches}
+        check(np.isfinite(values[name][0]) and bool(torch.isfinite(g).all()),
+              f"mll via {name} not finite")
+    (v_cg, g_cg), (v, g) = values["cg"], values["pcg"]
+    row = out["mll"]["pcg"]
+    row.update(value_gap=abs(v - v_cg) / abs(v_cg),
+               grad_gap=float((g - g_cg).abs().max() / g_cg.abs().max()),
+               value_tol=MLL_VALUE_TOL * cfg.cg_tol,
+               grad_tol=MLL_GRAD_TOL * cfg.cg_tol)
+    check(row["value_gap"] <= row["value_tol"],
+          f"mll via pcg: value {v} vs cg {v_cg}")
+    check(row["grad_gap"] <= row["grad_tol"],
+          f"mll via pcg: gradient off by {row['grad_gap']:.3e}")
+
+    engine = LoggedKernelEngine()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    state = fit(task.X, task.t, task.Y, task.mask, cfg_pcg, engine=engine)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(since=before)
+    res = state.fit_result
+    iters = [sv["iters"] for sv in engine.solves]
+    check(len(iters) == res.n_evals,
+          f"fit via pcg: {len(iters)} solves, {res.n_evals} evaluations")
+    want = evaluation_launches(n, m, iters, lanczos=cfg.slq_iters)
+    for k, count in launches.items():
+        check(count == want.get(k, 0), f"fit via pcg: {count} launches of "
+              f"{k}, expected {want.get(k, 0)}")
+    out["fit"] = {"seconds": seconds, "n_iters": res.n_iters,
+                  "n_evals": res.n_evals, "fun": res.fun,
+                  "pcg_iters_per_eval": statistics.mean(iters),
+                  "pcg_iters_total": sum(iters),
+                  "worst_rel_residual": max(sv["worst_rel_residual"]
+                                            for sv in engine.solves),
+                  "launches": launches}
+    # the init's objective, from its MLL through PCG above
+    f_init = -(v + float(log_prior(_unflatten_params(flat0, d), d))) \
+        / float(mask.sum())
+    out["fit"]["f_init"] = f_init
+    check(np.isfinite(res.fun) and res.fun < f_init,
+          f"fit via pcg: objective {res.fun} not below the init's {f_init}")
+    return out
+
+
+def ladder_checks() -> dict:
+    """The escalation ladder on cuda operators (float32 sweeps, float64
+    ``accurate``), each fault ending on the rung the reference's test
+    names, and the tally of escalations equal to the steps of these traces
+    (nothing else escalated)."""
+    reset_escalation_tally()
+    n, m, d = LADDER_SHAPE["n"], LADDER_SHAPE["m"], LADDER_SHAPE["d"]
+    state = make_state(SEED + 5, n, m, d, backend="cuda")
+    K1a, K2 = joint_grams(state)
+    factors = (K1a[:n, :n], K2, state.mask, torch.exp(state.params.raw_noise))
+    A = get_engine("cuda").operator_from_grams(*factors)
+    b = state.y_tf(state.Y) * state.mask
+    D = get_engine("dense").operator_from_grams(*factors)
+    want = get_engine("dense").solve(D, b, state.config)
+    cfg = state.config
+    out = {"n": n, "m": m, "cells": n * m,
+           "guard_dense_max": cfg.guard_dense_max}
+
+    def steps(trace):
+        return [(s.stage, s.solver, s.ok) for s in trace]
+
+    with Request("negated") as req:
+        res = guarded_solve(NegatedOperator(A), b, cfg)
+    gap = float((res.x - want).abs().max() / want.abs().max())
+    out["negated"] = {"trace": steps(res.trace), "gap_vs_dense": gap,
+                      "tol": LADDER_DENSE_TOL, "launches": req.launches}
+    # the iterative rungs ran on the kernel before the fallback took over
+    check(res.trace[-1].stage == "dense_fallback" and res.trace[-1].ok
+          and not res.trace[0].ok and req.launches > 0,
+          f"negated: trace {res.trace}, {req.launches} sweeps")
+    check(gap <= LADDER_DENSE_TOL, f"negated: {gap:.3e} off the dense engine")
+
+    K1, K2n, mask, Y, noise = near_singular_problem(device=DEV)
+    with Request("near_singular") as req:
+        res = guarded_solve(get_engine("cuda").operator_from_grams(
+            K1, K2n, mask, noise), Y, cfg)
+    out["near_singular"] = {"trace": steps(res.trace),
+                            "rel_residual": float(res.rel_residual.max()),
+                            "iters": int(res.iters),
+                            "launches": req.launches}
+    # the reference's test names no rung, only a healthy, finite end; its
+    # own draws end healthy on the first attempt (iterative and pallas), and
+    # so must these: a rescue by a later rung would hide a failing kernel
+    check(steps(res.trace) == [("attempt", "cg", True)]
+          and bool(torch.isfinite(res.x).all())
+          and out["near_singular"]["rel_residual"] <= cfg.cg_tol
+          and req.launches == int(res.iters),
+          f"near-singular: trace {res.trace}, residual "
+          f"{out['near_singular']['rel_residual']:.3e}, {req.launches} "
+          f"sweeps for {int(res.iters)} CG iterations")
+
+    flaky = dataclasses.replace(cfg, solver="flaky")
+    arm_flaky_solver(1)
+    before = solve_tally()
+    res = get_engine("cuda").solve_result(A, b, flaky)
+    out["flaky"] = {"trace": steps(res.trace),
+                    "solve_tally": solve_tally() - before}
+    check(steps(res.trace) == [("attempt", "flaky", False),
+                               ("retry_jitter", "flaky", True)]
+          and solve_tally() - before == 2, f"flaky: trace {res.trace}")
+
+    try:
+        guarded_solve(NegatedOperator(A), b,
+                      dataclasses.replace(cfg, solve_policy="strict"))
+        raised = None
+    except GuardedSolveError as e:
+        raised = e
+    check(raised is not None and steps(raised.trace)
+          == [("attempt", "cg", False)], f"strict: {raised}")
+    out["strict"] = {"raised": type(raised).__name__,
+                     "trace": steps(raised.trace)}
+    want = {k: 0 for k in escalation_tally()}
+    for trace in (out["negated"]["trace"], out["flaky"]["trace"]):
+        for stage, _, _ in trace[1:]:
+            want[stage] += 1
+    want["strict_failures"] += 1
+    check(escalation_tally() == want,
+          f"ladder: tally {escalation_tally()}, its traces give {want}")
     return out
 
 
@@ -2039,10 +2441,12 @@ def main() -> None:
     emit(phase_routes())
 
     # Main path 1, serving: launches are counted from zero over this phase.
+    # Outside the ladder's own checks no solve may escalate (`unescalated`).
     reset_launch_counts()
-    serve, sweep_error, serve_answers = phase_serve(
-        "serve", n=8192, m=64, d=7, n_new=256, compare_iterative=False,
-        time_iterative=True)
+    with unescalated("serve"):
+        serve, sweep_error, serve_answers = phase_serve(
+            "serve", n=8192, m=64, d=7, n_new=256, compare_iterative=False,
+            time_iterative=True)
     serve_launches = launch_counts()
     serve["launches"] = serve_launches
     serve["float32_sweep_error"] = sweep_error()
@@ -2056,17 +2460,40 @@ def main() -> None:
     del serve, sweep_error
     torch.cuda.empty_cache()
 
-    lcbench, sweep_error, _ = phase_serve("serve_lcbench", n=2000, m=52, d=7,
-                                          n_new=256, compare_iterative=True)
-    lcbench["float32_sweep_error"] = sweep_error()
+    # Main path 1b, the solver stack (PCG, SGD, the objective through PCG,
+    # the escalation ladder) on the serve state: counted from zero. The
+    # tally is zero up to the ladder's checks, which hold it to their traces.
+    reset_launch_counts()
+    reset_escalation_tally()
+    solvers_out = phase_solvers(n=8192, m=64, d=7, n_new=256,
+                                reference=serve_answers)
+    solvers_totals = launch_counts()
+    solvers_out["launches"] = solvers_totals
+    emit(solvers_out)
+    for n, m, B in ((8192, 64, 65), (8192, 64, 1), (2000, 52, 17),
+                    (2000, 52, 16), (2000, 52, 1)):
+        for name in ROUTE_KERNELS[routed(n, m, B)]:
+            check(solvers_totals[name] > 0, f"the solver paths never "
+                  f"launched {name}, the route of (B, n, m) = {(B, n, m)}")
+    del solvers_out
+    torch.cuda.empty_cache()
+
+    with unescalated("serve_lcbench"):
+        lcbench, sweep_error, _ = phase_serve(
+            "serve_lcbench", n=2000, m=52, d=7, n_new=256,
+            compare_iterative=True)
+        lcbench["float32_sweep_error"] = sweep_error()
     emit(lcbench)
-    emit(phase_exact())
+    with unescalated("exact"):
+        exact = phase_exact()
+    emit(exact)
     torch.cuda.empty_cache()
 
     # Main path 2, fitting: counted from zero over this phase (which also
     # checks the count of each route it drives).
     reset_launch_counts()
-    fit_out = phase_fit(**FIT_SHAPE)
+    with unescalated("fit"):
+        fit_out = phase_fit(**FIT_SHAPE)
     fit_totals = launch_counts()
     fit_out["launches"] = fit_totals
     emit(fit_out)
@@ -2080,7 +2507,8 @@ def main() -> None:
     # Main path 3, the freeze-thaw loop (polished fit, extend, refit):
     # counted from zero over this phase, each step held to its evaluations.
     reset_launch_counts()
-    warm_out = phase_warm(**FIT_SHAPE)
+    with unescalated("warm"):
+        warm_out = phase_warm(**FIT_SHAPE)
     warm_totals = launch_counts()
     warm_out["launches"] = warm_totals
     emit(warm_out)
@@ -2093,15 +2521,18 @@ def main() -> None:
 
     # Main path 4, the batched dense path (fit_batch, posterior_batch): no
     # MVM kernel, which the phase checks.
-    emit(phase_batch())
+    with unescalated("batch"):
+        batch = phase_batch()
+    emit(batch)
     torch.cuda.empty_cache()
 
     # Main path 5, the distributed engine in an NCCL group of one rank.
     rendezvous = init_process_group("nccl")
     reset_launch_counts()
-    dist_out = phase_distributed(n=8192, m=64, d=7, n_new=256,
-                                 reference=serve_answers,
-                                 reference_fit=fit_iterative)
+    with unescalated("distributed"):
+        dist_out = phase_distributed(n=8192, m=64, d=7, n_new=256,
+                                     reference=serve_answers,
+                                     reference_fit=fit_iterative)
     dist_totals = launch_counts()
     close_process_group(rendezvous)
     dist_out["launches"] = dist_totals
@@ -2123,7 +2554,8 @@ def main() -> None:
     emit({"phase": "routes_used", "buckets": route_rows()})
 
     csrc = "src/repro_torch/kernels/csrc/"
-    main_paths = {k: serve_launches[k] + fit_totals[k] + warm_totals[k]
+    main_paths = {k: serve_launches[k] + solvers_totals[k] + fit_totals[k]
+                  + warm_totals[k]
                   for k in ("lk_mvm_fused", "lk_mvm_stage_right",
                             "lk_mvm_stage_left")}
     emit({"kernels": [

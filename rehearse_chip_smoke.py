@@ -8,6 +8,8 @@
     python3 rehearse_chip_smoke.py routes
     python3 rehearse_chip_smoke.py warm --n 300
     python3 rehearse_chip_smoke.py batch
+    python3 rehearse_chip_smoke.py solvers --n 200
+    python3 rehearse_chip_smoke.py exact
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -89,11 +91,13 @@ def _cpu_time_ms(fn, **_):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phase", choices=("fit", "kernels", "distributed",
-                                      "gram", "routes", "warm", "batch"))
+                                      "gram", "routes", "warm", "batch",
+                                      "solvers", "exact"))
     ap.add_argument("--n", type=int, default=300,
                     help="configurations of the fit and warm phases "
-                         "(m=52, d=7), of the distributed phase's serving "
-                         "(m=64, d=7) and of the gram phase")
+                         "(m=52, d=7), of the distributed and solvers "
+                         "phases' serving (m=64, d=7; the solvers phase's "
+                         "objective at m=52) and of the gram phase")
     args = ap.parse_args()
     _patch_cuda_for_cpu()
     _patch_port_for_cpu()
@@ -140,8 +144,18 @@ def main() -> None:
         print(json.dumps(out))
     elif args.phase == "batch":
         print(json.dumps(cs.phase_batch()))
+    elif args.phase == "solvers":
+        cs.FIT_SHAPE = dict(n=args.n, m=52, d=7)
+        cs.reset_launch_counts()
+        out = cs.phase_solvers(n=args.n, m=64, d=7, n_new=32)
+        out["launches"] = cs.launch_counts()
+        print(json.dumps(out))
+    elif args.phase == "exact":
+        with cs.unescalated("exact"):
+            print(json.dumps(cs.phase_exact()))
     else:
         cs.KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
+                            (1, 24, 16), (1, 64, 32), (1, 8, 6),
                             (17, 40, 52)]
         cs.TIMED_SHAPES = [(17, 40, 52)]
         cs.ROWS_SHAPES = [(3, 65, 130, 70), (2, 50, 100, 21),

@@ -30,10 +30,12 @@ probes)`` on any engine: straight through the Cholesky for ``dense``, as a
 ``torch.autograd.Function`` around ONE stacked CG solve ``K^-1 [y | probes]``
 for the others (:func:`make_mll_iterative` threads any MVM into it).
 
-The guarded escalation ladder is not ported yet, so every eager solve
-follows the ``strict`` policy: a solve that reports a breakdown or a
-non-finite residual raises :class:`DegradedSolveError`; it is never returned
-as if it were healthy.
+Eager solves (``solve``, ``solve_result``, ``solve_stacked``: the posterior
+path) run under ``LKGPConfig.solve_policy``'s escalation ladder
+(:mod:`repro_torch.core.solvers.guarded`). The MLL objective's solve is not
+guarded, as the reference's jitted objective is not: it passes through and
+raises :class:`DegradedSolveError` on a breakdown or a non-finite residual
+(L-BFGS and the polish can do nothing with a NaN objective).
 """
 from __future__ import annotations
 
@@ -44,9 +46,12 @@ from typing import Callable, Protocol, runtime_checkable
 import torch
 
 from .caching import LRUCache
-from .mvm import kron_dense, lk_mvm
+from .mvm import lk_mvm, masked_dense
+from .precond import pivoted_cholesky_grid, woodbury_preconditioner
 from .slq import slq_logdet
-from .solvers import CGResult, StackedSolveResult, resolve_solver
+from .solvers import (CGResult, GuardedSolveError, StackedSolveResult,
+                      escalation_tally, guarded_solve, guarded_solve_stacked)
+from .solvers.guarded import health, pass_through
 from .state import (BACKEND_ALIASES, GPData, LKGPConfig, LKGPParams,
                     gram_matrices)
 
@@ -57,7 +62,7 @@ __all__ = [
     "DegradedSolveError", "solve_tally", "KernelMVMFunction",
     "KernelOperator", "KernelMVM", "DistributedEngine",
     "DistributedOperator", "mll_cholesky", "make_mll", "make_mll_iterative",
-    "engine_cache_stats",
+    "engine_cache_stats", "escalation_tally",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -81,9 +86,19 @@ def _bump_tally(n: int = 1) -> None:
         _solve_tally += n
 
 
-class DegradedSolveError(RuntimeError):
-    """An eager solve broke down (``p^T A p <= 0``) or ended with a
-    non-finite residual. Carries the solver diagnostics as ``result``."""
+def _bump_escalations(res) -> None:
+    """Count extra escalation-ladder attempts as solve entries: a guarded
+    solve's trace has one step per attempt, the base one included."""
+    trace = getattr(res, "trace", None)
+    if trace and len(trace) > 1:
+        _bump_tally(len(trace) - 1)
+
+
+class DegradedSolveError(GuardedSolveError):
+    """The objective's (unguarded) solve broke down (``p^T A p <= 0``) or
+    ended with a non-finite residual. Carries the solver diagnostics as
+    ``result``; a :class:`GuardedSolveError`, so one ``except`` catches both.
+    """
 
     def __init__(self, message: str, result: CGResult) -> None:
         super().__init__(message)
@@ -91,22 +106,19 @@ class DegradedSolveError(RuntimeError):
 
 
 def _raise_if_degraded(res: CGResult, what: str) -> None:
-    """The ``strict`` solve policy: one host read, then raise or pass.
+    """The objective's strict check: one host read, then raise or pass.
 
     Residuals above tolerance do NOT count: hitting ``max_iters`` on a hard
     system is expected behaviour and visible in the diagnostics.
     """
-    bad = ~torch.isfinite(res.rel_residual).all()
-    if res.breakdown is not None:
-        bad = bad | res.breakdown.any()
-    if bool(bad.item()):
+    bad, worst = health(res)
+    if bad:
         cols = []
         if res.breakdown is not None:
             cols = torch.nonzero(res.breakdown.reshape(-1)).reshape(-1).tolist()
         raise DegradedSolveError(
             f"{what}: solve degraded (breakdown in columns {cols}, worst "
-            f"residual {float(res.rel_residual.max()):.3g}); the escalation "
-            "ladder is not ported yet, so this is an error", res)
+            f"residual {worst:.3g})", res)
 
 
 @runtime_checkable
@@ -207,20 +219,19 @@ class _DenseOperator:
 
     def chol(self):
         if self._chol is None:
-            mv = self.mask.reshape(-1)
-            K = kron_dense(self.K1, self.K2) * (mv[:, None] * mv[None, :])
-            K = K + torch.diag(self.noise * mv + (1.0 - mv))
-            self._chol = torch.linalg.cholesky(K)
+            self._chol = torch.linalg.cholesky(
+                masked_dense(self.K1, self.K2, self.mask, self.noise))
         return self._chol
 
 
 def _iterative_solve(A, b, config, x0=None) -> CGResult:
-    """Registry-resolved solve under the strict policy, diagnostics stashed
-    on the operator as ``A.last_result`` where it accepts attributes."""
+    """Registry-resolved solve under the escalation policy, one tally entry
+    per attempt, diagnostics (with the ``trace``) stashed on the operator as
+    ``A.last_result`` where it accepts attributes."""
     _bump_tally()
-    res = resolve_solver(config, A).solve(A, b, config, x0=x0)
+    res = guarded_solve(A, b, config, x0=x0)
+    _bump_escalations(res)
     _stash_diagnostics(A, res)
-    _raise_if_degraded(res, "solve")
     return res
 
 
@@ -240,7 +251,8 @@ class DenseEngine:
     def solve(self, A, b, config, x0=None):
         # x0 is accepted for interface uniformity; the exact solve ignores it.
         if not isinstance(A, _DenseOperator):
-            # Non-dense operator handed to the dense engine: iterate on it.
+            # Non-dense operator handed to the dense engine: the guarded
+            # iterative solve, diagnostics kept.
             return _iterative_solve(A, b, config, x0=x0).x
         _bump_tally()
         L = A.chol()
@@ -261,8 +273,9 @@ class LatentKroneckerOperator:
     """Callable A(u) that remembers its Kronecker factors.
 
     The iterative-family engines return this instead of a bare closure so
-    that a solver can reach the factors (the pivoted-Cholesky preconditioner
-    of the fit path only needs K1 / K2 / mask, never the assembled operator).
+    that a solver can reach the factors: the pivoted-Cholesky preconditioner
+    only needs K1 / K2 / mask / noise, never the assembled operator, and the
+    guarded ladder's dense fallback assembles them.
 
     ``accurate``, where given, is a slower realisation of the same matrix in
     a wider dtype. The solvers take their true residuals from it and nothing
@@ -273,14 +286,30 @@ class LatentKroneckerOperator:
         self.K1, self.K2, self.mask, self.noise = K1, K2, mask, noise
         self._mvm = mvm
         self.accurate = accurate
+        self._precond = None    # (rank, M_inv) cache
 
     def __call__(self, u):
         return self._mvm(self.K1, self.K2, self.mask, u, noise=self.noise)
 
     def preconditioner(self, rank: int):
-        raise NotImplementedError(
-            "the pivoted-Cholesky preconditioner is not ported yet "
-            "(ROADMAP queue 1 item 4, precond.py)")
+        """Woodbury M^-1 (on packed (..., n*m) vectors) from the
+        rank-``rank`` pivoted Cholesky, cached per operator and rank.
+
+        It depends only on (K1, K2, mask, noise), fixed for this operator,
+        so repeated solves share one factor. It is built without autograd
+        from the detached factors in the state's dtype (for the ``cuda``
+        engine the float64 ones, never the float32 ``.fast`` copies): a
+        preconditioner need not be differentiated, and the pivots are
+        found on the device without a host read.
+        """
+        if self._precond is None or self._precond[0] != rank:
+            # the apply outlives this block: it must not hold a graph to noise
+            noise = (self.noise.detach()
+                     if isinstance(self.noise, torch.Tensor) else self.noise)
+            with torch.no_grad():
+                L = pivoted_cholesky_grid(self.K1, self.K2, self.mask, rank)
+                self._precond = (rank, woodbury_preconditioner(L, noise))
+        return self._precond[1]
 
 
 def _stash_diagnostics(A, res: CGResult) -> None:
@@ -314,10 +343,12 @@ class IterativeEngine:
 
     def solve_result(self, A, b, config, x0=None) -> CGResult:
         """Like :meth:`solve` but returning the full per-column diagnostics
-        (iterations, true residuals, breakdown flags, MVM counts).
+        (iterations, true residuals, breakdown flags, MVM counts, the
+        escalation ``trace``).
 
-        The solve strategy comes from the registry (``config.solver``). A
-        degraded solve raises :class:`DegradedSolveError`.
+        The solve strategy comes from the registry (``config.solver``:
+        cg / pcg / sgd; "auto" picks pcg iff ``precond_rank > 0``) and runs
+        under the ``config.solve_policy`` escalation guard.
         """
         return _iterative_solve(A, b, config, x0=x0)
 
@@ -328,16 +359,16 @@ class IterativeEngine:
         ``rhs``: (s, n, m) stack (e.g. ``[y | Matheron residuals]``); every
         solver iteration applies the operator to the full stack at once,
         converged columns freeze. When the trailing ``probe_cols`` rows are
-        SLQ probes, their CG-Lanczos tridiagonals are recorded during the
-        SAME solve and turned into the log-determinant estimate
-        (``StackedSolveResult.logdet``); a degraded solve raises.
+        SLQ probes and CG runs, their CG-Lanczos tridiagonals are recorded
+        during the SAME solve and turned into the log-determinant estimate
+        (``StackedSolveResult.logdet``); PCG / SGD report ``logdet=None``
+        and the caller runs SLQ separately. Runs under the escalation guard.
         """
         _bump_tally()
-        st = resolve_solver(config, A).solve_stacked(
-            A, rhs, config, probe_cols=probe_cols, subspace_dim=subspace_dim,
-            x0=x0)
+        st = guarded_solve_stacked(A, rhs, config, probe_cols=probe_cols,
+                                   subspace_dim=subspace_dim, x0=x0)
+        _bump_escalations(st.result)
         _stash_diagnostics(A, st.result)
-        _raise_if_degraded(st.result, "stacked solve")
         return st
 
     def logdet(self, A, data, config, probes):
@@ -534,9 +565,15 @@ _NO_K3_GRADIENT = (
     "operands or DistributedEngine(fused=False)")
 
 
-class DistributedOperator(LatentKroneckerOperator):
+class DistributedOperator:
     """A(u) on whole (..., n, m) grid vectors, every rank computing its own
     row block and one all-gather joining them.
+
+    Like the reference's distributed operator, a bare closure, it exposes
+    no Kronecker factors (they are kept privately): it has no
+    ``preconditioner``, so ``solver="auto"`` with ``precond_rank > 0`` and
+    ``solver="pcg"`` both run plain CG, and the guarded ladder's dense
+    fallback is not eligible.
 
     ``K1, K2, mask, noise`` and every ``u`` are held whole on every rank
     (replicated), as the reference's engine holds K1. Rank r of a world of p
@@ -568,7 +605,7 @@ class DistributedOperator(LatentKroneckerOperator):
                              "divisible by the world size")
         if fused:
             noise = torch.as_tensor(noise, dtype=K1.dtype, device=K1.device)
-        super().__init__(K1, K2, mask, noise)
+        self._factors = (K1, K2, mask, noise)
         self.fused = fused
         self.group, self.rank, self.world = group, rank, world
         n_local = n // world
@@ -577,7 +614,7 @@ class DistributedOperator(LatentKroneckerOperator):
     def __call__(self, u):
         from ..distributed.lkgp_dist import GatherRows, SumGrads, gather_rows
         rows = self.rows
-        K1, K2, mask, noise = self.K1, self.K2, self.mask, self.noise
+        K1, K2, mask, noise = self._factors
         grad = torch.is_grad_enabled() and any(
             isinstance(x, torch.Tensor) and x.requires_grad
             for x in (K1, K2, noise, u))
@@ -660,12 +697,9 @@ def mll_cholesky(params: LKGPParams, X, t, Y, mask, t_kernel: str = "matern12",
     (see :class:`_DenseOperator`). Differentiable through the Cholesky.
     """
     K1, K2 = gram_matrices(params, X, t, t_kernel, jitter)
-    noise = torch.exp(params.raw_noise)
-    mv = mask.reshape(-1)
     y = (Y * mask).reshape(-1)
-    K = kron_dense(K1, K2) * (mv[:, None] * mv[None, :])
-    K = K + torch.diag(noise * mv + (1.0 - mv))
-    L = torch.linalg.cholesky(K)
+    L = torch.linalg.cholesky(
+        masked_dense(K1, K2, mask, torch.exp(params.raw_noise)))
     alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
     N = mask.sum()
     logdet = 2.0 * torch.log(torch.diagonal(L)).sum()
@@ -696,18 +730,23 @@ class _IterativeMLL(torch.autograd.Function):
         Ym = Y * mask
         rhs = torch.cat([Ym[None], probes], dim=0)
         N = mask.sum()
-        # The engine's solves follow the strict policy: a breakdown or a
-        # non-finite residual raises DegradedSolveError (L-BFGS can do
-        # nothing with a NaN objective), a residual above cg_tol does not.
-        # The reference's traced objective bypasses its guard altogether.
+        # Not guarded, as the reference's traced objective is not (so the
+        # objective is the same function under every solve_policy): a
+        # breakdown or a non-finite residual raises DegradedSolveError
+        # (L-BFGS can do nothing with a NaN objective), a residual above
+        # cg_tol does not.
         stacked = getattr(engine, "solve_stacked", None)
         logdet = None
-        if stacked is not None and getattr(config, "slq_via_cg", True):
-            st = stacked(A, rhs, config, probe_cols=probes.shape[0],
-                         subspace_dim=N)
-            sol, logdet = st.x, st.logdet
-        else:
-            sol = engine.solve(A, rhs, config)
+        with pass_through():
+            if stacked is not None and getattr(config, "slq_via_cg", True):
+                st = stacked(A, rhs, config, probe_cols=probes.shape[0],
+                             subspace_dim=N)
+                sol, logdet, res = st.x, st.logdet, st.result
+            else:
+                sol = engine.solve(A, rhs, config)
+                res = getattr(A, "last_result", None)
+        if res is not None:
+            _raise_if_degraded(res, "the objective's stacked solve")
         if logdet is None:
             logdet = engine.logdet(A, data, config, probes)
         alpha, W = sol[0], sol[1:]

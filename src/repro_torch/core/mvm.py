@@ -75,6 +75,17 @@ def kron_dense(K1: torch.Tensor, K2: torch.Tensor) -> torch.Tensor:
     return (K1[:, None, :, None] * K2[None, :, None, :]).reshape(n * m, n * m)
 
 
+def masked_dense(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
+                 noise) -> torch.Tensor:
+    """The dense (nm, nm) matrix of ``A`` on the whole grid: unobserved rows
+    and columns zeroed and a unit diagonal there, so its Cholesky is the
+    observed block's (the dense engine, the exact MLL and the guarded
+    solves' dense fallback all factor it)."""
+    mv = mask.reshape(-1)
+    K = kron_dense(K1, K2) * (mv[:, None] * mv[None, :])
+    return K + torch.diag(noise * mv + (1.0 - mv))
+
+
 def joint_cov_packed(K1: torch.Tensor, K2: torch.Tensor, mask) -> torch.Tensor:
     """K_joint = P (K1 (x) K2) P^T for the naive Cholesky baseline."""
     idx = torch.as_tensor(_observed_index(mask), device=K1.device)

@@ -2,10 +2,19 @@
 
 Counterpart of ``repro.core.solvers.base``. Engines realise the projected
 latent-Kronecker operator; *solvers* decide how ``A x = b`` is driven against
-it. ``LKGPConfig.solver`` selects by name; ``"auto"`` means preconditioned CG
-iff ``precond_rank > 0``, plain CG otherwise. Only ``cg`` is ported: asking
-for ``pcg`` / ``sgd`` (by name or through ``precond_rank``) raises
-``NotImplementedError`` rather than quietly running something else.
+it. Three are built in:
+
+* ``cg``  - batched block CG, with the fused CG-Lanczos/SLQ log-det on
+            stacked probe solves;
+* ``pcg`` - CG preconditioned by the rank-r pivoted Cholesky of the masked
+            latent covariance; it needs an operator exposing ``.mask`` and
+            ``.preconditioner(rank)`` (``LatentKroneckerOperator`` does) and
+            falls back to plain CG otherwise;
+* ``sgd`` - heavy-ball stochastic-gradient solves with Polyak averaging.
+
+``LKGPConfig.solver`` selects by name; ``"auto"`` means PCG iff
+``precond_rank > 0`` and the operator can be preconditioned, plain CG
+otherwise. Register custom solvers with :func:`register_solver`.
 """
 from __future__ import annotations
 
@@ -15,26 +24,28 @@ import torch
 
 from ..slq import slq_logdet_from_tridiag, tridiag_from_cg
 from .cg import CGResult, cg_solve, cg_solve_tridiag
+from .pcg import pcg_solve_grid
+from .sgd import sgd_solve
 
 __all__ = [
     "Solver", "SOLVERS", "register_solver", "get_solver", "list_solvers",
-    "resolve_solver", "StackedSolveResult", "CGSolver",
+    "resolve_solver", "StackedSolveResult", "CGSolver", "PCGSolver",
+    "SGDSolver",
 ]
 
-# Solvers of the reference that have no port yet, with the ROADMAP item that
-# holds them.
-_NOT_PORTED = {
-    "pcg": "ROADMAP queue 1 items 3 and 4 (pcg.py, precond.py)",
-    "sgd": "ROADMAP queue 1 item 3 (sgd.py)",
-}
+# Rank used when solver="pcg" is asked for by name but the config left
+# precond_rank at 0 (the "auto" route only picks pcg when rank > 0).
+_DEFAULT_PCG_RANK = 15
 
 
 class StackedSolveResult(NamedTuple):
     """One consolidated multi-RHS solve: solutions + (optional) log-det.
 
     ``x`` are the stacked solutions; ``logdet`` is the SLQ estimate from the
-    probe columns (None when the solve carried none); ``result`` carries the
-    block solver's per-column diagnostics.
+    probe columns' CG-Lanczos tridiagonals (None when it could not be fused:
+    a preconditioned solve iterates in M^-1 A's Krylov space, not A's, and
+    SGD has no Lanczos correspondence; callers then run SLQ separately);
+    ``result`` carries the block solver's per-column diagnostics.
     """
     x: torch.Tensor
     logdet: torch.Tensor | None
@@ -52,6 +63,8 @@ class StackedSolveResult(NamedTuple):
 
     @property
     def trace(self) -> Any:
+        """Escalation trace of the guarded solve that produced this result
+        (None for an unguarded solve)."""
         return None if self.result is None else self.result.trace
 
 
@@ -92,10 +105,6 @@ def get_solver(name: str) -> "Solver":
     try:
         cls = SOLVERS[name]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"solver {name!r} is not ported yet: {_NOT_PORTED[name]}"
-            ) from None
         raise ValueError(f"unknown solver {name!r}; "
                          f"available: {sorted(SOLVERS)}") from None
     solver = _SOLVER_SINGLETONS.get(name)
@@ -158,3 +167,54 @@ class CGSolver:
                            max_iters=config.cg_max_iters, x0=x0)
             logdet = None
         return StackedSolveResult(x=res.x, logdet=logdet, result=res)
+
+
+@register_solver("pcg")
+class PCGSolver:
+    """Pivoted-Cholesky preconditioned CG through the operator's factors.
+
+    Preconditions with the Woodbury-inverted rank-r pivoted Cholesky of the
+    masked latent covariance, built and cached by the operator
+    (``A.preconditioner(rank)``, on packed vectors). The solve stays on grid
+    form, so the operator's ``accurate`` takes the true residuals as in CG;
+    only the preconditioner flattens. The whole RHS stack shares one
+    Woodbury apply per iteration. Operators without ``.preconditioner``
+    (bare closures, the distributed operator) fall back to plain CG.
+    """
+
+    def solve(self, A: Callable, b: torch.Tensor, config: Any,
+              x0: torch.Tensor | None = None) -> CGResult:
+        if not _preconditionable(A):
+            return get_solver("cg").solve(A, b, config, x0=x0)
+        rank = getattr(config, "precond_rank", 0) or _DEFAULT_PCG_RANK
+        return pcg_solve_grid(A, b, A.preconditioner(rank),
+                              tol=config.cg_tol,
+                              max_iters=config.cg_max_iters, x0=x0)
+
+    def solve_stacked(self, A: Callable, rhs: torch.Tensor, config: Any, *,
+                      probe_cols: int = 0, subspace_dim: Any = None,
+                      x0: torch.Tensor | None = None) -> StackedSolveResult:
+        # The preconditioned Krylov space is M^-1 A's, not A's, so the
+        # CG-Lanczos log-det cannot be fused; callers run SLQ separately.
+        res = self.solve(A, rhs, config, x0=x0)
+        return StackedSolveResult(x=res.x, logdet=None, result=res)
+
+
+@register_solver("sgd")
+class SGDSolver:
+    """Heavy-ball SGD solves with Polyak tail averaging (large-n regime)."""
+
+    def solve(self, A: Callable, b: torch.Tensor, config: Any,
+              x0: torch.Tensor | None = None) -> CGResult:
+        return sgd_solve(
+            A, b, tol=config.cg_tol,
+            max_iters=getattr(config, "sgd_iters", 500), x0=x0,
+            momentum=getattr(config, "sgd_momentum", 0.9),
+            lr=getattr(config, "sgd_lr", 0.0))
+
+    def solve_stacked(self, A: Callable, rhs: torch.Tensor, config: Any, *,
+                      probe_cols: int = 0, subspace_dim: Any = None,
+                      x0: torch.Tensor | None = None) -> StackedSolveResult:
+        # SGD iterates have no Lanczos correspondence: no fused log-det.
+        res = self.solve(A, rhs, config, x0=x0)
+        return StackedSolveResult(x=res.x, logdet=None, result=res)

@@ -59,7 +59,8 @@ class CGResult(NamedTuple):
     # Times the recursion's residual was replaced by ``b - A.accurate(x)``;
     # always 0 for an operator without ``accurate``.
     replacements: int = 0
-    # Slot for the escalation trace of a guarded solve (not ported yet).
+    # Escalation trace of a guarded solve (``solvers/guarded.py``); None
+    # for a solve that was not guarded.
     trace: Any = None
 
 
@@ -88,8 +89,16 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
-             x0: torch.Tensor | None, record: int):
-    """Shared block-CG loop; ``record > 0`` also carries tridiag arrays."""
+             x0: torch.Tensor | None, record: int,
+             M_inv: Callable | None = None):
+    """Shared block-CG loop; ``record > 0`` also carries tridiag arrays.
+
+    ``M_inv`` (an approximate inverse of A on the whole stack) makes it
+    preconditioned CG (:mod:`.pcg`): the step and update coefficients come
+    from ``<r, M^-1 r>``, the stopping rule still reads the unpreconditioned
+    ``||r||``. Without it every ``z`` is ``r`` itself, so plain CG computes
+    exactly what it did before PCG shared the loop.
+    """
     dev = b.device
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -111,16 +120,29 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
     A_acc = getattr(A, "accurate", None)
     A_res = A_acc if A_acc is not None else A
 
+    def precond(r, rs, rz, where):
+        """``(z, <r, z>)`` for a new ``r``: ``z = M^-1 r``, and ``<r, z>``
+        where ``where`` (``rz`` elsewhere); ``(r, rs)`` without ``M_inv``."""
+        if M_inv is None:
+            return r, rs
+        z = M_inv(r)
+        return z, torch.where(where, _dot(r, z), rz)
+
     x = x0
     r = b - A_res(x0)
-    p = r
     rs = _dot(r, r)
-    # The step's numerator <r, p>. CG's rs = <r, r> equals it until a
-    # residual is replaced; after a replacement the direction p is kept, and
-    # rs would overshoot along it wherever the replaced residual is far above
-    # the recursion's (below the fast operator's floor the solve diverged).
-    # <r_true, p> / <p, Ap> is the exact line minimum along p instead.
-    rp = rs
+    z, rz = r, rs
+    if M_inv is not None:
+        z = M_inv(r)
+        rz = _dot(r, z)
+    p = z
+    # The step's numerator <r, p> (<r, z> in PCG). CG's rs = <r, r> equals
+    # it until a residual is replaced; after a replacement the direction p
+    # is kept, and rs would overshoot along it wherever the replaced
+    # residual is far above the recursion's (below the fast operator's
+    # floor the solve diverged). <r_true, p> / <p, Ap> is the exact line
+    # minimum along p instead.
+    rp = rz
     it = torch.zeros((), dtype=torch.int32, device=dev)
     breakdown = torch.zeros(sys_shape, dtype=torch.bool, device=dev)
     col_iters = torch.zeros(sys_shape, dtype=torch.int32, device=dev)
@@ -162,6 +184,7 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
             replacements += 1
             r = torch.where(redo[..., None, None], r_true, r)
             rs = torch.where(redo, rs_true, rs)
+            _, rz = precond(r, rs, rz, redo)
             rp = torch.where(redo, _dot(r_true, p), rp)
             continue
         Ap = A(p)
@@ -175,10 +198,12 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
         x = x + alpha[..., None, None] * p
         r = r - alpha[..., None, None] * Ap
         rs_new = torch.where(step, _dot(r, r), rs)
-        beta = torch.where(step, rs_new / torch.where(rs == 0, one, rs), zero)
+        z, rz_new = precond(r, rs_new, rz, step)
+        beta = torch.where(step, rz_new / torch.where(rz == 0, one, rz), zero)
         # Frozen columns keep their direction fixed (alpha = 0 above makes
         # them no-ops); stepping columns do the standard update.
-        p = torch.where(step[..., None, None], r + beta[..., None, None] * p, p)
+        p = torch.where(step[..., None, None],
+                        z + beta[..., None, None] * p, p)
         if record:
             # Record the CG (alpha, beta) pair of this iteration for the
             # first `record` steps of each still-stepping column.
@@ -189,14 +214,15 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
             tsteps = torch.where(write, it + 1, tsteps)
         col_iters = torch.where(step, it + 1, col_iters)
         matvecs = matvecs + active.sum(dtype=torch.int32)
-        rs = rs_new
-        rp = torch.where(step, rs_new, rp)
+        rs, rz = rs_new, rz_new
+        rp = torch.where(step, rz_new, rp)
         it = it + 1
         n_it += 1
         if A_acc is not None and n_it % REPLACE_EVERY == 0 and n_it >= record:
             r_true = b - A_res(x)
             r = torch.where(step[..., None, None], r_true, r)
             rs = torch.where(step, _dot(r_true, r_true), rs)
+            _, rz = precond(r, rs, rz, step)
             rp = torch.where(step, _dot(r_true, p), rp)
             replacements += 1
 

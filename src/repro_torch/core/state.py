@@ -75,9 +75,10 @@ class LKGPConfig:
     ``"pallas"`` is an alias), ``"distributed"`` (block CG with the grid's rows split over a
     ``torch.distributed`` group, float32 row blocks through the row-shard
     kernel). ``"auto"`` resolves from the legacy ``mll_method`` /
-    ``use_pallas`` fields and the observation count. Fields that belong to
-    parts of the system not ported yet (the guarded solve ladder, the
-    solvers ``pcg`` / ``sgd``) are carried but not read, and
+    ``use_pallas`` fields and the observation count. ``solver`` picks the
+    linear solver (``"auto"``: PCG iff ``precond_rank > 0``), and
+    ``solve_policy`` with the ``guard_*`` fields the escalation ladder of
+    the eager (posterior) solves (:mod:`repro_torch.core.solvers.guarded`).
     ``hyper_init="amortized"`` makes :func:`fit` raise
     ``NotImplementedError``.
     """
@@ -87,8 +88,8 @@ class LKGPConfig:
     auto_cholesky_max: int = 800    # N_obs threshold for "auto"
     cg_tol: float = 0.01            # paper App. B
     cg_max_iters: int = 10_000      # paper App. B
-    precond_rank: int = 0           # >0 asks for PCG (not ported yet: raises)
-    solver: str = "auto"            # "auto" | "cg" ("pcg" / "sgd" not ported yet)
+    precond_rank: int = 0           # >0 -> pivoted-Cholesky PCG (solver="auto")
+    solver: str = "auto"            # "auto" | "cg" | "pcg" | "sgd" | registered
     sgd_iters: int = 500
     sgd_momentum: float = 0.9
     sgd_lr: float = 0.0
@@ -106,8 +107,8 @@ class LKGPConfig:
     posterior_cache: bool = True
     seed: int = 0
     use_pallas: bool = False        # legacy alias for backend="cuda"
-    # Carried for round-tripping. Eager solves here always behave as
-    # "strict": a degraded solve raises (see engines.IterativeEngine).
+    # Escalation policy of the eager solves: "strict" | "escalate" |
+    # "best_effort" (see core.solvers.guarded).
     solve_policy: str = "escalate"
     guard_retries: int = 3
     guard_jitter_max: float = 1e-2

@@ -18,11 +18,13 @@ from repro.core import transforms as ref_tf
 from repro.core.solvers import cg_solve as ref_cg_solve
 from repro.core.solvers import cg_solve_tridiag as ref_cg_solve_tridiag
 from repro.data import sample_task as ref_sample_task
-from repro_torch.core import (BACKENDS, CustomMVMEngine, DegradedSolveError,
-                              GPData, LKGPConfig, LKGPParams, cg_solve,
-                              cg_solve_tridiag, get_engine, get_solver,
-                              gram_matrices, init_params, list_backends,
-                              list_solvers, lk_mvm, lk_operator,
+from repro_torch.core import (BACKENDS, CGSolver, CustomMVMEngine,
+                              DegradedSolveError, GPData, GuardedSolveError,
+                              LKGPConfig, LKGPParams, PCGSolver, SGDSolver,
+                              cg_solve, cg_solve_tridiag, get_engine,
+                              get_solver, gram_matrices, init_params,
+                              list_backends, list_solvers, lk_mvm,
+                              lk_operator, make_mll, rademacher_probes,
                               resolve_backend, resolve_solver, solve_tally)
 from repro_torch.core import transforms as tf
 from repro_torch.core.engines import KernelEngine, LatentKroneckerOperator
@@ -436,19 +438,35 @@ def test_cg_solve_tridiag_coefficients_match_reference(max_rank):
 # registries: solvers and engines
 # --------------------------------------------------------------------------
 def test_solver_registry_and_unported_solvers_raise():
-    assert list_solvers() == ["cg"]
-    assert get_solver("cg") is get_solver("cg")
+    """Every solver of the reference's registry is ported: nothing raises
+    NotImplementedError any more. ``"auto"`` keeps the reference's rule (PCG
+    iff precond_rank > 0 and the operator can be preconditioned), explicit
+    names win, unknown names raise ValueError."""
+    assert {"cg", "pcg", "sgd"} <= set(list_solvers())
+    assert {"cg", "pcg", "sgd"} <= set(ref_core.list_solvers())
+    for name, cls in (("cg", CGSolver), ("pcg", PCGSolver),
+                      ("sgd", SGDSolver)):
+        assert isinstance(get_solver(name), cls)
+        assert get_solver(name) is get_solver(name)
     assert resolve_solver(LKGPConfig()) is get_solver("cg")
     with pytest.raises(ValueError, match="unknown solver"):
         get_solver("nope")
-    for cfg in (LKGPConfig(solver="pcg"), LKGPConfig(solver="sgd"),
-                LKGPConfig(precond_rank=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_solver(cfg)
-    # a bare closure has no factors to precondition: "auto" keeps plain CG
-    assert resolve_solver(LKGPConfig(precond_rank=8), A=lambda u: u) \
-        is get_solver("cg")
     K1, K2, mask, b, noise = _cg_problem()
+    op = get_engine("iterative").operator_from_grams(_t(K1), _t(K2), _t(mask),
+                                                     noise)
+    rop = ref_core.get_engine("iterative").operator_from_grams(
+        jnp.asarray(K1), jnp.asarray(K2), jnp.asarray(mask), noise)
+    bare = lambda u: u   # noqa: E731 - no factors to precondition
+    for kw, (A, RA), want in (
+            (dict(solver="pcg"), (None, None), "pcg"),
+            (dict(solver="sgd"), (None, None), "sgd"),
+            (dict(precond_rank=8), (None, None), "pcg"),
+            (dict(precond_rank=8), (op, rop), "pcg"),
+            (dict(solver="sgd", precond_rank=5), (op, rop), "sgd"),
+            (dict(precond_rank=8), (bare, bare), "cg")):
+        assert resolve_solver(LKGPConfig(**kw), A) is get_solver(want)
+        assert ref_core.resolve_solver(ref_core.LKGPConfig(**kw),
+                                       RA).name == want
     A, _ = _both_operators(K1, K2, mask, noise)
     # probe columns give a log-det, unless a warm start bends their Krylov
     # spaces (then none, as in the reference)
@@ -556,19 +574,39 @@ def test_kernel_engine_refuses_autograd_until_backward_is_ported():
 
 
 def test_degraded_solve_raises_instead_of_returning():
+    """A degraded eager solve is never returned as if it were healthy: under
+    ``solve_policy="strict"`` it raises GuardedSolveError with a one-step
+    trace (the dense engine handed a foreign operator iterates under the
+    same rule); under the default ``"escalate"`` the ladder ends on the dense
+    fallback with the dense engine's answer. The objective's solve is not
+    guarded: it raises DegradedSolveError, a GuardedSolveError."""
     params, data, b = _engine_problem()
     eng = CustomMVMEngine(lambda K1, K2, mask, u, noise=0.0:
                           -lk_mvm(K1, K2, mask, u, noise))
     A = eng.operator(params, data, LKGPConfig())
-    with pytest.raises(DegradedSolveError, match="breakdown") as exc:
-        eng.solve(A, b, LKGPConfig())
-    assert bool(exc.value.result.breakdown.all())
-    assert A.last_result is exc.value.result
-    # the dense engine handed a foreign operator iterates under the same rule
-    with pytest.raises(DegradedSolveError):
-        get_engine("dense").solve(A, b, LKGPConfig())
+    strict = LKGPConfig(solve_policy="strict")
+    with pytest.raises(GuardedSolveError, match="strict") as exc:
+        eng.solve(A, b, strict)
+    assert [(s.stage, s.ok) for s in exc.value.trace] == [("attempt", False)]
+    assert not hasattr(A, "last_result")
+    with pytest.raises(GuardedSolveError):
+        get_engine("dense").solve(A, b, strict)
     nan_op = LatentKroneckerOperator(
         A.K1, A.K2, A.mask, A.noise,
         mvm=lambda K1, K2, mask, u, noise=0.0: u * float("nan"))
-    with pytest.raises(DegradedSolveError):
-        get_engine("iterative").solve(nan_op, b, LKGPConfig())
+    with pytest.raises(GuardedSolveError):
+        get_engine("iterative").solve(nan_op, b, strict)
+    dense = get_engine("dense")
+    want = dense.solve(dense.operator(params, data, strict), b, strict)
+    for op in (A, nan_op):
+        x = get_engine("iterative").solve(op, b, LKGPConfig())
+        assert op.last_result.trace[-1][:2] == ("dense_fallback", "dense")
+        _close(x, want, 1e-10)
+    gen = torch.Generator().manual_seed(0)
+    probes = rademacher_probes(gen, 4, data.mask, torch.float64)
+    assert issubclass(DegradedSolveError, GuardedSolveError)
+    for cfg in (strict, LKGPConfig()):
+        with pytest.raises(DegradedSolveError, match="breakdown") as exc:
+            make_mll(cfg, eng)(params, data.X, data.t, b, data.mask, probes)
+        assert bool(exc.value.result.breakdown.all())
+        assert exc.value.result.trace is None

@@ -50,7 +50,9 @@ def test_port_has_the_modules_of_this_slice():
                 "distributed/__init__", "distributed/lkgp_dist",
                 "data/curves", "core/caching", "core/polish", "core/lkgp",
                 "data/transforms", "data/lcbench", "data/sources",
-                "data/__init__"):
+                "data/__init__", "core/precond", "core/solvers/pcg",
+                "core/solvers/sgd", "core/solvers/guarded", "core/cg",
+                "testing/__init__", "testing/faults"):
         assert f"src/repro_torch/{mod}.py" in have
     for src in KERNEL_SOURCES:
         assert (PORT / "kernels" / "csrc" / src).is_file()
@@ -129,6 +131,8 @@ ENTRY_POINTS = {
     "state_from_reference": lambda rt: rt.state_from_reference({}),
     "posterior": lambda rt: rt.posterior(_cpu_state(rt)),
     "fit": lambda rt: rt.fit(*_cpu_task()),
+    "near_singular_problem": lambda rt: importlib.import_module(
+        "repro_torch.testing").near_singular_problem(),
 }
 
 

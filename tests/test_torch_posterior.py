@@ -17,7 +17,7 @@ import torch
 import repro.core as ref_core
 from repro.data import sample_task as ref_sample_task
 from repro_torch import params_from_numpy, state_from_reference
-from repro_torch.core import (CustomMVMEngine, DegradedSolveError, LKGPState,
+from repro_torch.core import (CustomMVMEngine, GuardedSolveError, LKGPState,
                               Posterior, PosteriorLike, get_engine,
                               joint_grams, lk_mvm, posterior, solve_tally)
 from repro_torch.core.matheron import (kronecker_correction,
@@ -258,15 +258,24 @@ def test_kernel_slot_engine_goes_through_the_kernel_wrapper(fitted, monkeypatch)
 
 
 def test_degraded_solve_raises_through_the_posterior(fitted):
+    """Through a broken MVM the posterior raises under the strict policy
+    and keeps nothing; under the default policy the ladder's dense fallback
+    serves the dense engine's mean, its trace on ``solve_info``."""
     _, state, _ = _pair(fitted, "iterative")
     broken = CustomMVMEngine(lambda K1, K2, mask, u, noise=0.0:
                              -lk_mvm(K1, K2, mask, u, noise))
-    post = posterior(state, engine=broken, device="cpu")
-    with pytest.raises(DegradedSolveError, match="breakdown"):
+    strict = dataclasses.replace(state, config=dataclasses.replace(
+        state.config, solve_policy="strict"))
+    post = posterior(strict, engine=broken, device="cpu")
+    with pytest.raises(GuardedSolveError, match="strict"):
         post.mean
-    with pytest.raises(DegradedSolveError):
+    with pytest.raises(GuardedSolveError):
         post.final()
     assert post._alpha is None                    # nothing degraded was kept
+    post = posterior(state, engine=broken, device="cpu")
+    want = posterior(state, engine=get_engine("dense"), device="cpu").mean
+    np.testing.assert_allclose(post.mean.numpy(), want.numpy(), atol=1e-9)
+    assert [s.stage for s in post.solve_info.trace][-1] == "dense_fallback"
 
 
 def test_posterior_refuses_a_state_on_another_device(fitted):
