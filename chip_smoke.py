@@ -29,15 +29,28 @@ ran through the kernels:
   shape (PCG iterations + Lanczos sweeps + 2 launches an evaluation); the
   guarded escalation ladder on cuda operators (a negated operator ending on
   the dense fallback, a near-singular system, an armed flaky solver, the
-  strict policy, and ``final`` under ``strict`` bit for bit the default's);
+  strict policy, and PCG's ``final`` under ``strict`` bit for bit the
+  default's);
 * the freeze-thaw loop at the same shape on the routed ``cuda`` engine:
   ``fit`` with the fixed-budget polish (twice: the same bits), ``extend``
   with more epochs and ``refit``, ``extend`` with new configurations and
   ``refit``, each evaluation's launches held to its CG iterations;
+* the AutoML schedulers (``repro_torch.autotune``) at the LCBench shape on
+  the routed ``cuda`` engine through rank-15 PCG: successive halving with
+  LKGP promotion over 2000 replayed configurations (each rung's update held
+  to its evaluations' launches, each ``final()`` read to its PCG iterations,
+  a second read to none, rung 0's mean held against the float64
+  ``iterative`` engine), rank promotion at the same budget, freeze-thaw,
+  and Hyperband over 243 configurations;
 * the batched dense path (``fit_batch``, ``stack_states``,
   ``posterior_batch``) on 16 tasks: per-task ``fit`` and ``fit_batch``
   bitwise equal, a task's posterior bitwise equal at batch sizes 1 and 16,
   and the committed LCBench-format fixture through ``get_source``;
+* the prediction service (``repro_torch.serving``): coalesced cold fits,
+  ``predict_many`` bitwise ``predict``, warm and cold latency, throughput,
+  the chaos schedule (a NaN payload quarantined, an eviction, a checkpoint,
+  a crash and restore bitwise a control service), and a service on the
+  routed ``cuda`` engine whose fits launch the MVM kernels;
 * the ``distributed`` engine inside an NCCL process group of one rank (so
   its all-gather runs): a float32 state served with every CG sweep one launch
   of the row-shard kernel K3, a float64 fit through its exact body, and the
@@ -57,8 +70,9 @@ the runtime), kernels, reference (the .npz), routes, serve (n=8192, m=64,
 solvers (PCG and SGD on the serve state; the objective through PCG at
 n=2000, m=52; the ladder at n=64, m=32), serve_lcbench (n=2000, m=52, also against the ``iterative`` engine), exact
 (n=24, m=16 against the ``dense`` engine), fit (n=2000, m=52, d=7), warm
-(n=2000 -> 2048, m=52, d=7), batch (16 tasks of n=48, m=20, d=4; the
-fixture), distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
+(n=2000 -> 2048, m=52, d=7), automl (n=2000, m=52, d=7; Hyperband 243 x
+27), batch (16 tasks of n=48, m=20, d=4; the fixture), service (8 tenants
+of n=16, m=12 and of n=8, m=10, dense; 4 of n=48, m=20 on cuda), distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
 fit), gram
 (n=8192 and n=2000, d=7), routes_used (every bucket the tuner resolved).
 Then a summary line ``{"kernels": [...]}``, the card's name and power limit
@@ -75,6 +89,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -125,8 +140,18 @@ from repro_torch.kernels.lk_mvm import (  # noqa: E402
     lk_mvm_stage_right, lk_mvm_stage_right_plain, lk_mvm_two_stage,
     lk_mvm_two_stage_plain, TC_COLS, TC_K, TC_ROWS, plan_launch, plan_stream)
 from repro_torch.kernels.ref import lk_mvm_ref  # noqa: E402
-from repro_torch.testing import (NegatedOperator,  # noqa: E402
-                                 arm_flaky_solver, near_singular_problem)
+from repro_torch.testing import (FaultSchedule,  # noqa: E402
+                                 NegatedOperator, arm_flaky_solver,
+                                 crash_and_restore, evict_session,
+                                 near_singular_problem, poison_nan)
+from repro_torch.autotune import (AutotuneConfig,  # noqa: E402
+                                  CurvePredictor, FreezeThawScheduler,
+                                  HyperbandScheduler, RunPool, SHConfig,
+                                  SuccessiveHalvingScheduler)
+from repro_torch.data import replay_step_fns  # noqa: E402
+from repro_torch.serving import (PredictionService,  # noqa: E402
+                                 ServiceConfig, SessionKey)
+from repro_torch.serving.metrics import percentile  # noqa: E402
 
 SEED = 0
 DEV = torch.device("cuda", 0)
@@ -193,10 +218,15 @@ REFERENCE_NPZ = (Path(__file__).resolve().parent / "tests" / "fixtures"
 # tuner resolves before they run: serve (n=8192, m=64) and serve_lcbench
 # (n=2000, m=52): final() B=65, mean B=1, samples B=16; fit (n=2000, m=52):
 # the stacked solve B=17, A(probes) B=16, A(alpha) B=1; exact (24, 16, 1);
-# the solvers phase's ladder (64, 32, 1) and near-singular system (8, 6, 1).
+# the solvers phase's ladder (64, 32, 1) and near-singular system (8, 6, 1);
+# the automl phase's (2000, 52) and Hyperband's (243, 27) at the fit's three
+# and final()'s B=65 (B=64: a keyed final() on a posterior whose alpha is
+# cached solves only the residuals); the cuda service's fits at (48, 20).
 ROUTE_SHAPES = [(8192, 64, 65), (8192, 64, 1), (8192, 64, 16),
                 (2000, 52, 65), (2000, 52, 1), (2000, 52, 16),
-                (2000, 52, 17), (24, 16, 1), (64, 32, 1), (8, 6, 1)]
+                (2000, 52, 17), (24, 16, 1), (64, 32, 1), (8, 6, 1),
+                (2000, 52, 64), (243, 27, 65), (243, 27, 17), (243, 27, 16),
+                (243, 27, 1), (48, 20, 17), (48, 20, 16)]
 # The wrappers each route launches per sweep.
 ROUTE_KERNELS = {"fused": ("lk_mvm_fused",),
                  "two_stage": ("lk_mvm_stage_right", "lk_mvm_stage_left")}
@@ -1367,8 +1397,8 @@ def phase_solvers(n: int, m: int, d: int, n_new: int,
     negated operator ends on the dense fallback with the dense engine's
     answer, ``near_singular_problem`` ends healthy, the armed flaky solver
     costs one extra attempt, ``strict`` raises with a one-step trace, and
-    ``final()`` at n=8192 under ``strict`` is the serve phase's (escalate)
-    bit for bit."""
+    ``final()`` through PCG at n=8192 under ``strict`` is request (1)'s
+    (escalate) bit for bit."""
     t_phase = time.perf_counter()
     cfg = dict(backend="cuda", posterior_samples=64, seed=SEED)
     state = make_state(SEED, n, m, d, **cfg)
@@ -1426,6 +1456,7 @@ def phase_solvers(n: int, m: int, d: int, n_new: int,
               "iterations")
         check_route(req, n, m, B)
         if request == "final":
+            pcg_final = (mean, var)
             rel64 = float64_residuals(pcg, info.x, normals)
             want, want_var = reference["final"]
         else:
@@ -1487,14 +1518,16 @@ def phase_solvers(n: int, m: int, d: int, n_new: int,
     check_route(req, n, m, 1)
     del post, info
 
-    # (4, last request at n=8192) final() under strict: the serve phase's
-    # answer (escalate, the default) bit for bit, a one-step trace
-    strict = dataclasses.replace(state, config=dataclasses.replace(
-        state.config, solve_policy="strict"))
+    # (4, last request at n=8192) final() through PCG under strict: the
+    # PCG request's answer above (escalate, the default) bit for bit, a
+    # one-step trace. (On the PCG state: the same check at a third of the
+    # plain-CG request's seconds.)
+    strict = dataclasses.replace(pcg, config=dataclasses.replace(
+        pcg.config, solve_policy="strict"))
     with Request("strict_final") as req:
         post = posterior(strict, cache=False)
         mean, var = post.final()
-    want, want_var = reference["final"]
+    want, want_var = pcg_final
     out["strict_final"] = {"seconds": req.seconds,
                            "iters": int(post.solve_info.iters),
                            "trace": [s._asdict()
@@ -1506,7 +1539,7 @@ def phase_solvers(n: int, m: int, d: int, n_new: int,
           "final() under strict differs from escalate")
     check([(s.stage, s.ok) for s in post.solve_info.trace]
           == [("attempt", True)], "strict final(): trace")
-    del post, mean, var, state, pcg, sgd, strict, reference
+    del post, mean, var, state, pcg, sgd, strict, reference, pcg_final
     gc.collect()
     torch.cuda.empty_cache()
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
@@ -1706,11 +1739,13 @@ WARM_NEW_CONFIGS = 48   # n = 2000 + 48 = 2048: the same tuner bucket
 class WarmStep(Request):
     """A Request over a polish on a logging engine: also the evaluations
     (stacked solves) it ran and their CG iterations, and its launches held
-    to ``evaluation_launches`` of those iterations."""
+    to ``evaluation_launches`` of those iterations (with ``lanczos`` Lanczos
+    sweeps an evaluation after a PCG solve)."""
 
-    def __init__(self, name: str, engine, n: int, m: int):
+    def __init__(self, name: str, engine, n: int, m: int, lanczos: int = 0):
         super().__init__(name)
         self.engine, self.n, self.m = engine, n, m
+        self.lanczos = lanczos
 
     def __enter__(self):
         self.first = len(self.engine.solves)
@@ -1718,11 +1753,13 @@ class WarmStep(Request):
 
     def row(self, res=None) -> dict:
         iters = [sv["iters"] for sv in self.engine.solves[self.first:]]
-        want = evaluation_launches(self.n, self.m, iters)
+        want = evaluation_launches(self.n, self.m, iters,
+                                   lanczos=self.lanczos)
         for name, count in self.by_kernel.items():
             check(count == want.get(name, 0),
                   f"{self.name}: {count} launches of {name}, expected "
-                  f"{want.get(name, 0)} for CG iterations {iters}")
+                  f"{want.get(name, 0)} for solver iterations {iters} + "
+                  f"{self.lanczos} Lanczos sweeps + 2 an evaluation")
         if res is not None:
             check(len(iters) == res.n_evals,
                   f"{self.name}: {len(iters)} solves, {res.n_evals} evals")
@@ -2350,6 +2387,485 @@ def phase_gram(shapes=((8192, 64), (2000, 52))) -> dict:
     return out
 
 
+# The automl phase: bench_automl.py's four schedulers at the paper's LCBench
+# shape, the data a sample_task replayed through RunPool.replay, every fit
+# and refit on the routed cuda engine through rank-15 PCG. Depth cut: the
+# cold fit's L-BFGS runs 10 iterations (the schedulers' default 30); the
+# refits bench_automl.py's 8. SH: R = 52, eta = 3, min_epochs = 1 (rungs at
+# 1, 3, 9 and 52 epochs over 2000, 667, 223 and 75 configurations), UCB with
+# beta 0 as bench_automl.py; freeze-thaw refits every m // 4 = 13 epochs;
+# Hyperband over 243 configurations, R = 27.
+AUTOML_SHAPE = dict(n=2000, m=52, d=7)
+AUTOML_GP = dict(backend="cuda", precond_rank=SOLVER_PCG_RANK,
+                 lbfgs_iters=10, **FIT_CONFIG)
+AUTOML_REFIT_LBFGS_ITERS = 8
+AUTOML_HYPERBAND = dict(n=243, m=27, d=7)
+AUTOML_ETA = 3
+
+
+class TracedPredictor(CurvePredictor):
+    """The schedulers' CurvePredictor on a logging cuda engine: every update
+    (cold fit, or extend + warm refit) is held to its evaluations' launches
+    (PCG iterations + slq_iters Lanczos sweeps + 2 each), every
+    predict_final that solves to its PCG iterations on the route of its
+    bucket with a healthy one-step trace, and a cached read to no launch at
+    all. Each gives a row: seconds, evaluations, iterations, launches."""
+
+    def __init__(self, X, max_epochs: int, cfg, seed: int, t, name: str):
+        super().__init__(X, max_epochs, gp=cfg.gp, maximize=cfg.maximize,
+                         refit_lbfgs_iters=cfg.refit_lbfgs_iters, seed=seed,
+                         t=t, engine=LoggedKernelEngine(), device=DEV)
+        self.name = name
+        self.rows: list[dict] = []
+        self.first_state = None
+        self.first_mean = None
+
+    def update(self, Y, mask) -> None:
+        n, m = self.X.shape[0], self.max_epochs
+        kind = "fit" if self.state is None else "extend+refit"
+        with WarmStep(f"{self.name} {kind} {self.n_refits}", self.engine, n,
+                      m, lanczos=self.gp.slq_iters) as req:
+            super().update(Y, mask)
+        res = self.state.fit_result
+        row = req.row(res)
+        row.update(update=kind, observed=int(np.sum(mask)),
+                   lbfgs_iters=res.n_iters, fun=res.fun)
+        row["pcg_iters_per_eval"] = row.pop("cg_iters_per_eval")
+        row["pcg_iters"] = sum(row.pop("cg_iters"))
+        check(np.isfinite(res.fun), f"{req.name}: objective {res.fun}")
+        self.rows.append(row)
+        if self.first_state is None:
+            self.first_state = self.state
+
+    def predict_final(self, generator=None, *, normals=None):
+        cached = (generator is None and normals is None
+                  and self._final_cache is not None
+                  and self._final_cache[0] == self.n_refits)
+        name = f"{self.name} final {self.n_refits}"
+        with Request(name) as req:
+            mean, std = super().predict_final(generator, normals=normals)
+        check(np.isfinite(mean).all() and np.isfinite(std).all(),
+              f"{name}: values not finite")
+        if cached:
+            check(not any(req.by_kernel.values()),
+                  f"{name}: a cached read launched {req.by_kernel}")
+            return mean, std
+        post = posterior(self.state, device=DEV)
+        s = check_solve(post, req, self.gp.cg_tol)
+        check(req.launches == s["iters"],
+              f"{name}: {req.launches} sweeps for {s['iters']} PCG iterations")
+        n, m = self.X.shape[0], self.max_epochs
+        check_route(req, n, m, s["columns"])
+        self.rows.append({"step": f"final {self.n_refits}",
+                          "seconds": req.seconds, "launches": req.by_kernel,
+                          "route": routed(n, m, s["columns"]), **s})
+        if self.n_refits == 1 and self.first_mean is None:
+            self.first_mean = mean
+        return mean, std
+
+
+def scores_finite(rungs) -> bool:
+    return all(np.isfinite(r["scores"]).all() for r in rungs)
+
+
+def phase_automl(n: int, m: int, d: int) -> dict:
+    """The AutoML schedulers through the routed cuda engine at full width:
+    (1) SH with LKGP promotion over 2000 configurations replayed from a
+    synthetic task (every rung an update and a final() read, each held to
+    its launches; a second default read on the unchanged state launches
+    nothing; rung 0's predicted final mean held against the float64
+    iterative engine's on the same state by MEAN_TOL_VS_ITERATIVE);
+    (2) SH with rank promotion at the same budget, for the regret beside it;
+    (3) freeze-thaw, keyed final() reads; (4) Hyperband over 243
+    configurations. Every score finite."""
+    t_phase = time.perf_counter()
+    task = sample_task(SEED, n=n, m=m, d=d)
+    gp = LKGPConfig(**AUTOML_GP)
+    true_final = task.Y_full[:, -1]
+    best = float(true_final.max())
+    out = {"phase": "automl", "n": n, "m": m, "d": d, "dtype": "float64",
+           "backend": "cuda", "precond_rank": gp.precond_rank,
+           "lbfgs_iters": gp.lbfgs_iters,
+           "refit_lbfgs_iters": AUTOML_REFIT_LBFGS_ITERS,
+           "allocated_at_start_bytes": start_memory()}
+
+    def sh_cfg(promotion, max_epochs):
+        return SHConfig(max_epochs=max_epochs, min_epochs=1, eta=AUTOML_ETA,
+                        promotion=promotion, ucb_beta=0.0, gp=gp,
+                        refit_lbfgs_iters=AUTOML_REFIT_LBFGS_ITERS)
+
+    # (1) SH, LKGP promotion
+    cfg = sh_cfg("lkgp", m)
+    pred = TracedPredictor(task.X, m, cfg, SEED, task.t, "sh")
+    sched = SuccessiveHalvingScheduler(task.X, None, cfg, seed=SEED,
+                                       pool=RunPool.replay(task),
+                                       predictor=pred, t=task.t)
+    with Request("sh_lkgp") as req:
+        sh = sched.run()
+    with Request("sh_second_read") as again:
+        pred.predict_final()
+    check(not any(again.by_kernel.values()),
+          f"a second predict_final() launched {again.by_kernel}")
+    check(scores_finite(sh["rungs"]), "sh lkgp: a score is not finite")
+    sizes, targets = [n], [1]
+    while targets[-1] * AUTOML_ETA <= m:
+        targets.append(targets[-1] * AUTOML_ETA)
+        sizes.append(-(-sizes[-1] // AUTOML_ETA))
+    targets[-1] = m      # the last rung runs to full fidelity: 1, 3, 9, 52
+    check([len(r["active"]) for r in sh["rungs"]] == sizes
+          and [r["target_epochs"] for r in sh["rungs"]] == targets,
+          f"sh lkgp rungs: {[len(r['active']) for r in sh['rungs']]} at "
+          f"{[r['target_epochs'] for r in sh['rungs']]}, expected {sizes} "
+          f"at {targets}")
+    # rung 0's final mean against the float64 iterative engine (plain CG)
+    st_it = dataclasses.replace(pred.first_state, config=dataclasses.replace(
+        gp, backend="iterative", precond_rank=0))
+    with Request("rung0_iterative") as req_it:
+        mean_it = posterior(st_it, cache=False, device=DEV).mean[:, -1]
+    check(not any(req_it.by_kernel.values()),
+          "the iterative engine launched kernels")
+    mean_it = mean_it.cpu().numpy()
+    scale = float(np.abs(mean_it).max())
+    gap = float(np.abs(pred.first_mean - mean_it).max())
+    tol = MEAN_TOL_VS_ITERATIVE * gp.cg_tol * scale
+    check(gap <= tol, f"rung 0 final mean vs iterative: gap {gap:.3e} > "
+                      f"{tol:.3e}")
+    del st_it
+    regret_lkgp = best - float(true_final[sh["selected"]])
+    out["sh_lkgp"] = {
+        "seconds": req.seconds, "launches": req.by_kernel,
+        "epochs_spent": sh["epochs_spent"], "selected": sh["selected"],
+        "regret": regret_lkgp,
+        "rungs": [{"target_epochs": r["target_epochs"],
+                   "active": len(r["active"]),
+                   "epochs_spent": r["epochs_spent"]} for r in sh["rungs"]],
+        "steps": pred.rows,
+        "rung0_vs_iterative": {"mean_gap": gap, "tol": tol, "scale": scale,
+                               "seconds": req_it.seconds}}
+    del pred, sched
+
+    # (2) SH, rank promotion, same rung schedule and budget
+    rank = SuccessiveHalvingScheduler(task.X, None, sh_cfg("rank", m),
+                                      seed=SEED, pool=RunPool.replay(task))
+    with Request("sh_rank") as req:
+        rk = rank.run()
+    check(not any(req.by_kernel.values()), "rank promotion launched kernels")
+    check(rk["epochs_spent"] == sh["epochs_spent"],
+          f"budgets differ: rank {rk['epochs_spent']}, "
+          f"lkgp {sh['epochs_spent']}")
+    out["sh_rank"] = {"seconds": req.seconds,
+                      "epochs_spent": rk["epochs_spent"],
+                      "selected": rk["selected"],
+                      "regret": best - float(true_final[rk["selected"]])}
+    out["regret_lkgp_minus_rank"] = regret_lkgp - out["sh_rank"]["regret"]
+
+    # (3) freeze-thaw
+    ft_cfg = AutotuneConfig(max_epochs=m, refit_every=max(2, m // 4),
+                            min_epochs_before_stop=1, ucb_beta=1.0, gp=gp,
+                            refit_lbfgs_iters=AUTOML_REFIT_LBFGS_ITERS)
+    ft = FreezeThawScheduler(task.X, replay_step_fns(task), ft_cfg,
+                             seed=SEED, t=task.t, device=DEV)
+    ft.predictor = TracedPredictor(task.X, m, ft_cfg, SEED, task.t, "ft")
+    with Request("freeze_thaw") as req:
+        fts = ft.run()
+    pred_final = np.asarray(fts["predicted_final"])
+    check(np.isfinite(pred_final).all(), "freeze-thaw: predictions")
+    surv = fts["survivors"]
+    sel = surv[int(np.argmax(pred_final[surv]))]
+    out["freeze_thaw"] = {
+        "seconds": req.seconds, "launches": req.by_kernel,
+        "epochs_spent": fts["epochs_spent"], "survivors": len(surv),
+        "stop_events": [{k: e[k] for k in ("epoch", "active")}
+                        for e in fts["stop_events"]],
+        "selected": sel, "regret": best - float(true_final[sel]),
+        "steps": ft.predictor.rows}
+    check(len(fts["stop_events"]) == (m - 1) // ft_cfg.refit_every,
+          f"freeze-thaw: {len(fts['stop_events'])} refits")
+    del ft
+
+    # (4) Hyperband over 243 configurations, R = 27
+    hb_task = sample_task(SEED + 1, **AUTOML_HYPERBAND)
+    hb_m = AUTOML_HYPERBAND["m"]
+    hb_cfg = sh_cfg("lkgp", hb_m)
+    hb = HyperbandScheduler(hb_task.X, replay_step_fns(hb_task), hb_cfg,
+                            seed=SEED, t=hb_task.t, device=DEV)
+    hb.predictor = TracedPredictor(hb_task.X, hb_m, hb_cfg, SEED, hb_task.t,
+                                   "hyperband")
+    with Request("hyperband") as req:
+        hbs = hb.run()
+    check(all(scores_finite(b["rungs"]) for b in hbs["brackets"]),
+          "hyperband: a score is not finite")
+    hb_true = hb_task.Y_full[:, -1]
+    out["hyperband"] = {
+        **{k: v for k, v in AUTOML_HYPERBAND.items()},
+        "seconds": req.seconds, "launches": req.by_kernel,
+        "brackets": [{"bracket": b["bracket"], "n_configs": b["n_configs"],
+                      "min_epochs": b["min_epochs"],
+                      "epochs_spent": b["epochs_spent"]}
+                     for b in hbs["brackets"]],
+        "epochs_spent": hbs["epochs_spent"], "selected": hbs["selected"],
+        "regret": float(hb_true.max() - hb_true[hbs["selected"]]),
+        "updates": hb.predictor.n_refits, "steps": hb.predictor.rows}
+    del hb
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# The service phase: bench_serving.py's full sizes (8 tenants of n=16, m=12,
+# d=4 on the dense engine, 12 L-BFGS iterations, a warm refit of 3 every 4th
+# observe; 200 warm and cold requests; 6 rounds of throughput at n=8, m=10),
+# test_reliability.py's chaos schedule, and a service whose gp is the routed
+# cuda engine (4 tenants at n=48, m=20; depth cut: 5 cold L-BFGS iterations
+# where the default is 100, warm refits of 2).
+SERVICE_TENANTS = 8
+SERVICE_SHAPE = dict(n=16, m=12, d=4)
+SERVICE_LBFGS_ITERS = 12
+SERVICE_REQUESTS = 200
+SERVICE_ROUNDS = 6
+SERVICE_THROUGHPUT_SHAPE = dict(n=8, m=10, d=4)
+CUDA_SERVICE_TENANTS = 4
+CUDA_SERVICE_SHAPE = dict(n=48, m=20, d=4)
+CUDA_SERVICE_LBFGS_ITERS = 5
+CUDA_SERVICE_REFIT_LBFGS_ITERS = 2
+CHAOS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def reveal_one_epoch(mask: np.ndarray) -> np.ndarray:
+    """Every curve's observed prefix one epoch longer."""
+    mask = mask.copy()
+    for i in range(mask.shape[0]):
+        k = int(mask[i].sum())
+        if k < mask.shape[1]:
+            mask[i, k] = 1.0
+    return mask
+
+
+def latency_summary(seconds: list[float]) -> dict:
+    """p50 / p99 / mean in ms, the service's own (interpolated) percentiles."""
+    xs = sorted(seconds)
+    return {"count": len(xs), "p50_ms": 1e3 * percentile(xs, 50.0),
+            "p99_ms": 1e3 * percentile(xs, 99.0),
+            "mean_ms": 1e3 * statistics.mean(xs)}
+
+
+def dense_service(n: int, m: int, d: int, refit_every: int = 4, **config):
+    """A service on the card with SERVICE_TENANTS tenants cold-fitted through
+    one coalesced observe_batch."""
+    svc = PredictionService(ServiceConfig(
+        gp=LKGPConfig(lbfgs_iters=SERVICE_LBFGS_ITERS, backend="dense"),
+        capacity=SERVICE_TENANTS, refit_every=refit_every,
+        refit_lbfgs_iters=3, **config), device=DEV)
+    tasks = {f"tenant-{i}": sample_task(seed=i, n=n, m=m, d=d)
+             for i in range(SERVICE_TENANTS)}
+    infos = svc.observe_batch([
+        dict(tenant=name, task="run", X=tk.X, t=tk.t, Y=tk.Y, mask=tk.mask)
+        for name, tk in tasks.items()])
+    return svc, tasks, infos
+
+
+def phase_service() -> dict:
+    """PredictionService on the card. (1) Cold fits coalesced through
+    observe_batch; predict_many bitwise predict for every tenant; warm
+    (cache hit) and cold (cache bypassed) latency over 200 requests.
+    (2) Throughput of per-request against coalesced predictions, 6 rounds
+    at n=8, m=10, each after one more observed epoch. (3) The reliability
+    suite's chaos schedule in a temporary directory: a NaN payload
+    quarantined, evict_session, a checkpoint, crash_and_restore; the
+    restored predictions bitwise a control service's. (4) A service on the
+    routed cuda engine: its cold fits and refits launch the MVM kernels."""
+    t_phase = time.perf_counter()
+    out = {"phase": "service", "device": str(DEV),
+           "allocated_at_start_bytes": start_memory()}
+
+    # (1) coalesced cold fits, bitwise coalescing, latency
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc, tasks, infos = dense_service(**SERVICE_SHAPE)
+    torch.cuda.synchronize()
+    cold_fit_s = time.perf_counter() - t0
+    counters = {k: c.value for k, c in svc.counters.items()}
+    check([i["action"] for i in infos] == ["fit_batch"] * SERVICE_TENANTS
+          and counters["coalesced_groups"] == 1
+          and counters["coalesced_requests"] == SERVICE_TENANTS,
+          f"cold fits not coalesced: {counters}")
+    names = list(tasks)
+    singles = {name: svc.predict(name, "run") for name in names}
+    coalesced = svc.predict_many([(name, "run") for name in names])
+    check(all(p.batch_size == SERVICE_TENANTS for p in coalesced)
+          and all(np.array_equal(singles[p.tenant].mean, p.mean)
+                  and np.array_equal(singles[p.tenant].var, p.var)
+                  for p in coalesced),
+          "predict_many is not bitwise predict")
+    check(all(np.isfinite(p.mean).all() and (p.var > 0).all()
+              for p in coalesced), "service predictions: values")
+    stream = [names[i % SERVICE_TENANTS] for i in range(SERVICE_REQUESTS)]
+    cold, warm = [], []
+    for name in stream:
+        session = svc.store.get(SessionKey(name, "run"))
+        t0 = time.perf_counter()
+        mean, var = posterior_batch(session.stacked(), cache=False,
+                                    device=DEV).final()
+        mean.cpu().numpy(), var.cpu().numpy()
+        cold.append(time.perf_counter() - t0)
+    for name in stream:
+        t0 = time.perf_counter()
+        svc.predict(name, "run")
+        warm.append(time.perf_counter() - t0)
+    out["latency"] = {**SERVICE_SHAPE, "tenants": SERVICE_TENANTS,
+                      "cold_fit_seconds": cold_fit_s,
+                      "cold": latency_summary(cold),
+                      "warm": latency_summary(warm)}
+    out["coalesced_bitwise_per_request"] = True
+    del svc
+
+    # (2) throughput, per request against coalesced
+    svc, tasks, _ = dense_service(**SERVICE_THROUGHPUT_SHAPE, refit_every=0)
+    keys = [(name, "run") for name in tasks]
+    masks = {name: np.asarray(tk.mask).copy() for name, tk in tasks.items()}
+
+    def observe_round():
+        for name, tk in tasks.items():
+            masks[name] = reveal_one_epoch(masks[name])
+            Y = np.where(masks[name] > 0, np.asarray(tk.Y_full), 0.0)
+            svc.observe(name, "run", Y, masks[name])
+
+    observe_round()
+    for name, _ in keys:
+        svc.predict(name, "run")
+    svc.predict_many(keys)
+    per_request = coalesced_s = 0.0
+    for _ in range(SERVICE_ROUNDS):
+        observe_round()
+        t0 = time.perf_counter()
+        for name, _ in keys:
+            svc.predict(name, "run")
+        per_request += time.perf_counter() - t0
+        observe_round()
+        t0 = time.perf_counter()
+        svc.predict_many(keys)
+        coalesced_s += time.perf_counter() - t0
+    total = SERVICE_ROUNDS * SERVICE_TENANTS
+    out["throughput"] = {**SERVICE_THROUGHPUT_SHAPE, "rounds": SERVICE_ROUNDS,
+                         "per_request_rps": total / per_request,
+                         "coalesced_rps": total / coalesced_s,
+                         "coalesced_speedup": per_request / coalesced_s}
+    out["metrics"] = {k: v for k, v in svc.metrics().items()
+                      if k in ("counters", "compiled_caches",
+                               "predict_latency", "observe_latency")}
+    del svc
+
+    # (3) the chaos schedule
+    out["chaos"] = chaos_schedule()
+
+    # (4) a service on the routed cuda engine
+    out["cuda_service"] = cuda_service()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def chaos_schedule() -> dict:
+    """test_reliability.py's chaos schedule on the card."""
+    CHAOS_DIR.mkdir(parents=True, exist_ok=True)
+    tasks = [sample_task(seed=i, n=6, m=8, d=4) for i in range(4)]
+    with tempfile.TemporaryDirectory(dir=CHAOS_DIR) as tmp:
+        def make(name):
+            return PredictionService(ServiceConfig(
+                gp=LKGPConfig(lbfgs_iters=5, backend="dense"), refit_every=0,
+                checkpoint_dir=os.path.join(tmp, name), checkpoint_every=0),
+                device=DEV)
+
+        control, chaos = make("control"), make("chaos")
+        for svc in (control, chaos):
+            for i, task in enumerate(tasks):
+                check(svc.observe(f"tenant{i}", "job", Y=task.Y,
+                                  mask=task.mask, X=task.X,
+                                  t=task.t)["action"] == "fit", "cold fit")
+        schedule = FaultSchedule()
+        schedule.add(0, lambda service: service.observe(
+            "tenant0", "job", *poison_nan(tasks[0].Y, tasks[0].mask)))
+        schedule.add(1, lambda service: evict_session(service, "tenant3",
+                                                      "job"))
+        schedule.add(2, lambda service: service.checkpoint())
+        grids = {i: (tasks[i].Y, tasks[i].mask) for i in (1, 2)}
+        fired = []
+        for rnd in range(3):
+            for i in (1, 2):
+                Y, mask = grids[i]
+                mask = reveal_one_epoch(np.asarray(mask))
+                Y = np.where(mask > np.asarray(grids[i][1]),
+                             0.1 * (rnd + 1), np.asarray(Y))
+                grids[i] = (Y, mask)
+                for svc in (control, chaos):
+                    check(svc.observe(f"tenant{i}", "job", Y=Y,
+                                      mask=mask)["action"] == "extend",
+                          "healthy extend")
+            fired.append(schedule.fire(rnd, service=chaos))
+        check(fired[0][0]["action"] == "quarantined", "NaN not quarantined")
+        check(fired[1][0] is True, "eviction failed")
+        chaos, restored = crash_and_restore(chaos)
+        check(restored == 3 and SessionKey("tenant3", "job")
+              not in chaos.store, f"restored {restored} sessions")
+        bitwise = True
+        for i in (1, 2):
+            want = control.predict(f"tenant{i}", "job")
+            got = chaos.predict(f"tenant{i}", "job")
+            bitwise &= (np.array_equal(want.mean, got.mean)
+                        and np.array_equal(want.var, got.var)
+                        and want.generation == got.generation)
+        check(bitwise, "restored predictions differ from the control's")
+        check(chaos.predict("tenant0", "job").generation == 0,
+              "the quarantined tenant lost its last good state")
+        counters = chaos.metrics()["counters"]
+        return {"quarantined": 1, "evicted": 1, "checkpoint_step": fired[2][0],
+                "restored_sessions": restored, "restored_bitwise": bitwise,
+                "restores": counters["restores"],
+                "device": str(chaos.device)}
+
+
+def cuda_service() -> dict:
+    """A service whose gp is the routed cuda engine: cold fits one by one
+    (a coalesced cold fit is the exact dense fit_batch), then two rounds of
+    one more epoch (an extend, then an extend with a warm refit); launches
+    by step. An extend swaps transforms only and launches nothing."""
+    svc = PredictionService(ServiceConfig(
+        gp=LKGPConfig(backend="cuda", lbfgs_iters=CUDA_SERVICE_LBFGS_ITERS),
+        capacity=CUDA_SERVICE_TENANTS, refit_every=2,
+        refit_lbfgs_iters=CUDA_SERVICE_REFIT_LBFGS_ITERS),
+        device=DEV)
+    tasks = {f"tenant-{i}": sample_task(seed=100 + i, **CUDA_SERVICE_SHAPE)
+             for i in range(CUDA_SERVICE_TENANTS)}
+    rows = {}
+    with Request("cuda_service_cold_fits") as req:
+        for name, tk in tasks.items():
+            check(svc.observe(name, "run", tk.Y, tk.mask, X=tk.X,
+                              t=tk.t)["action"] == "fit", "cold fit")
+    rows["cold_fits"] = {"seconds": req.seconds, "launches": req.by_kernel}
+    masks = {name: np.asarray(tk.mask) for name, tk in tasks.items()}
+    for step in ("extend", "extend+refit"):
+        with Request(f"cuda_service_{step}") as req:
+            for name, tk in tasks.items():
+                masks[name] = reveal_one_epoch(masks[name])
+                Y = np.where(masks[name] > 0, np.asarray(tk.Y_full), 0.0)
+                check(svc.observe(name, "run", Y, masks[name])["action"]
+                      == step, f"cuda service: not an {step}")
+        rows[step] = {"seconds": req.seconds, "launches": req.by_kernel}
+    preds = svc.predict_many([(name, "run") for name in tasks])
+    check(all(np.isfinite(p.mean).all() and (p.var > 0).all()
+              for p in preds), "cuda service predictions: values")
+    for step in ("cold_fits", "extend+refit"):
+        check(sweeps(rows[step]["launches"]) > 0,
+              f"the cuda service's {step} launched no MVM kernel")
+    check(not any(rows["extend"]["launches"].values()),
+          "an extend launched kernels")
+    return {**CUDA_SERVICE_SHAPE, "tenants": CUDA_SERVICE_TENANTS,
+            "lbfgs_iters": CUDA_SERVICE_LBFGS_ITERS,
+            "refit_lbfgs_iters": CUDA_SERVICE_REFIT_LBFGS_ITERS, "steps": rows,
+            "backend_used": svc.store.get(
+                SessionKey("tenant-0", "run")).state.backend_used}
+
+
 def build_all() -> dict:
     """Compile every kernel source at once (one nvcc process each)."""
     t0 = time.perf_counter()
@@ -2519,11 +3035,45 @@ def main() -> None:
     del warm_out
     torch.cuda.empty_cache()
 
+    # Main path 3b, the AutoML schedulers (SH, rank SH, freeze-thaw,
+    # Hyperband) on the routed cuda engine through PCG: counted from zero
+    # over this phase, each update and read held to its own launches.
+    reset_launch_counts()
+    with unescalated("automl"):
+        automl_out = phase_automl(**AUTOML_SHAPE)
+    automl_totals = launch_counts()
+    automl_out["launches"] = automl_totals
+    emit(automl_out)
+    probes = FIT_CONFIG["slq_probes"]
+    for (n, m), Bs in (((AUTOML_SHAPE["n"], AUTOML_SHAPE["m"]),
+                        (probes + 1, probes, 1, 65, 64)),
+                       ((AUTOML_HYPERBAND["n"], AUTOML_HYPERBAND["m"]),
+                        (probes + 1, probes, 1, 65))):
+        for B in Bs:
+            for name in ROUTE_KERNELS[routed(n, m, B)]:
+                check(automl_totals[name] > 0, f"the automl path never "
+                      f"launched {name}, the route of (B, n, m) = "
+                      f"{(B, n, m)}")
+    del automl_out
+    torch.cuda.empty_cache()
+
     # Main path 4, the batched dense path (fit_batch, posterior_batch): no
     # MVM kernel, which the phase checks.
     with unescalated("batch"):
         batch = phase_batch()
     emit(batch)
+    torch.cuda.empty_cache()
+
+    # Main path 4b, the prediction service: dense tenants (coalesced cold
+    # fits, bitwise coalescing, latency, throughput, the chaos schedule),
+    # then a service on the routed cuda engine, whose fits launch the MVM
+    # kernels (counted from zero, held > 0 in the phase).
+    reset_launch_counts()
+    with unescalated("service"):
+        service_out = phase_service()
+    service_out["launches"] = launch_counts()
+    emit(service_out)
+    del service_out
     torch.cuda.empty_cache()
 
     # Main path 5, the distributed engine in an NCCL group of one rank.
@@ -2555,7 +3105,7 @@ def main() -> None:
 
     csrc = "src/repro_torch/kernels/csrc/"
     main_paths = {k: serve_launches[k] + solvers_totals[k] + fit_totals[k]
-                  + warm_totals[k]
+                  + warm_totals[k] + automl_totals[k]
                   for k in ("lk_mvm_fused", "lk_mvm_stage_right",
                             "lk_mvm_stage_left")}
     emit({"kernels": [

@@ -10,6 +10,8 @@
     python3 rehearse_chip_smoke.py batch
     python3 rehearse_chip_smoke.py solvers --n 200
     python3 rehearse_chip_smoke.py exact
+    python3 rehearse_chip_smoke.py automl --n 200
+    python3 rehearse_chip_smoke.py service
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -92,12 +94,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phase", choices=("fit", "kernels", "distributed",
                                       "gram", "routes", "warm", "batch",
-                                      "solvers", "exact"))
+                                      "solvers", "exact", "automl",
+                                      "service"))
     ap.add_argument("--n", type=int, default=300,
-                    help="configurations of the fit and warm phases "
-                         "(m=52, d=7), of the distributed and solvers "
-                         "phases' serving (m=64, d=7; the solvers phase's "
-                         "objective at m=52) and of the gram phase")
+                    help="configurations of the fit, warm and automl "
+                         "phases (m=52, d=7; the automl phase's Hyperband "
+                         "pool stays 243 x 27), of the distributed and "
+                         "solvers phases' serving (m=64, d=7; the solvers "
+                         "phase's objective at m=52) and of the gram phase")
     args = ap.parse_args()
     _patch_cuda_for_cpu()
     _patch_port_for_cpu()
@@ -148,6 +152,18 @@ def main() -> None:
         cs.FIT_SHAPE = dict(n=args.n, m=52, d=7)
         cs.reset_launch_counts()
         out = cs.phase_solvers(n=args.n, m=64, d=7, n_new=32)
+        out["launches"] = cs.launch_counts()
+        print(json.dumps(out))
+    elif args.phase == "automl":
+        cs.reset_launch_counts()
+        with cs.unescalated("automl"):
+            out = cs.phase_automl(n=args.n, m=52, d=7)
+        out["launches"] = cs.launch_counts()
+        print(json.dumps(out))
+    elif args.phase == "service":
+        cs.reset_launch_counts()
+        with cs.unescalated("service"):
+            out = cs.phase_service()
         out["launches"] = cs.launch_counts()
         print(json.dumps(out))
     elif args.phase == "exact":

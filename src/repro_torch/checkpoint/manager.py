@@ -1,0 +1,199 @@
+"""Fault-tolerant checkpointing: atomic, keep-K, async.
+
+Counterpart of ``repro.checkpoint.manager``, with the same on-disk layout,
+so a checkpoint one package writes the other restores. A checkpoint is a
+directory ``step_%010d`` holding ``state.npz`` (one host array per tensor
+leaf of the saved tree) and ``manifest.json`` (``step``, ``time``, the
+sorted ``keys``, and the caller's ``extra``). It is written into a temp dir
+that is atomically renamed (a crash mid-write can never corrupt the latest
+checkpoint); only the newest ``keep`` checkpoints are kept.
+
+The keys are the reference's pytree paths joined with ``//``: a list or
+tuple entry by its index (``0``), a dict entry by its key, a NamedTuple or
+dataclass field as ``.name``; a dataclass field that holds no tensor (an
+``LKGPState``'s ``config``) is static metadata and not saved. So an
+``LKGPState``'s noise is ``.params//.raw_noise`` and, in a list of states,
+``0//.params//.raw_noise``. Restore rebuilds the structure of a template
+tree with the saved values, in the template leaves' dtypes, on ``device``
+(default: each template leaf's own device).
+
+An optional background thread makes saves asynchronous; ``wait()`` joins it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+__all__ = ["CheckpointManager"]
+
+_SEP = "//"
+_ARRAY = (torch.Tensor, np.ndarray, np.generic)
+
+
+def _has_array(node: Any) -> bool:
+    if isinstance(node, _ARRAY):
+        return True
+    return any(_has_array(child) for _, child in _children(node))
+
+
+def _children(node: Any) -> list[tuple[str, Any]]:
+    """(path entry, child) of an inner node, in the reference's order; a
+    leaf has none."""
+    if isinstance(node, _ARRAY) or node is None:
+        return []
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
+    if isinstance(node, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(node)]
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        fields = [(f".{f.name}", getattr(node, f.name))
+                  for f in dataclasses.fields(node)]
+        return [(k, v) for k, v in fields if _has_array(v)]
+    return []
+
+
+def _is_leaf(node: Any) -> bool:
+    return isinstance(node, _ARRAY) or (
+        not isinstance(node, (dict, list, tuple))
+        and not dataclasses.is_dataclass(node) and node is not None)
+
+
+def _flatten(tree: Any) -> dict[str, Any]:
+    """``{path: leaf}`` in the reference's key strings and order."""
+    out: dict[str, Any] = {}
+
+    def walk(node, path):
+        if _is_leaf(node):
+            out[_SEP.join(path)] = node
+            return
+        for key, child in _children(node):
+            walk(child, path + [key])
+
+    walk(tree, [])
+    return out
+
+
+def _rebuild(node: Any, leaf: Callable[[str, Any], Any], path=()) -> Any:
+    """``node``'s structure with every leaf replaced by ``leaf(path, old)``."""
+    if _is_leaf(node):
+        return leaf(_SEP.join(path), node)
+    kids = {k: _rebuild(v, leaf, path + (k,)) for k, v in _children(node)}
+    if isinstance(node, dict):
+        return {k: kids[str(k)] for k in node}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(kids[f".{f}"] for f in node._fields))
+    if isinstance(node, (list, tuple)):
+        return type(node)(kids[str(i)] for i in range(len(node)))
+    if dataclasses.is_dataclass(node):
+        return dataclasses.replace(node, **{k[1:]: v
+                                            for k, v in kids.items()})
+    return node
+
+
+def _to_host(leaf: Any) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
+        self.directory = directory
+        self.keep = keep
+        self.async_save = async_save
+        self._thread: threading.Thread | None = None
+        os.makedirs(directory, exist_ok=True)
+
+    # -- write --------------------------------------------------------------
+    def save(self, step: int, state: Any, extra: dict | None = None):
+        """Copy every tensor leaf of ``state`` to the host now, then write
+        (on the background thread when ``async_save``)."""
+        host = {k: _to_host(v) for k, v in _flatten(state).items()}
+        self.wait()
+        if self.async_save:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host, extra or {}), daemon=True)
+            self._thread.start()
+        else:
+            self._write(step, host, extra or {})
+
+    def _write(self, step: int, host: dict, extra: dict):
+        tmp = os.path.join(self.directory, f".tmp_step_{step}_{os.getpid()}")
+        final = os.path.join(self.directory, f"step_{step:010d}")
+        os.makedirs(tmp, exist_ok=True)
+        np.savez(os.path.join(tmp, "state.npz"), **host)
+        manifest = {"step": step, "time": time.time(),
+                    "keys": sorted(host.keys()), "extra": extra}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic publish
+        self._gc()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[: -self.keep] if self.keep > 0 else []:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:010d}"),
+                          ignore_errors=True)
+
+    # -- read ---------------------------------------------------------------
+    def all_steps(self) -> list[int]:
+        out = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_"):
+                try:
+                    out.append(int(name.split("_")[1]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, target: Any, step: int | None = None,
+                device=None) -> Any:
+        """Restore into the structure of ``target``.
+
+        Every tensor leaf of ``target`` is replaced by the saved array of its
+        key, cast to the leaf's dtype and placed on ``device`` (default: the
+        leaf's own device); a numpy leaf comes back as a numpy array.
+        """
+        self.wait()
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        path = os.path.join(self.directory, f"step_{step:010d}")
+        with np.load(os.path.join(path, "state.npz")) as data:
+            host = {k: data[k] for k in data.files}
+        missing = set(_flatten(target)) - set(host)
+        if missing:
+            raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]}")
+
+        def leaf(key, tgt):
+            arr = host[key]
+            if isinstance(tgt, torch.Tensor):
+                return torch.as_tensor(arr).to(
+                    dtype=tgt.dtype,
+                    device=tgt.device if device is None else device)
+            if hasattr(tgt, "dtype"):
+                return arr.astype(tgt.dtype)
+            return arr
+
+        return _rebuild(target, leaf)

@@ -410,6 +410,16 @@ def _polish_fit(cfg: LKGPConfig, engine, d: int, dtype, budget: int,
     return params, res
 
 
+def _tensor(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``a`` as a tensor on ``device`` that shares no memory with a caller's
+    numpy array, as the reference's ``jnp.asarray`` copies: a state must not
+    change when the caller goes on writing into the arrays it was fitted
+    from (a scheduler's run pool does). Tensors convert as ``.to`` does."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
 def _observations(Y, mask, m: int, names=("Y", "mask")) -> torch.Tensor:
     """Validate a payload on the host (one read) and zero its unobserved
     cells: every downstream use is masked, so this is a no-op for finite
@@ -454,11 +464,11 @@ def fit(X, t, Y, mask, config: LKGPConfig | None = None,
 
     cfg = config if config is not None else LKGPConfig()
     dev = resolve_device(device)
-    X = torch.as_tensor(X, device=dev)
+    X = _tensor(X, dev)
     dtype = X.dtype
-    t = torch.as_tensor(t, dtype=dtype, device=dev)
-    Y = torch.as_tensor(Y, dtype=dtype, device=dev)
-    mask = torch.as_tensor(mask, dtype=dtype, device=dev)
+    t = _tensor(t, dev, dtype)
+    Y = _tensor(Y, dev, dtype)
+    mask = _tensor(mask, dev, dtype)
     Y = _observations(Y, mask, t.shape[-1])
 
     x_tf, t_tf, y_tf = _fit_transforms(X, t, Y, mask)
@@ -485,11 +495,26 @@ def fit(X, t, Y, mask, config: LKGPConfig | None = None,
         params, res = _polish_fit(cfg, engine, d, dtype, budget, init_source,
                                   p0, Xn, tn, Yn, mask, probes)
     else:
+        from .engines import DegradedSolveError
+
         vg = _cached_fit_vg(cfg, engine, d)
+        started = []
 
         def value_and_grad(x: np.ndarray):
             p = _unflatten_params(torch.as_tensor(x, device=dev).to(dtype), d)
-            f, g = vg(p, Xn, tn, Yn, mask, probes)
+            try:
+                f, g = vg(p, Xn, tn, Yn, mask, probes)
+            except DegradedSolveError:
+                # A trial point whose solve breaks down (a float32 operator
+                # at absurd parameters after a wild step) is a rejected step,
+                # as the line search treats any non-finite value; the
+                # reference's traced CG freezes such columns and its fit
+                # goes on too. At the starting point there is nothing to
+                # step back to.
+                if not started:
+                    raise
+                return math.inf, np.full(x.shape, np.nan)
+            started.append(True)
             return float(f), _flatten_params(g).cpu().numpy().astype(
                 np.float64)
 
@@ -542,14 +567,14 @@ def fit_batch(X, t, Y, mask, config: LKGPConfig | None = None,
 
     cfg = config if config is not None else LKGPConfig()
     dev = resolve_device(device)
-    X = torch.as_tensor(X, device=dev)
+    X = _tensor(X, dev)
     dtype = X.dtype
     B, n, d = X.shape
-    t = torch.as_tensor(t, dtype=dtype, device=dev)
+    t = _tensor(t, dev, dtype)
     if t.ndim == 1:
         t = t.expand(B, t.shape[0]).contiguous()
-    Y = torch.as_tensor(Y, dtype=dtype, device=dev)
-    mask = torch.as_tensor(mask, dtype=dtype, device=dev)
+    Y = _tensor(Y, dev, dtype)
+    mask = _tensor(mask, dev, dtype)
     Y = _observations(Y, mask, t.shape[-1])
 
     # Per task, on fresh copies: the single-task arithmetic of fit() on
@@ -699,8 +724,8 @@ def extend(state: LKGPState, new_Y, new_mask, new_X=None) -> LKGPState:
     the new state's posterior cache starts cold.
     """
     dtype, dev = state.Y.dtype, state.device
-    new_Y = torch.as_tensor(new_Y, dtype=dtype, device=dev)
-    new_mask = torch.as_tensor(new_mask, dtype=dtype, device=dev)
+    new_Y = _tensor(new_Y, dev, dtype)
+    new_mask = _tensor(new_mask, dev, dtype)
     new_Y = _observations(new_Y, new_mask, state.m, ("new_Y", "new_mask"))
 
     if new_X is None:
@@ -712,7 +737,7 @@ def extend(state: LKGPState, new_Y, new_mask, new_X=None) -> LKGPState:
             raise ValueError("new_mask must be a superset of the current mask")
         X, Y, mask = state.X, new_Y, new_mask
     else:
-        new_X = torch.as_tensor(new_X, dtype=state.X.dtype, device=dev)
+        new_X = _tensor(new_X, dev, state.X.dtype)
         X = torch.cat([state.X, new_X], dim=0)
         Y = torch.cat([state.Y, new_Y], dim=0)
         mask = torch.cat([state.mask, new_mask], dim=0)

@@ -15,11 +15,11 @@ so a test can assert which detection point fired:
   payload (detection: ``check_observed_finite`` at the streaming boundary).
 * :func:`near_singular_problem` - duplicated rows and tiny noise make the
   Gram factors near-singular (detection: the ladder's jitter retries).
+* :func:`evict_session` - drops a session from a
+  :class:`~repro_torch.serving.PredictionService`'s store mid-workload.
+* :func:`crash_and_restore` - abandons a service and rebuilds its warm
+  sessions in a fresh one from its checkpoint directory.
 * :class:`FaultSchedule` - maps workload rounds to injector thunks.
-
-The reference's ``evict_session`` and ``crash_and_restore`` need the
-serving layer and its checkpoints, which the port does not have yet
-(ROADMAP queue 1, the serving item).
 """
 from __future__ import annotations
 
@@ -35,7 +35,8 @@ from ..core.solvers import (CGResult, StackedSolveResult, get_solver,
 
 __all__ = [
     "NegatedOperator", "FlakySolver", "arm_flaky_solver", "poison_nan",
-    "near_singular_problem", "FaultSchedule",
+    "near_singular_problem", "evict_session", "crash_and_restore",
+    "FaultSchedule",
 ]
 
 
@@ -171,12 +172,38 @@ def near_singular_problem(n: int = 8, m: int = 6, d: int = 3,
     return K1, K2, mask, Y, torch.tensor(noise, dtype=f64, device=dev)
 
 
+def evict_session(service, tenant: str, task: str) -> bool:
+    """Mid-workload eviction: drop a session from the store (LRU-style)."""
+    from ..serving.store import SessionKey
+
+    return service.store.drop(SessionKey(tenant, task))
+
+
+def crash_and_restore(service, step: int | None = None):
+    """Simulated crash: fresh service over the same checkpoint directory,
+    on the same device.
+
+    The old service object is abandoned exactly as a killed process would
+    abandon its memory; the replacement rebuilds warm sessions via
+    ``restore()``. Returns ``(new_service, sessions_restored)``.
+    """
+    from ..serving.service import PredictionService
+
+    if service.checkpointer is None:
+        raise RuntimeError("service has no checkpoint_dir; nothing to "
+                           "restore a crash from")
+    replacement = PredictionService(service.config, device=service.device)
+    restored = replacement.restore(step)
+    return replacement, restored
+
+
 class FaultSchedule:
     """Declarative round -> injectors mapping for chaos scenarios.
 
     ``add(round, fn)`` registers an injector thunk; ``fire(round, **ctx)``
     runs every injector registered for that round (in registration order)
-    and returns their results.
+    and returns their results. Injectors receive the context kwargs
+    ``fire`` is given (e.g. ``service=...``).
     """
 
     def __init__(self) -> None:

@@ -52,7 +52,12 @@ def test_port_has_the_modules_of_this_slice():
                 "data/transforms", "data/lcbench", "data/sources",
                 "data/__init__", "core/precond", "core/solvers/pcg",
                 "core/solvers/sgd", "core/solvers/guarded", "core/cg",
-                "testing/__init__", "testing/faults"):
+                "testing/__init__", "testing/faults",
+                "autotune/__init__", "autotune/predictor", "autotune/sh",
+                "autotune/scheduler", "checkpoint/__init__",
+                "checkpoint/manager", "serving/__init__", "serving/metrics",
+                "serving/store", "serving/batcher", "serving/checkpoint",
+                "serving/service"):
         assert f"src/repro_torch/{mod}.py" in have
     for src in KERNEL_SOURCES:
         assert (PORT / "kernels" / "csrc" / src).is_file()
@@ -133,7 +138,30 @@ ENTRY_POINTS = {
     "fit": lambda rt: rt.fit(*_cpu_task()),
     "near_singular_problem": lambda rt: importlib.import_module(
         "repro_torch.testing").near_singular_problem(),
+    "CurvePredictor": lambda rt: importlib.import_module(
+        "repro_torch.autotune").CurvePredictor(_cpu_task()[0], 4),
+    "SuccessiveHalvingScheduler": lambda rt: importlib.import_module(
+        "repro_torch.autotune").SuccessiveHalvingScheduler(
+            _cpu_task()[0], [None] * 5),
+    "HyperbandScheduler": lambda rt: importlib.import_module(
+        "repro_torch.autotune").HyperbandScheduler(_cpu_task()[0], [None] * 5),
+    "FreezeThawScheduler": lambda rt: importlib.import_module(
+        "repro_torch.autotune").FreezeThawScheduler(
+            _cpu_task()[0], [None] * 5),
+    "PredictionService": lambda rt: importlib.import_module(
+        "repro_torch.serving").PredictionService(),
+    "state_template": lambda rt: importlib.import_module(
+        "repro_torch.serving").state_template(3, 4, 4, "float64",
+                                              rt.core.LKGPConfig()),
+    "ServiceCheckpointer": lambda rt: importlib.import_module(
+        "repro_torch.serving").ServiceCheckpointer(_scratch_dir()),
 }
+
+
+def _scratch_dir():
+    """A directory the checkpointer would create: it raises before that."""
+    import tempfile
+    return str(Path(tempfile.gettempdir()) / "repro_torch_never_created")
 
 
 def _cpu_task():
