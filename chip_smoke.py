@@ -42,6 +42,18 @@ ran through the kernels:
   a second read to none, rung 0's mean held against the float64
   ``iterative`` engine), rank promotion at the same budget, freeze-thaw,
   and Hyperband over 243 configurations;
+* the amortized init (``repro_torch.amortize``): the packaged amortizer
+  and the curve transformer held against the reference's outputs in
+  ``tests/fixtures/reference_amortizer.npz``, ``bench_automl.py``'s
+  amortized MLL-gap rows, a d=7 amortizer trained on the card, and the
+  freeze-thaw loop of the automl phase again with every fit and refit
+  amortized + polished, and polished from the default init (each update
+  held to its launches), beside that phase's host L-BFGS arm; amortized
+  ``fit_batch`` bitwise per-task ``fit`` and two amortized polishes the
+  same bits;
+* the paper's Transformer baseline (``repro_torch.baselines``): the curve
+  transformer pre-trained at ``bench_curve_pred.py``'s full configuration,
+  then ``head_to_head`` against the LKGP on its three suites;
 * the batched dense path (``fit_batch``, ``stack_states``,
   ``posterior_batch``) on 16 tasks: per-task ``fit`` and ``fit_batch``
   bitwise equal, a task's posterior bitwise equal at batch sizes 1 and 16,
@@ -71,8 +83,11 @@ solvers (PCG and SGD on the serve state; the objective through PCG at
 n=2000, m=52; the ladder at n=64, m=32), serve_lcbench (n=2000, m=52, also against the ``iterative`` engine), exact
 (n=24, m=16 against the ``dense`` engine), fit (n=2000, m=52, d=7), warm
 (n=2000 -> 2048, m=52, d=7), automl (n=2000, m=52, d=7; Hyperband 243 x
-27), batch (16 tasks of n=48, m=20, d=4; the fixture), service (8 tenants
-of n=16, m=12 and of n=8, m=10, dense; 4 of n=48, m=20 on cuda), distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
+27), amortize (the .npz rows; d=5, n=12, m=9 gaps; a d=7 amortizer; the
+freeze-thaw at n=2000, m=52), batch (16 tasks of n=48, m=20, d=4; the
+fixture), service (8 tenants of n=16, m=12 and of n=8, m=10, dense; 4 of
+n=48, m=20 on cuda), curvepred (2000 pretrain steps; 45 cells of n=16,
+m=12), distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
 fit), gram
 (n=8192 and n=2000, d=7), routes_used (every bucket the tuner resolved).
 Then a summary line ``{"kernels": [...]}``, the card's name and power limit
@@ -152,6 +167,14 @@ from repro_torch.data import replay_step_fns  # noqa: E402
 from repro_torch.serving import (PredictionService,  # noqa: E402
                                  ServiceConfig, SessionKey)
 from repro_torch.serving.metrics import percentile  # noqa: E402
+from repro_torch import tree_from_numpy  # noqa: E402
+from repro_torch.amortize import (FIXTURE_DIR,  # noqa: E402
+                                  AmortizeTrainConfig, Amortizer,
+                                  AmortizerConfig, register_amortizer,
+                                  clear_amortizer_registry, train_amortizer)
+from repro_torch.baselines import (CurveTransformerConfig,  # noqa: E402
+                                   PretrainConfig, head_to_head, pretrain)
+from repro_torch.baselines import forward as curve_forward  # noqa: E402
 
 SEED = 0
 DEV = torch.device("cuda", 0)
@@ -2414,7 +2437,8 @@ class TracedPredictor(CurvePredictor):
     def __init__(self, X, max_epochs: int, cfg, seed: int, t, name: str):
         super().__init__(X, max_epochs, gp=cfg.gp, maximize=cfg.maximize,
                          refit_lbfgs_iters=cfg.refit_lbfgs_iters, seed=seed,
-                         t=t, engine=LoggedKernelEngine(), device=DEV)
+                         t=t, amortizer=cfg.amortizer,
+                         engine=LoggedKernelEngine(), device=DEV)
         self.name = name
         self.rows: list[dict] = []
         self.first_state = None
@@ -2429,7 +2453,8 @@ class TracedPredictor(CurvePredictor):
         res = self.state.fit_result
         row = req.row(res)
         row.update(update=kind, observed=int(np.sum(mask)),
-                   lbfgs_iters=res.n_iters, fun=res.fun)
+                   lbfgs_iters=res.n_iters, fun=res.fun,
+                   optimizer=res.optimizer, init_source=res.init_source)
         row["pcg_iters_per_eval"] = row.pop("cg_iters_per_eval")
         row["pcg_iters"] = sum(row.pop("cg_iters"))
         check(np.isfinite(res.fun), f"{req.name}: objective {res.fun}")
@@ -2462,6 +2487,38 @@ class TracedPredictor(CurvePredictor):
         if self.n_refits == 1 and self.first_mean is None:
             self.first_mean = mean
         return mean, std
+
+
+def freeze_thaw(task, gp: LKGPConfig, amortizer=None,
+                name: str = "ft") -> dict:
+    """Freeze-thaw over the replayed task on the traced cuda engine (refits
+    every m // 4 epochs, UCB beta 1): every update held to its evaluations'
+    launches, every read to its PCG iterations; the summary with the regret
+    of the configuration it selects."""
+    m = task.Y_full.shape[1]
+    true_final = task.Y_full[:, -1]
+    ft_cfg = AutotuneConfig(max_epochs=m, refit_every=max(2, m // 4),
+                            min_epochs_before_stop=1, ucb_beta=1.0, gp=gp,
+                            refit_lbfgs_iters=AUTOML_REFIT_LBFGS_ITERS,
+                            amortizer=amortizer)
+    ft = FreezeThawScheduler(task.X, replay_step_fns(task), ft_cfg,
+                             seed=SEED, t=task.t, device=DEV)
+    ft.predictor = TracedPredictor(task.X, m, ft_cfg, SEED, task.t, name)
+    with Request(name) as req:
+        fts = ft.run()
+    pred_final = np.asarray(fts["predicted_final"])
+    check(np.isfinite(pred_final).all(), f"{name}: predictions")
+    surv = fts["survivors"]
+    sel = surv[int(np.argmax(pred_final[surv]))]
+    check(len(fts["stop_events"]) == (m - 1) // ft_cfg.refit_every,
+          f"{name}: {len(fts['stop_events'])} refits")
+    return {
+        "seconds": req.seconds, "launches": req.by_kernel,
+        "epochs_spent": fts["epochs_spent"], "survivors": len(surv),
+        "stop_events": [{k: e[k] for k in ("epoch", "active")}
+                        for e in fts["stop_events"]],
+        "selected": sel, "regret": float(true_final.max() - true_final[sel]),
+        "steps": ft.predictor.rows}
 
 
 def scores_finite(rungs) -> bool:
@@ -2560,28 +2617,7 @@ def phase_automl(n: int, m: int, d: int) -> dict:
     out["regret_lkgp_minus_rank"] = regret_lkgp - out["sh_rank"]["regret"]
 
     # (3) freeze-thaw
-    ft_cfg = AutotuneConfig(max_epochs=m, refit_every=max(2, m // 4),
-                            min_epochs_before_stop=1, ucb_beta=1.0, gp=gp,
-                            refit_lbfgs_iters=AUTOML_REFIT_LBFGS_ITERS)
-    ft = FreezeThawScheduler(task.X, replay_step_fns(task), ft_cfg,
-                             seed=SEED, t=task.t, device=DEV)
-    ft.predictor = TracedPredictor(task.X, m, ft_cfg, SEED, task.t, "ft")
-    with Request("freeze_thaw") as req:
-        fts = ft.run()
-    pred_final = np.asarray(fts["predicted_final"])
-    check(np.isfinite(pred_final).all(), "freeze-thaw: predictions")
-    surv = fts["survivors"]
-    sel = surv[int(np.argmax(pred_final[surv]))]
-    out["freeze_thaw"] = {
-        "seconds": req.seconds, "launches": req.by_kernel,
-        "epochs_spent": fts["epochs_spent"], "survivors": len(surv),
-        "stop_events": [{k: e[k] for k in ("epoch", "active")}
-                        for e in fts["stop_events"]],
-        "selected": sel, "regret": best - float(true_final[sel]),
-        "steps": ft.predictor.rows}
-    check(len(fts["stop_events"]) == (m - 1) // ft_cfg.refit_every,
-          f"freeze-thaw: {len(fts['stop_events'])} refits")
-    del ft
+    out["freeze_thaw"] = freeze_thaw(task, gp)
 
     # (4) Hyperband over 243 configurations, R = 27
     hb_task = sample_task(SEED + 1, **AUTOML_HYPERBAND)
@@ -2866,6 +2902,325 @@ def cuda_service() -> dict:
                 SessionKey("tenant-0", "run")).state.backend_used}
 
 
+# The amortize phase. Reference outputs: tests/fixtures/reference_amortizer.npz
+# (tests/fixtures/make_reference_amortizer.py, JAX on the CPU), held within
+# AMORTIZE_TOL of max|reference|. The MLL-gap rows are bench_automl.py's
+# amortized rows (d=5, n=12, m=9, seeds 0-3, the packaged d=5 fixture), each
+# gap within GAP_TOL of the reference's (per-observation objective units).
+# The d=7 amortizer trains at AmortizeTrainConfig()'s defaults (400 steps of
+# 8 tasks, n=8, m=9). Its freeze-thaw is the automl phase's (n=2000, m=52,
+# d=7, rank-15 PCG on the routed cuda engine) with every fit and refit
+# amortized + AMORTIZE_POLISH_STEPS polish steps.
+REFERENCE_AMORTIZER_NPZ = (Path(__file__).resolve().parent / "tests"
+                           / "fixtures" / "reference_amortizer.npz")
+AMORTIZE_TOL = 1e-4
+GAP_TOL = 1e-4
+AMORTIZE_TRAIN = AmortizeTrainConfig()
+AMORTIZE_POLISH_STEPS = 2
+AMORTIZE_BATCH = dict(tasks=4, n=16, m=12)
+CT_CONFIG = dict(d_in=7, d_model=32, num_layers=2, num_heads=2, d_ff=64)
+
+
+def check_full_f32_matmuls(phase: str) -> dict:
+    """float32 matmuls in full float32 (the amortizer's and the curve
+    transformer's parity with the reference rests on it), not TF32."""
+    setting = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+               "float32_matmul_precision":
+                   torch.get_float32_matmul_precision()}
+    check(setting == {"allow_tf32": False,
+                      "float32_matmul_precision": "highest"},
+          f"{phase}: float32 matmuls may run in TF32: {setting}")
+    return setting
+
+
+def relative_gap(got: torch.Tensor, want: np.ndarray) -> tuple[float, float]:
+    err = float(np.abs(got.detach().cpu().numpy() - want).max())
+    return err, AMORTIZE_TOL * float(np.abs(want).max())
+
+
+def amortizer_reference_rows() -> list[dict]:
+    """The packaged d=5 fixture's init_flat (n=40, and n=2048 through the
+    chunked attention) and curve_transformer.forward with the reference's
+    parameters at two shapes, on the card, against the reference's outputs
+    in the .npz."""
+    with np.load(REFERENCE_AMORTIZER_NPZ) as z:
+        ref = dict(z)
+    rows = []
+    am = Amortizer.load(FIXTURE_DIR / "amortizer_d5.npz", device=DEV)
+    i = 0
+    while f"am{i}_out" in ref:
+        args = [torch.from_numpy(ref[f"am{i}_{k}"]).to(DEV)
+                for k in ("Xn", "tn", "Yn", "mask")]
+        with Request(f"init_flat {i}") as req:
+            got = am.init_flat(*args)
+        err, tol = relative_gap(got, ref[f"am{i}_out"])
+        rows.append({"name": "amortizer.init_flat",
+                     "shape": list(args[3].shape), "max_err": err,
+                     "tol": tol, "seconds": req.seconds})
+        check(err <= tol and not any(req.by_kernel.values()),
+              f"init_flat at {tuple(args[3].shape)}: {err:.3e} > {tol:.3e}")
+        i += 1
+    params = tree_from_numpy({k.split("/", 1)[1]: v for k, v in ref.items()
+                              if k.startswith("ct_params/")}, device=DEV)
+    cfg = CurveTransformerConfig(**CT_CONFIG)
+    i = 0
+    while f"ct{i}_mu" in ref:
+        args = [torch.from_numpy(ref[f"ct{i}_{k}"]).to(DEV)
+                for k in ("hp", "y", "mask", "t_norm")]
+        with Request(f"curve forward {i}"), torch.no_grad():
+            mu, sigma = curve_forward(params, *args, cfg)
+        for got, key in ((mu, "mu"), (sigma, "sigma")):
+            err, tol = relative_gap(got, ref[f"ct{i}_{key}"])
+            rows.append({"name": f"curve_transformer.forward {key}",
+                         "shape": list(args[1].shape), "max_err": err,
+                         "tol": tol})
+            check(err <= tol, f"curve forward {key} at "
+                              f"{tuple(args[1].shape)}: {err:.3e} > {tol:.3e}")
+        i += 1
+    return rows
+
+
+def mll_gap_rows() -> list[dict]:
+    """bench_automl.py's amortized MLL-gap rows on the card (dense float64
+    fits, the packaged d=5 amortizer): the converged objective (60 L-BFGS
+    iterations) and the gaps of the default, the one-shot amortized and the
+    polished amortized init, each within GAP_TOL of the reference's."""
+    with np.load(REFERENCE_AMORTIZER_NPZ) as z:
+        ref = dict(z)
+    clear_amortizer_registry()
+    register_amortizer(Amortizer.load(FIXTURE_DIR / "amortizer_d5.npz",
+                                      device=DEV))
+    rows = []
+    for j, seed in enumerate(ref["gap_seeds"].tolist()):
+        task = sample_task(seed=900 + seed, n=12, m=9, d=5, noise=0.005,
+                           crossing=True)
+        args = (task.X, task.t, task.Y, task.mask)
+
+        def fun(**cfg):
+            return fit(*args, LKGPConfig(**cfg)).fit_result.fun
+
+        t0 = time.perf_counter()
+        conv = fun(lbfgs_iters=60)
+        row = {"seed": seed, "fun_converged": conv,
+               "gap_default": fun(polish_steps=0) - conv,
+               "gap_amortized": fun(hyper_init="amortized",
+                                    polish_steps=0) - conv,
+               "gap_polished": fun(hyper_init="amortized",
+                                   polish_steps=2) - conv,
+               "seconds": time.perf_counter() - t0}
+        for key, ref_key in (("fun_converged", "gap_converged"),
+                             ("gap_default", "gap_default"),
+                             ("gap_amortized", "gap_amortized"),
+                             ("gap_polished", "gap_polished")):
+            want = float(ref[ref_key][j])
+            check(abs(row[key] - want) <= GAP_TOL,
+                  f"MLL gap seed {seed} {key}: {row[key]:.6f} against the "
+                  f"reference's {want:.6f}")
+        rows.append(row)
+    clear_amortizer_registry()
+    return rows
+
+
+def refit_summary(ft: dict) -> dict:
+    """Per update of a traced freeze-thaw: seconds, evaluations, PCG
+    iterations, launches (already held to those iterations)."""
+    ups = [r for r in ft["steps"] if "update" in r]
+    reads = [r for r in ft["steps"] if "iters" in r]
+    return {"seconds": ft["seconds"], "regret": ft["regret"],
+            "selected": ft["selected"],
+            "updates": [{k: r[k] for k in ("step", "seconds", "evaluations",
+                                           "pcg_iters", "launches", "fun",
+                                           "optimizer", "init_source")}
+                        for r in ups],
+            "reads": [{k: r[k] for k in ("step", "seconds", "iters")}
+                      for r in reads],
+            "update_seconds": sum(r["seconds"] for r in ups),
+            "evaluations": sum(r["evaluations"] for r in ups),
+            "pcg_iters": sum(r["pcg_iters"] for r in ups)}
+
+
+def phase_amortize(n: int, m: int, d: int, lbfgs_arm: dict | None = None
+                   ) -> dict:
+    """The amortized init on the card: (1) the reference's outputs from the
+    .npz; (2) bench_automl.py's MLL-gap rows; (3) a d=7 amortizer trained on
+    the card; (4) the automl phase's freeze-thaw again with it (amortized +
+    polish on every fit and refit), and with the same polish from the
+    default init, beside that phase's host L-BFGS arm;
+    (5) fit_batch with the amortized init bitwise per-task fit, and two
+    amortized polishes at n=2000 the same bits."""
+    t_phase = time.perf_counter()
+    out = {"phase": "amortize", "n": n, "m": m, "d": d,
+           "matmul": check_full_f32_matmuls("amortize"),
+           "allocated_at_start_bytes": start_memory()}
+    out["reference"] = amortizer_reference_rows()
+    out["mll_gap"] = mll_gap_rows()
+
+    # (3) a d-dimensional amortizer trained here
+    acfg = AmortizerConfig(d=d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    am, info = train_amortizer(acfg, AMORTIZE_TRAIN, device=DEV,
+                               out=lambda *_: None)
+    seconds = time.perf_counter() - t0
+    check(np.isfinite(info["first_loss"]) and np.isfinite(info["final_loss"])
+          and info["final_loss"] < info["first_loss"],
+          f"amortizer training did not converge: {info}")
+    out["train"] = {**info, "seconds": seconds,
+                    "steps_per_second": info["steps"] / seconds,
+                    "tasks_per_step": AMORTIZE_TRAIN.tasks_per_step,
+                    "task_shape": [AMORTIZE_TRAIN.n, AMORTIZE_TRAIN.m]}
+
+    # (4) freeze-thaw with it, every update amortized + polished
+    task = sample_task(SEED, n=n, m=m, d=d)
+    gp = dataclasses.replace(LKGPConfig(**AUTOML_GP), hyper_init="amortized",
+                             polish_steps=AMORTIZE_POLISH_STEPS)
+    ft = freeze_thaw(task, gp, amortizer=am, name="ft_amortized")
+    for r in ft["steps"]:
+        if "update" in r:
+            check(r["init_source"] == "amortized"
+                  and r["optimizer"] == "polish"
+                  and r["evaluations"] == 1 + 4 * AMORTIZE_POLISH_STEPS,
+                  f"amortized freeze-thaw update: {r}")
+    # the same polish from the default init (refits warm-started from the
+    # previous optimum): what the polish buys without the amortizer
+    plain = dataclasses.replace(gp, hyper_init="default")
+    ft_plain = freeze_thaw(task, plain, name="ft_default_polish")
+    for r in ft_plain["steps"]:
+        if "update" in r:
+            check(r["init_source"] in ("default", "params")
+                  and r["evaluations"] == 1 + 4 * AMORTIZE_POLISH_STEPS,
+                  f"default-init freeze-thaw update: {r}")
+    out["freeze_thaw"] = {"amortized_polish": refit_summary(ft),
+                          "default_polish": refit_summary(ft_plain)}
+    if lbfgs_arm is not None:
+        out["freeze_thaw"]["host_lbfgs"] = refit_summary(lbfgs_arm)
+
+    # (5) bitwise: fit_batch = per-task fit; two polishes at full width
+    tasks = sample_suite(SEED + 3, AMORTIZE_BATCH["tasks"], d=d,
+                         n=AMORTIZE_BATCH["n"], m=AMORTIZE_BATCH["m"])
+    X, t, Y, mask, _ = stack_suite(tasks)
+    cfg = LKGPConfig(hyper_init="amortized")
+    batch = fit_batch(X, t, Y, mask, cfg, polish_steps=AMORTIZE_POLISH_STEPS,
+                      amortizer=am)
+    singles = [fit(tk.X, tk.t, tk.Y, tk.mask, LKGPConfig(backend="dense"),
+                   init="amortized", polish_steps=AMORTIZE_POLISH_STEPS,
+                   amortizer=am) for tk in tasks]
+    equal = [all(torch.equal(a, b) for a, b in zip(s.params, b_i.params))
+             for s, b_i in zip(singles, unstack(batch))]
+    check(all(equal), f"amortized fit_batch != per-task fit: {equal}")
+    engine = LoggedKernelEngine()
+    polishes = []
+    for k in range(2):
+        with WarmStep(f"amortized polish {k}", engine, n, m,
+                      lanczos=gp.slq_iters) as req:
+            st = fit(task.X, task.t, task.Y, task.mask, gp, engine=engine,
+                     amortizer=am)
+        row = req.row(st.fit_result)
+        row.pop("cg_iters")
+        polishes.append((st, row))
+    (a, ra), (b, rb) = polishes
+    same = all(torch.equal(x, y) for x, y in zip(a.params, b.params))
+    check(same, "two amortized polishes gave different bits")
+    out["bitwise"] = {"fit_batch_equals_fit": equal,
+                      "fit_batch_tasks": AMORTIZE_BATCH,
+                      "two_polishes_equal": same,
+                      "polish": [ra, rb]}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# The curvepred phase: bench_curve_pred.py's full configuration, the
+# transformer CurveTransformerConfig(d_in=7) (d_model 64, 3 layers, 4 heads,
+# d_ff 128) pre-trained by PretrainConfig(steps=2000, tasks_per_step=6, n=16,
+# m=12) on the card, then head_to_head on its three suites (5 tasks each,
+# n=16, m=12, cutoffs 0.2 / 0.4 / 0.7) against the LKGP with 40 L-BFGS
+# iterations; the paper's tolerance band as bench_curve_pred.py gates it.
+CURVEPRED_PRETRAIN = PretrainConfig(steps=2000, tasks_per_step=6, n=16, m=12,
+                                    log_every=0)
+CURVEPRED_TASKS = 5
+CURVEPRED_CUTOFFS = (0.2, 0.4, 0.7)
+CURVEPRED_TOL = {"mae": 0.08, "nll": 1.5, "rank": 0.35}
+
+
+def curvepred_suites() -> list[dict]:
+    base = dict(d=7, noise=0.01, spike_prob=0.03)
+    return [
+        dict(name="mixed", seed=901, diverge_prob=0.03, crossing=False,
+             **base),
+        dict(name="crossing", seed=902, diverge_prob=0.0, crossing=True,
+             **base),
+        dict(name="noisy-divergent", seed=903, diverge_prob=0.08,
+             crossing=False, **dict(base, noise=0.03)),
+    ]
+
+
+def phase_curvepred() -> dict:
+    """The paper's headline comparison on the card: pre-train the curve
+    transformer, then score it and the LKGP on identical held-out cells."""
+    t_phase = time.perf_counter()
+    out = {"phase": "curvepred",
+           "matmul": check_full_f32_matmuls("curvepred"),
+           "allocated_at_start_bytes": start_memory()}
+    model_cfg = CurveTransformerConfig(d_in=7)
+    pre = CURVEPRED_PRETRAIN
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, info = pretrain(model_cfg, pre, device=DEV, out=lambda *_: None)
+    seconds = time.perf_counter() - t0
+    out["pretrain"] = {**info, "seconds": seconds,
+                       "steps_per_second": info["steps"] / seconds,
+                       "tasks_per_step": pre.tasks_per_step, "n": pre.n,
+                       "m": pre.m}
+    check(info["final_loss"] < info["first_loss"],
+          f"pretraining did not converge: {info}")
+    gp = LKGPConfig(lbfgs_iters=40, seed=SEED)
+    rows = []
+    for suite in curvepred_suites():
+        tasks = sample_suite(suite["seed"], CURVEPRED_TASKS, n=pre.n, m=pre.m,
+                             d=suite["d"], noise=suite["noise"],
+                             spike_prob=suite["spike_prob"],
+                             diverge_prob=suite["diverge_prob"],
+                             crossing=suite["crossing"])
+        rows += head_to_head(params, model_cfg, tasks,
+                             cutoffs=CURVEPRED_CUTOFFS, gp_cfg=gp, seed=SEED,
+                             suite=suite["name"], device=DEV)
+    check(len(rows) == 3 * CURVEPRED_TASKS * len(CURVEPRED_CUTOFFS) * 2,
+          f"curvepred: {len(rows)} rows")
+    summary = {}
+    for model in ("lkgp", "transformer"):
+        sel = [r for r in rows if r["model"] == model]
+        for r in sel:
+            check(all(np.isfinite(r[k]) for k in ("nll", "mae",
+                                                   "rank_corr")),
+                  f"curvepred row not finite: {r}")
+        summary[model] = {k: float(np.mean([r[k] for r in sel]))
+                          for k in ("nll", "mae", "rank_corr", "fit_s",
+                                    "predict_s")}
+    lk, tf = summary["lkgp"], summary["transformer"]
+    out["summary"] = summary
+    out["tolerances"] = CURVEPRED_TOL
+    out["acceptance"] = {
+        "lkgp_matches_transformer_mae":
+            lk["mae"] <= tf["mae"] + CURVEPRED_TOL["mae"],
+        "lkgp_matches_transformer_nll":
+            lk["nll"] <= tf["nll"] + CURVEPRED_TOL["nll"],
+        "lkgp_matches_transformer_rank":
+            lk["rank_corr"] >= tf["rank_corr"] - CURVEPRED_TOL["rank"],
+        "transformer_pretrain_converged":
+            info["final_loss"] < info["first_loss"]}
+    out["by_suite"] = {
+        name: {model: {k: float(np.mean([r[k] for r in rows
+                                         if r["suite"] == name
+                                         and r["model"] == model]))
+                       for k in ("nll", "mae", "rank_corr")}
+               for model in ("lkgp", "transformer")}
+        for name in [s["name"] for s in curvepred_suites()]}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def build_all() -> dict:
     """Compile every kernel source at once (one nvcc process each)."""
     t0 = time.perf_counter()
@@ -3054,7 +3409,26 @@ def main() -> None:
                 check(automl_totals[name] > 0, f"the automl path never "
                       f"launched {name}, the route of (B, n, m) = "
                       f"{(B, n, m)}")
+    lbfgs_arm = automl_out["freeze_thaw"]
     del automl_out
+    torch.cuda.empty_cache()
+
+    # Main path 3c, the amortized init: the reference's outputs, the MLL
+    # gaps, a d=7 amortizer trained here, and the freeze-thaw again with it
+    # (amortized + polish), each refit held to its launches; counted from
+    # zero over this phase.
+    reset_launch_counts()
+    with unescalated("amortize"):
+        amortize_out = phase_amortize(**AUTOML_SHAPE, lbfgs_arm=lbfgs_arm)
+    amortize_totals = launch_counts()
+    amortize_out["launches"] = amortize_totals
+    emit(amortize_out)
+    for B in (probes + 1, probes, 1, 65):
+        for name in ROUTE_KERNELS[routed(AUTOML_SHAPE["n"], AUTOML_SHAPE["m"],
+                                         B)]:
+            check(amortize_totals[name] > 0, f"the amortize path never "
+                  f"launched {name}, the route of B = {B}")
+    del amortize_out, lbfgs_arm
     torch.cuda.empty_cache()
 
     # Main path 4, the batched dense path (fit_batch, posterior_batch): no
@@ -3074,6 +3448,12 @@ def main() -> None:
     service_out["launches"] = launch_counts()
     emit(service_out)
     del service_out
+    torch.cuda.empty_cache()
+
+    # Main path 4c, the paper's Transformer baseline against the LKGP (dense
+    # fits: no MVM kernel).
+    with unescalated("curvepred"):
+        emit(phase_curvepred())
     torch.cuda.empty_cache()
 
     # Main path 5, the distributed engine in an NCCL group of one rank.
@@ -3105,7 +3485,7 @@ def main() -> None:
 
     csrc = "src/repro_torch/kernels/csrc/"
     main_paths = {k: serve_launches[k] + solvers_totals[k] + fit_totals[k]
-                  + warm_totals[k] + automl_totals[k]
+                  + warm_totals[k] + automl_totals[k] + amortize_totals[k]
                   for k in ("lk_mvm_fused", "lk_mvm_stage_right",
                             "lk_mvm_stage_left")}
     emit({"kernels": [

@@ -12,6 +12,8 @@
     python3 rehearse_chip_smoke.py exact
     python3 rehearse_chip_smoke.py automl --n 200
     python3 rehearse_chip_smoke.py service
+    python3 rehearse_chip_smoke.py amortize --n 200
+    python3 rehearse_chip_smoke.py curvepred
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -30,6 +32,7 @@ are CPU times of the plain versions, never a device metric.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import importlib
 import json
@@ -65,7 +68,9 @@ def _patch_port_for_cpu() -> None:
 
     for mod in ("repro_torch._device", "repro_torch.core.state",
                 "repro_torch.core.posterior", "repro_torch.kernels.ops",
-                "repro_torch.convert"):
+                "repro_torch.convert", "repro_torch.train.trainer",
+                "repro_torch.baselines.evaluate",
+                "repro_torch.amortize.encoder"):
         importlib.import_module(mod)
         sys.modules[mod].resolve_device = resolve
     lk = importlib.import_module("repro_torch.kernels.lk_mvm")
@@ -95,13 +100,19 @@ def main() -> None:
     ap.add_argument("phase", choices=("fit", "kernels", "distributed",
                                       "gram", "routes", "warm", "batch",
                                       "solvers", "exact", "automl",
-                                      "service"))
+                                      "service", "amortize", "curvepred"))
     ap.add_argument("--n", type=int, default=300,
                     help="configurations of the fit, warm and automl "
                          "phases (m=52, d=7; the automl phase's Hyperband "
                          "pool stays 243 x 27), of the distributed and "
                          "solvers phases' serving (m=64, d=7; the solvers "
-                         "phase's objective at m=52) and of the gram phase")
+                         "phase's objective at m=52), of the amortize "
+                         "phase's freeze-thaw (m=52, d=7) and of the gram "
+                         "phase")
+    ap.add_argument("--steps", type=int, default=40,
+                    help="training steps of the amortize phase's amortizer "
+                         "and of the curvepred phase's transformer (the "
+                         "card runs 400 and 2000)")
     args = ap.parse_args()
     _patch_cuda_for_cpu()
     _patch_port_for_cpu()
@@ -166,6 +177,19 @@ def main() -> None:
             out = cs.phase_service()
         out["launches"] = cs.launch_counts()
         print(json.dumps(out))
+    elif args.phase == "amortize":
+        cs.AMORTIZE_TRAIN = cs.AmortizeTrainConfig(steps=args.steps)
+        cs.reset_launch_counts()
+        with cs.unescalated("amortize"):
+            out = cs.phase_amortize(n=args.n, m=52, d=7)
+        out["launches"] = cs.launch_counts()
+        print(json.dumps(out))
+    elif args.phase == "curvepred":
+        cs.CURVEPRED_PRETRAIN = dataclasses.replace(cs.CURVEPRED_PRETRAIN,
+                                                    steps=args.steps)
+        cs.CURVEPRED_TASKS = 1
+        with cs.unescalated("curvepred"):
+            print(json.dumps(cs.phase_curvepred()))
     elif args.phase == "exact":
         with cs.unescalated("exact"):
             print(json.dumps(cs.phase_exact()))

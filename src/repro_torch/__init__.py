@@ -13,7 +13,13 @@ What is ported so far is the path that fits a model and serves it:
 (or ``state_from_reference(...)`` in place of ``fit``), its warm-start family
 (``extend`` / ``refit`` / the fixed-budget polish; ``fit_batch`` ->
 ``posterior_batch`` for batches of small tasks) and the data layer
-(``repro_torch.data``), through the
+(``repro_torch.data``), the AutoML schedulers (``repro_torch.autotune``) and
+the multi-tenant prediction service (``repro_torch.serving``), the amortized
+hyper-parameter init (``repro_torch.amortize``: ``fit(init="amortized")``,
+``hyper_init="amortized"``, its training) and the paper's Transformer
+baseline (``repro_torch.baselines``: the curve transformer, its
+pre-training through ``repro_torch.train``, the head-to-head against the
+LKGP), through the
 ``dense``, ``iterative``, ``cuda`` and ``distributed`` inference engines. On
 the ``cuda`` engine every CG iteration of the fit's marginal likelihood and
 of the posterior solves is one sweep of the hand-written latent-Kronecker
@@ -32,13 +38,14 @@ the CPU. Tests pass ``device="cpu"`` explicitly.
 """
 from ._device import resolve_device
 from .convert import (params_from_numpy, params_to_numpy, probes_from_numpy,
-                      state_from_reference)
+                      state_from_reference, tree_from_numpy, tree_to_numpy)
 from .core import (DistributedEngine, LKGPConfig, LKGPParams, LKGPState,
                    Posterior, fit, get_engine, init_params, posterior)
 
 __all__ = [
     "resolve_device", "params_from_numpy", "params_to_numpy",
-    "probes_from_numpy", "state_from_reference",
+    "probes_from_numpy", "state_from_reference", "tree_from_numpy",
+    "tree_to_numpy",
     "DistributedEngine", "LKGPConfig", "LKGPParams", "LKGPState",
     "Posterior", "fit", "get_engine", "init_params", "posterior",
 ]

@@ -38,7 +38,6 @@ import torch
 
 from .._device import resolve_device
 from ..core import LKGPConfig, LKGPState, extend, fit, posterior, refit
-from ..core.state import _NOT_PORTED_INIT
 from ..data.curves import CurveTask, replay_step_fns
 from ..data.transforms import AffineTransform
 
@@ -64,17 +63,23 @@ class CurvePredictor:
     maximize : if False the metric is negated internally so score space is
         always "larger is better" (ignored when ``metric_tf`` is given).
     refit_lbfgs_iters : L-BFGS budget for warm-started refits
-        (None -> ``gp.lbfgs_iters``). With ``gp.polish_steps >= 0`` every
-        fit/refit runs the fixed-budget polish instead.
+        (None -> ``gp.lbfgs_iters``). Only the host-L-BFGS path reads it:
+        with ``gp.polish_steps >= 0`` every fit/refit instead runs the
+        fixed-budget polish from the init ``gp.hyper_init`` selects
+        (``"default"`` or ``"amortized"``; refits warm-start from the current
+        optimum unless ``hyper_init="amortized"``, which re-amortizes on each
+        round's extended data).
     t : explicit progression grid (length ``max_epochs``; positive,
         strictly increasing) - e.g. a real dataset's log-spaced budget
         fidelities. The GP's progression kernel sees these values; the
         scheduler's epoch indices keep addressing positions ``0..m-1``.
     metric_tf : invertible transform raw metric -> score space. Default:
         the +-1 sign flip derived from ``maximize``.
-    amortizer : must be None; an amortizer (and ``gp.hyper_init=
-        "amortized"``) raises ``NotImplementedError``: the amortized init is
-        not ported yet.
+    amortizer : an explicit :class:`repro_torch.amortize.Amortizer`
+        forwarded to ``fit`` / ``refit``; passing one opts every fit and
+        refit into amortized inits with this encoder. None leaves the choice
+        to ``gp.hyper_init`` (whose ``"amortized"`` resolves the registered
+        or packaged encoder).
     engine : an explicit inference engine for the cold fit, which the
         state then keeps for its refits and posteriors (as ``fit``'s).
     device : where the model lives (``None``: the GPU; raises without one).
@@ -100,11 +105,10 @@ class CurvePredictor:
         else:
             raise ValueError("give max_epochs or an explicit t grid")
         self.gp = gp if gp is not None else LKGPConfig(lbfgs_iters=30)
-        if amortizer is not None or self.gp.hyper_init == "amortized":
-            raise NotImplementedError(_NOT_PORTED_INIT)
         self.metric_tf = (metric_tf if metric_tf is not None
                           else AffineTransform.sign(maximize))
         self.refit_lbfgs_iters = refit_lbfgs_iters
+        self.amortizer = amortizer
         self.seed = seed
         self.engine = engine
         self.device = resolve_device(device)
@@ -126,11 +130,13 @@ class CurvePredictor:
         mask = np.asarray(mask, np.float64)
         if self.state is None:
             self.state = fit(self.X, self.t, Y, mask, self.gp,
-                             engine=self.engine, device=self.device)
+                             engine=self.engine, amortizer=self.amortizer,
+                             device=self.device)
         else:
             self.state = extend(self.state, Y, mask)
             self.state = refit(self.state,
-                               lbfgs_iters=self.refit_lbfgs_iters)
+                               lbfgs_iters=self.refit_lbfgs_iters,
+                               amortizer=self.amortizer)
         self.n_refits += 1
 
     def predict_final(self, generator: torch.Generator | None = None, *,

@@ -48,7 +48,8 @@ class AutotuneConfig:
     # L-BFGS budget for warm-started refits; None -> gp.lbfgs_iters. With
     # gp.polish_steps >= 0 every refit runs the fixed-budget polish instead.
     refit_lbfgs_iters: int | None = None
-    # Must stay None: the amortized init is not ported yet.
+    # Explicit repro_torch.amortize.Amortizer; passing one opts every fit and
+    # refit into amortized inits with it (None defers to gp.hyper_init).
     amortizer: object | None = None
 
 

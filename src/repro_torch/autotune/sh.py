@@ -49,7 +49,8 @@ class SHConfig:
     gp: LKGPConfig = field(default_factory=lambda: LKGPConfig(lbfgs_iters=30))
     # Host L-BFGS budget for warm refits; ignored when gp.polish_steps >= 0.
     refit_lbfgs_iters: int | None = 10
-    # Must stay None: the amortized init is not ported yet.
+    # Explicit repro_torch.amortize.Amortizer; passing one opts every fit and
+    # refit into amortized inits with it (None defers to gp.hyper_init).
     amortizer: object | None = None
 
 

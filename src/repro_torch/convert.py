@@ -6,7 +6,12 @@ a reference state into numpy (``np.asarray`` on each field) and its config
 into a dict (``dataclasses.asdict``), and reads the port's parameters back
 with :func:`params_to_numpy`. A batched state (the reference's
 ``fit_batch``: every array with a leading task axis) crosses the same way,
-and is served by :func:`repro_torch.core.posterior.posterior_batch`.
+and is served by :func:`repro_torch.core.posterior.posterior_batch`. The
+curve transformer's and the amortizer's parameter trees cross with
+:func:`tree_from_numpy` / :func:`tree_to_numpy`: the reference's pytree of
+arrays (nested dicts, as ``jax.tree_util.tree_map(np.asarray, params)``
+gives it) or its flat ``/``-joined paths, to and from the port's nested dict
+of tensors with the same paths.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from .core.state import LKGPConfig, LKGPParams, LKGPState
 from .core.transforms import TTransform, XTransform, YTransform
 
 __all__ = ["params_from_numpy", "params_to_numpy", "probes_from_numpy",
-           "state_from_reference"]
+           "state_from_reference", "tree_from_numpy", "tree_to_numpy"]
 
 _PARAM_FIELDS = LKGPParams._fields
 
@@ -121,3 +126,32 @@ def state_from_reference(arrays: Mapping[str, Any],
         y_tf=YTransform(shift=tensor("y_tf.shift"),
                         scale=tensor("y_tf.scale")),
         config=config)
+
+
+def tree_from_numpy(tree: Mapping[str, Any], *,
+                    dtype: torch.dtype = torch.float32,
+                    device=None) -> dict:
+    """A parameter tree of numpy arrays (nested dicts, or flat paths joined
+    with ``/``) as the port's nested dict of ``dtype`` tensors on ``device``
+    (``None``: the GPU)."""
+    dev = resolve_device(device)
+    out: dict = {}
+    for key, value in tree.items():
+        node = out
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        if isinstance(value, Mapping):
+            node.setdefault(leaf, {}).update(
+                tree_from_numpy(value, dtype=dtype, device=dev))
+        else:
+            node[leaf] = torch.tensor(np.asarray(value), dtype=dtype,
+                                      device=dev)
+    return out
+
+
+def tree_to_numpy(tree: Mapping[str, Any]) -> dict:
+    """The port's parameter tree as nested dicts of numpy arrays, the
+    reference's pytree layout (the inverse of :func:`tree_from_numpy`)."""
+    return {k: tree_to_numpy(v) if isinstance(v, Mapping)
+            else v.detach().cpu().numpy() for k, v in tree.items()}

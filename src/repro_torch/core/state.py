@@ -15,8 +15,10 @@ engine ``config.backend`` names. State transitions are functional:
 hyper-parameters, ``refit(state)`` re-optimises them, ``fit_batch`` fits a
 batch of same-shaped tasks through the exact objective, and
 ``stack_states`` / ``unstack`` move between per-task and batched states.
-The amortized init is not ported yet (ROADMAP queue 1 item 13); a state
-fitted by the reference can also be carried across with
+The starting point is the prior-mean init, explicit parameters, or the
+amortized init of :mod:`repro_torch.amortize` (``hyper_init="amortized"``):
+a set encoder's data-conditioned guess, which the fixed-budget polish then
+refines. A state fitted by the reference can also be carried across with
 :func:`repro_torch.convert.state_from_reference`.
 """
 from __future__ import annotations
@@ -79,8 +81,10 @@ class LKGPConfig:
     linear solver (``"auto"``: PCG iff ``precond_rank > 0``), and
     ``solve_policy`` with the ``guard_*`` fields the escalation ladder of
     the eager (posterior) solves (:mod:`repro_torch.core.solvers.guarded`).
-    ``hyper_init="amortized"`` makes :func:`fit` raise
-    ``NotImplementedError``.
+    ``hyper_init="amortized"`` starts every fit AND every refit from the
+    registered :mod:`repro_torch.amortize` encoder's guess on the current
+    data; ``polish_steps`` picks the optimiser (-1: the host L-BFGS, 0: none,
+    k > 0: k polish steps).
     """
     t_kernel: str = "matern12"
     backend: str = "auto"           # "auto" | dense | iterative | cuda (alias: pallas) | distributed
@@ -239,8 +243,9 @@ class FitResult(NamedTuple):
     ``x`` / ``fun`` / ``n_iters`` / ``n_evals`` / ``converged`` as the
     L-BFGS result; ``budget`` is the iteration cap the optimiser ran under,
     ``init_source`` where the starting point came from (``"default"`` |
-    ``"params"``), ``optimizer`` the path taken (``"lbfgs"`` host loop,
-    ``"polish"`` fixed-budget polish, ``"none"`` for ``polish_steps=0``).
+    ``"amortized"`` | ``"params"``), ``optimizer`` the path taken
+    (``"lbfgs"`` host loop, ``"polish"`` fixed-budget polish, ``"none"``
+    for ``polish_steps=0``).
     ``converged`` reflects the gradient tolerance at the final iterate;
     ``n_iters == budget`` with ``converged=False`` means the budget bound
     first.
@@ -348,18 +353,18 @@ def _cached_polish(cfg: LKGPConfig, engine, d: int, steps: int):
     return fn
 
 
-_NOT_PORTED_INIT = ("ROADMAP queue 1 item 13 (amortize/): the amortized "
-                    "hyper-parameter init is not ported yet")
-
-
 def _resolve_init(cfg: LKGPConfig, init, params0, amortizer, d: int, dtype,
-                  device, batch: int | None = None
+                  device, Xn, tn, Yn, mask, batch: int | None = None
                   ) -> tuple[LKGPParams, str]:
     """Starting parameters and their provenance, with the reference's
     precedence: explicit ``init`` > ``params0`` > a passed ``amortizer`` >
-    ``cfg.hyper_init``. Explicit params already in ``dtype`` on ``device``
-    come back as the same tensors. With ``batch`` set the parameters carry
-    a leading task axis."""
+    ``cfg.hyper_init``. ``"amortized"`` applies the passed (else the
+    registered or packaged, :func:`repro_torch.amortize.get_amortizer`)
+    encoder to the transformed data ``Xn, tn, Yn, mask`` and casts its
+    float32 guess to ``dtype`` on ``device``; ``fit_batch`` asks it once per
+    task (``init_batch``). Explicit params already in ``dtype`` on
+    ``device`` come back as the same tensors. With ``batch`` set the data
+    and the parameters carry a leading task axis."""
     if init is None:
         if params0 is not None:
             init = params0
@@ -375,7 +380,15 @@ def _resolve_init(cfg: LKGPConfig, init, params0, amortizer, d: int, dtype,
                                  for a in p))
             return p, "default"
         if init == "amortized":
-            raise NotImplementedError(_NOT_PORTED_INIT)
+            if amortizer is None:
+                from ..amortize import get_amortizer
+                amortizer = get_amortizer(d, device)
+            if batch is not None:
+                p = amortizer.init_batch(Xn, tn, Yn, mask)
+            else:
+                p = amortizer.init_for(Xn, tn, Yn, mask)
+            return LKGPParams(*(a.to(device=device, dtype=dtype)
+                                for a in p)), "amortized"
         raise ValueError(f"unknown init {init!r}; expected 'default', "
                          "'amortized', or explicit LKGPParams")
     p = LKGPParams(*(torch.as_tensor(a, dtype=dtype, device=device)
@@ -448,17 +461,18 @@ def fit(X, t, Y, mask, config: LKGPConfig | None = None,
     tensors; the state's dtype is ``X``'s and everything lives on ``device``
     (``None`` = the GPU).
 
-    ``init`` selects the starting point: ``"default"`` (prior-mean init) or
-    explicit :class:`LKGPParams`; unset, it falls back to ``params0`` and
-    then ``config.hyper_init``. ``polish_steps`` is a one-call override of
+    ``init`` selects the starting point: ``"default"`` (prior-mean init),
+    ``"amortized"`` (the passed ``amortizer``, else the registered or
+    packaged :mod:`repro_torch.amortize` encoder, on the transformed data) or
+    explicit :class:`LKGPParams`; unset, it falls back to ``params0``, then
+    to ``"amortized"`` if an ``amortizer`` is passed, then to
+    ``config.hyper_init``. ``polish_steps`` is a one-call override of
     ``config.polish_steps``: ``-1`` runs the host L-BFGS for up to
     ``config.lbfgs_iters`` iterations, ``0`` skips optimisation (the init is
     the fit, bitwise), ``k > 0`` runs exactly ``k`` steps of the fixed-budget
     polish (:mod:`repro_torch.core.polish`, ``1 + 4 k`` evaluations).
-    ``init="amortized"`` and an ``amortizer`` raise ``NotImplementedError``
-    (ROADMAP queue 1 item 13). Iterative engines draw ``config.slq_probes``
-    Rademacher probes once, from a ``torch.Generator`` on the device seeded
-    with ``config.seed``.
+    Iterative engines draw ``config.slq_probes`` Rademacher probes once,
+    from a ``torch.Generator`` on the device seeded with ``config.seed``.
     """
     from .engines import get_engine
 
@@ -488,7 +502,7 @@ def fit(X, t, Y, mask, config: LKGPConfig | None = None,
         probes = rademacher_probes(gen, cfg.slq_probes, mask, dtype)
 
     p0, init_source = _resolve_init(cfg, init, params0, amortizer, d, dtype,
-                                    dev)
+                                    dev, Xn, tn, Yn, mask)
     budget = cfg.polish_steps if polish_steps is None else polish_steps
 
     if budget >= 0:
@@ -558,8 +572,10 @@ def fit_batch(X, t, Y, mask, config: LKGPConfig | None = None,
     ``polish_steps=k >= 0`` each task runs the single-task fixed-budget
     polish of :func:`fit` on the ``dense`` engine from its init, one call
     per task, so task i's parameters are bitwise those of ``fit(task_i,
-    LKGPConfig(backend="dense"), polish_steps=k)``. With the default ``-1``
-    one host L-BFGS runs on the sum of the per-task objectives over the
+    LKGPConfig(backend="dense"), polish_steps=k)`` from the same init; an
+    amortized init is the encoder's single-task guess for each task
+    (``Amortizer.init_batch``), so that holds for it too. With the default
+    ``-1`` one host L-BFGS runs on the sum of the per-task objectives over the
     concatenated parameter vector (the reference's flat layout: every
     task's x-lengthscales, then the t-lengthscales, outputscales, noises).
     """
@@ -586,8 +602,9 @@ def fit_batch(X, t, Y, mask, config: LKGPConfig | None = None,
             for (x_tf, t_tf, y_tf), (Xi, ti, Yi, mi) in zip(tfs, tasks)]
     x_tf, t_tf, y_tf = (_stack(list(f)) for f in zip(*tfs))
 
-    p0, init_source = _resolve_init(cfg, init, params0, amortizer, d, dtype,
-                                    dev, batch=B)
+    p0, init_source = _resolve_init(
+        cfg, init, params0, amortizer, d, dtype, dev,
+        *(torch.stack(f) for f in zip(*data)), batch=B)
     budget = cfg.polish_steps if polish_steps is None else polish_steps
 
     if budget >= 0:
@@ -763,10 +780,11 @@ def refit(state: LKGPState, config: LKGPConfig | None = None,
     ``lbfgs_iters`` and ``polish_steps`` are one-call budget overrides: they
     do NOT persist into the returned state's config. An engine bound by the
     original ``fit`` is reused unless a new one is given. The starting point
-    defaults to ``state.params``; with ``init=<params>`` and
-    ``polish_steps=0`` the given params round-trip bitwise.
-    ``init="amortized"``, ``hyper_init="amortized"`` and an ``amortizer``
-    raise ``NotImplementedError`` (ROADMAP queue 1 item 13).
+    defaults to ``state.params`` (a warm start), unless the config says
+    ``hyper_init="amortized"``, an ``amortizer`` is passed or
+    ``init="amortized"``: then the refit re-amortizes on the *current* data.
+    With ``init=<params>`` and ``polish_steps=0`` the given params
+    round-trip bitwise.
     """
     base_cfg = config if config is not None else state.config
     cfg = base_cfg

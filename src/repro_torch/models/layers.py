@@ -1,0 +1,169 @@
+"""Shared neural-net layers (counterpart of ``repro.models.layers``).
+
+Only what the curve transformer (:mod:`repro_torch.baselines`) and the
+hyper-parameter amortizer (:mod:`repro_torch.amortize`) call is ported:
+``rms_norm``, ``mlp`` / ``mlp_params`` and ``attention`` with both of its
+paths. Rotary embeddings, decode attention, ``chunked_ce_loss`` and the KV
+``Cache`` belong to the LM zoo and wait for ROADMAP queue 1 item 14.
+
+Conventions, as the reference's: activations are (batch, seq, d_model);
+attention scores and the softmax are computed in float32 and the output is
+cast back to the activation dtype; every gelu is the tanh approximation
+(``jax.nn.gelu``'s default, not ``F.gelu``'s). Sequences longer than 1024
+whose lengths divide into the chunks take the chunked (flash-style) path:
+query blocks against key blocks with an online softmax, so no (Sq, Sk) score
+matrix is held. The reference wraps its key loop in ``jax.checkpoint``; that
+only trades memory in the backward pass and changes no value, so the port's
+loops are plain.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["rms_norm", "mlp", "mlp_params", "attention"]
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in float32 with the scale applied as ``1 + scale``."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+def mlp(x: torch.Tensor, params: dict, act: str) -> torch.Tensor:
+    """act in {swiglu, geglu, gelu, relu2}. Gated acts use wi_0 (gate) and
+    wi_1; the others take the optional biases bi_0 / bo."""
+    if act in ("swiglu", "geglu"):
+        g = torch.einsum("bsd,df->bsf", x, params["wi_0"])
+        u = torch.einsum("bsd,df->bsf", x, params["wi_1"])
+        g = F.silu(g.float()) if act == "swiglu" else _gelu(g.float())
+        h = (g * u.float()).to(x.dtype)
+    else:
+        h = torch.einsum("bsd,df->bsf", x, params["wi_0"])
+        if act == "gelu":
+            h = _gelu(h.float()).to(x.dtype)
+        elif act == "relu2":  # squared ReLU (Nemotron-4)
+            h32 = torch.clamp_min(h.float(), 0.0)
+            h = (h32 * h32).to(x.dtype)
+        else:
+            raise ValueError(act)
+        if "bi_0" in params:
+            h = h + params["bi_0"].to(h.dtype)
+    out = torch.einsum("bsf,fd->bsd", h, params["wo"])
+    if "bo" in params:
+        out = out + params["bo"].to(out.dtype)
+    return out
+
+
+def mlp_params(act: str, d_model: int, d_ff: int, bias: bool = False):
+    """(name -> (shape, logical_axes, fan_in)) table entries for an MLP."""
+    table = {}
+    if act in ("swiglu", "geglu"):
+        table["wi_0"] = ((d_model, d_ff), ("embed", "mlp"), d_model)
+        table["wi_1"] = ((d_model, d_ff), ("embed", "mlp"), d_model)
+    else:
+        table["wi_0"] = ((d_model, d_ff), ("embed", "mlp"), d_model)
+        if bias:
+            table["bi_0"] = ((d_ff,), ("mlp",), None)
+    table["wo"] = ((d_ff, d_model), ("mlp", "embed"), d_ff)
+    if bias:
+        table["bo"] = ((d_model,), ("embed",), None)
+    return table
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+def _visible(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+             window) -> torch.Tensor:
+    """(cq, ck) bool: which keys each query may attend to."""
+    ok = torch.ones(q_pos.shape[0], k_pos.shape[1], dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    return ok
+
+
+def _plain_attention(q, k, v, causal, window, q_offset):
+    """q: (B, Sq, Hq, Dh), k/v: (B, Sk, Hkv, Dh). Full score matrix."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, Dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+    scores = scores / math.sqrt(Dh)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = _visible(qpos, kpos, causal, window)
+    scores = torch.where(ok, scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return out.reshape(B, Sq, Hq, Dh)
+
+
+def _chunked_attention(q, k, v, causal, window, q_chunk, kv_chunk):
+    """Query blocks against key blocks with an online softmax; O(cq * ck)
+    score memory."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    nq, nk = Sq // q_chunk, Sk // kv_chunk
+    qs = q.reshape(B, nq, q_chunk, Hkv, G, Dh)
+    ks = k.reshape(B, nk, kv_chunk, Hkv, Dh)
+    vs = v.reshape(B, nk, kv_chunk, Hkv, Dh)
+    scale = 1.0 / math.sqrt(Dh)
+    outs = []
+    for qi in range(nq):
+        qb = qs[:, qi]                                   # (B, cq, Hkv, G, Dh)
+        m = torch.full((B, Hkv, G, q_chunk), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Hkv, G, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, Hkv, G, q_chunk, Dh), dtype=torch.float32,
+                          device=q.device)
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device)[:, None]
+        for ki in range(nk):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, ks[:, ki]).float() * scale
+            kpos = ki * kv_chunk + torch.arange(kv_chunk,
+                                                device=q.device)[None, :]
+            ok = _visible(qpos, kpos, causal, window)
+            s = torch.where(ok, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vs[:, ki].float())
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        outs.append(torch.einsum("bhgqd->bqhgd", out))   # (B, cq, Hkv, G, Dh)
+    out = torch.stack(outs, dim=1).reshape(B, Sq, Hq, Dh)
+    return out.to(q.dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0,
+              q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
+    """Dispatch between plain and chunked attention on the sequence length,
+    by the reference's rule: chunked when ``Sq > max(q_chunk, 1024)`` and
+    both lengths divide into their chunks."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq <= max(q_chunk, 1024) or Sq % q_chunk or Sk % kv_chunk:
+        return _plain_attention(q, k, v, causal, window, q_offset)
+    return _chunked_attention(q, k, v, causal, window, q_chunk, kv_chunk)

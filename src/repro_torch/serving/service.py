@@ -63,9 +63,10 @@ __all__ = ["ServiceConfig", "Prediction", "PredictionService"]
 class ServiceConfig:
     """Service policy knobs (the GP itself is configured via ``gp``).
 
-    ``gp.polish_steps`` selects the fit strategy for every session: the
-    default host L-BFGS, or a fixed budget of polish steps
-    (:mod:`repro_torch.core.polish`).
+    ``gp.hyper_init`` / ``gp.polish_steps`` select the fit strategy for
+    every session: the default host L-BFGS, or an amortized or default-init
+    start polished by a fixed budget of steps (see
+    :mod:`repro_torch.amortize` and :mod:`repro_torch.core.polish`).
     """
 
     gp: LKGPConfig = field(default_factory=LKGPConfig)

@@ -1,0 +1,97 @@
+"""The train step on one device (counterpart of ``repro.train.trainer``).
+
+:func:`make_train_step` builds ``step_fn(state, batch) -> (state,
+metrics)`` for any model with the zoo's shape (``init(generator)``,
+``loss(params, batch)``): the loss's gradient through autograd, optionally
+accumulated over ``grad_accum`` microbatches, then one step of
+:func:`repro_torch.train.optimizers.apply_update`. The microbatches are the
+reference's *strided* ones: microbatch ``i`` holds rows ``i, i + accum,
+i + 2 accum, ...`` of every batch entry (the reference's reshape to
+(B / accum, accum, ...) and swap of the first two axes). The reference's
+mesh, shardings, gradient compression and donated buffers have nothing to
+do on one device and are left out; its ``make_serve_steps`` and
+``distributed/sharding.py`` serve the LM zoo and wait for ROADMAP queue 1
+item 14.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from .._device import resolve_device
+from .optimizers import (OptConfig, apply_update, init_opt_state, tree_leaves,
+                         tree_map)
+
+__all__ = ["TrainState", "TrainSetup", "make_train_step"]
+
+
+class TrainState(NamedTuple):
+    params: Any              # nested dict of tensors
+    opt_state: Any           # the optimizer's trees
+    step: torch.Tensor       # 0-d int32, steps taken
+
+
+class TrainSetup(NamedTuple):
+    step_fn: Callable        # (state, batch) -> (state, metrics)
+    init_state: Callable     # (seed) -> TrainState on the setup's device
+    device: torch.device
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """Loss and its gradient tree at ``params``, both detached."""
+    with torch.enable_grad():
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = loss_fn(live, batch)
+        leaves = tree_leaves(live)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # a leaf the loss does not reach has a zero gradient, as under jax.grad
+    by_id = {id(leaf): torch.zeros_like(leaf) if g is None else g
+             for leaf, g in zip(leaves, grads)}
+    return loss.detach(), tree_map(lambda p: by_id[id(p)], live)
+
+
+def make_train_step(model, opt_cfg: OptConfig | None = None,
+                    grad_accum: int = 1, device=None) -> TrainSetup:
+    """The train step of ``model`` on ``device`` (``None``: the GPU).
+
+    ``init_state(seed)`` draws the parameters from a ``torch.Generator`` on
+    the device seeded with ``seed``. ``step_fn`` takes a dict of tensors on
+    that device; with ``grad_accum > 1`` every entry's leading axis must be
+    divisible by it, and the loss and gradient are the means over the
+    microbatches. ``metrics`` holds device scalars (``loss``, ``lr``,
+    ``grad_norm``): nothing in a step reads the device.
+    """
+    opt_cfg = opt_cfg or OptConfig()
+    dev = resolve_device(device)
+
+    def train_step(state: TrainState, batch: dict):
+        if grad_accum > 1:
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device),
+                            state.params)
+            lsum = 0.0
+            for i in range(grad_accum):
+                mb = {k: v[i::grad_accum] for k, v in batch.items()}
+                loss, g = _value_and_grad(model.loss, state.params, mb)
+                gsum = tree_map(lambda a, b: a + b.float(), gsum, g)
+                lsum = lsum + loss
+            grads = tree_map(lambda g: g / grad_accum, gsum)
+            loss = lsum / grad_accum
+        else:
+            loss, grads = _value_and_grad(model.loss, state.params, batch)
+        new_params, new_opt, metrics = apply_update(
+            state.params, grads, state.opt_state, state.step, opt_cfg)
+        metrics["loss"] = loss
+        return TrainState(params=new_params, opt_state=new_opt,
+                          step=state.step + 1), metrics
+
+    def init_state(seed: int) -> TrainState:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = model.init(gen)
+        return TrainState(params=params,
+                          opt_state=init_opt_state(params, opt_cfg),
+                          step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    return TrainSetup(step_fn=train_step, init_state=init_state, device=dev)

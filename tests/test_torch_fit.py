@@ -246,7 +246,9 @@ def test_fit_init_options(task):
     """polish_steps=0 returns the init bitwise with one evaluation; explicit
     params, params0 and the reference's precedence; polish_steps > 0 (as an
     argument or from the config) runs the fixed-budget polish; the amortized
-    init, not ported, raises NotImplementedError naming its ROADMAP item."""
+    init (an untrained encoder: the default init in float32) by argument, by
+    a passed amortizer and by the config, and its error without an
+    encoder."""
     cfg = LKGPConfig(backend="dense", lbfgs_iters=3)
     p0 = init_params(D, device="cpu")
     s0 = fit(task.X, task.t, task.Y, task.mask, cfg, polish_steps=0,
@@ -268,13 +270,30 @@ def test_fit_init_options(task):
         assert float(s.params.raw_noise) == -2.0
     with pytest.raises(ValueError, match="unknown init"):
         fit(task.X, task.t, task.Y, task.mask, cfg, init="nope", device="cpu")
-    for kw, item in ((dict(init="amortized"), "item 13"),
-                     (dict(amortizer=object()), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            fit(task.X, task.t, task.Y, task.mask, cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fit(task.X, task.t, task.Y, task.mask,
-            LKGPConfig(backend="dense", hyper_init="amortized"), device="cpu")
+    from repro_torch.amortize import (Amortizer, AmortizerConfig,
+                                      clear_amortizer_registry,
+                                      init_amortizer, register_amortizer)
+    acfg = AmortizerConfig(d=D, d_model=8, curve_layers=1, num_heads=2,
+                           d_ff=8)
+    am = Amortizer(acfg, init_amortizer(torch.Generator().manual_seed(0),
+                                        acfg))
+    untrained = init_params(D, torch.float32, "cpu")
+    clear_amortizer_registry()
+    with pytest.raises(ValueError, match="no amortizer registered"):
+        fit(task.X, task.t, task.Y, task.mask, cfg, init="amortized",
+            device="cpu")
+    register_amortizer(am)
+    try:
+        for c, kw in ((cfg, dict(init="amortized")), (cfg, dict(amortizer=am)),
+                      (LKGPConfig(backend="dense", hyper_init="amortized"),
+                       {})):
+            s = fit(task.X, task.t, task.Y, task.mask, c, polish_steps=0,
+                    device="cpu", **kw)
+            assert s.fit_result.init_source == "amortized"
+            assert all(torch.equal(a, b.double())
+                       for a, b in zip(s.params, untrained))
+    finally:
+        clear_amortizer_registry()
     for state in (fit(task.X, task.t, task.Y, task.mask, cfg, polish_steps=3,
                       device="cpu"),
                   fit(task.X, task.t, task.Y, task.mask,

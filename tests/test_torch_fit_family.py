@@ -392,11 +392,26 @@ def test_refit_warm_starts_and_does_not_persist_overrides(task):
         rout.fit_result.x), rtol=1e-8, atol=1e-10)
     lb = refit(st, lbfgs_iters=1)
     assert lb.fit_result.budget == 1 and lb.config.lbfgs_iters == 3
-    for kw in (dict(init="amortized"), dict(amortizer=object())):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            refit(st, **kw)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        refit(st, LKGPConfig(hyper_init="amortized"))
+    # an amortized refit starts from the encoder's guess on the current data,
+    # not from state.params (an untrained encoder: the default init)
+    from repro_torch.amortize import (Amortizer, AmortizerConfig,
+                                      clear_amortizer_registry,
+                                      init_amortizer, register_amortizer)
+    acfg = AmortizerConfig(d=D, d_model=8, curve_layers=1, num_heads=2,
+                           d_ff=8)
+    am = Amortizer(acfg, init_amortizer(torch.Generator().manual_seed(0),
+                                        acfg))
+    register_amortizer(am)
+    try:
+        for args, kw in (((), dict(init="amortized")),
+                         ((), dict(amortizer=am)),
+                         ((LKGPConfig(hyper_init="amortized"),), {})):
+            out = refit(st, *args, polish_steps=0, **kw)
+            assert out.fit_result.init_source == "amortized"
+            assert all(torch.equal(a, b.double()) for a, b in zip(
+                out.params, init_params(D, torch.float32, "cpu")))
+    finally:
+        clear_amortizer_registry()
 
 
 # --------------------------------------------------------------------------

@@ -57,10 +57,16 @@ def test_port_has_the_modules_of_this_slice():
                 "autotune/scheduler", "checkpoint/__init__",
                 "checkpoint/manager", "serving/__init__", "serving/metrics",
                 "serving/store", "serving/batcher", "serving/checkpoint",
-                "serving/service"):
+                "serving/service", "models/__init__", "models/layers",
+                "models/transformer", "baselines/__init__",
+                "baselines/curve_transformer", "baselines/pretrain",
+                "baselines/evaluate", "train/__init__", "train/optimizers",
+                "train/trainer", "amortize/__init__", "amortize/encoder",
+                "amortize/train", "amortize/make_fixture"):
         assert f"src/repro_torch/{mod}.py" in have
     for src in KERNEL_SOURCES:
         assert (PORT / "kernels" / "csrc" / src).is_file()
+    assert (PORT / "amortize" / "fixtures" / "amortizer_d5.npz").is_file()
     assert not (ROOT / "src" / "repro" / "torch").exists()
 
 
@@ -155,7 +161,47 @@ ENTRY_POINTS = {
                                               rt.core.LKGPConfig()),
     "ServiceCheckpointer": lambda rt: importlib.import_module(
         "repro_torch.serving").ServiceCheckpointer(_scratch_dir()),
+    "make_train_step": lambda rt: importlib.import_module(
+        "repro_torch.train").make_train_step(_curve_model()),
+    "pretrain": lambda rt: importlib.import_module(
+        "repro_torch.baselines").pretrain(_curve_cfg()),
+    "eval_lkgp": lambda rt: importlib.import_module(
+        "repro_torch.baselines").eval_lkgp(_task(), _task().mask),
+    "head_to_head": lambda rt: importlib.import_module(
+        "repro_torch.baselines").head_to_head({}, _curve_cfg(), [_task()]),
+    "train_amortizer": lambda rt: importlib.import_module(
+        "repro_torch.amortize").train_amortizer(),
+    "Amortizer.load": lambda rt: importlib.import_module(
+        "repro_torch.amortize").Amortizer.load(_fixture()),
+    "get_amortizer": lambda rt: _fresh_registry().get_amortizer(5),
+    "tree_from_numpy": lambda rt: rt.tree_from_numpy({}),
 }
+
+
+def _task():
+    from repro_torch.data import sample_task
+    return sample_task(0, n=5, m=4, d=4)
+
+
+def _curve_cfg():
+    from repro_torch.baselines import CurveTransformerConfig
+    return CurveTransformerConfig(d_in=4, d_model=8, num_layers=1,
+                                  num_heads=2, d_ff=8)
+
+
+def _curve_model():
+    from repro_torch.baselines import build_curve_model
+    return build_curve_model(_curve_cfg())
+
+
+def _fixture():
+    return PORT / "amortize" / "fixtures" / "amortizer_d5.npz"
+
+
+def _fresh_registry():
+    am = importlib.import_module("repro_torch.amortize")
+    am.clear_amortizer_registry()
+    return am
 
 
 def _scratch_dir():

@@ -250,14 +250,24 @@ def test_curve_predictor_validates_grid_and_unported_options():
         CurvePredictor(task.X, t=task.t[::-1], device=CPU)
     with pytest.raises(ValueError, match="max_epochs or an explicit t"):
         CurvePredictor(task.X, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        CurvePredictor(task.X, 6, amortizer=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        CurvePredictor(task.X, 6, gp=LKGPConfig(hyper_init="amortized"),
-                       device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        SuccessiveHalvingScheduler(task.X, [None] * 5,
-                                   SHConfig(amortizer=object()), device=CPU)
+    # the amortized options, once unported, now reach every fit and refit
+    from repro_torch.amortize import (Amortizer, AmortizerConfig,
+                                      init_amortizer)
+    acfg = AmortizerConfig(d=4, d_model=8, curve_layers=1, num_heads=2,
+                           d_ff=8)
+    am = Amortizer(acfg, init_amortizer(torch.Generator().manual_seed(0),
+                                        acfg))
+    pred = CurvePredictor(task.X, 6, amortizer=am,
+                          gp=LKGPConfig(backend="dense", polish_steps=1),
+                          device=CPU)
+    mask = np.zeros_like(task.mask)
+    for k in (2, 3):
+        mask[:, :k] = 1.0
+        pred.update(task.Y_full * mask, mask)
+        assert pred.state.fit_result.init_source == "amortized"
+    sched = SuccessiveHalvingScheduler(task.X, [None] * 5,
+                                       SHConfig(amortizer=am), device=CPU)
+    assert sched.predictor.amortizer is am
 
 
 def test_schedulers_need_a_device_for_the_model():
