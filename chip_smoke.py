@@ -54,6 +54,15 @@ ran through the kernels:
 * the paper's Transformer baseline (``repro_torch.baselines``): the curve
   transformer pre-trained at ``bench_curve_pred.py``'s full configuration,
   then ``head_to_head`` against the LKGP on its three suites;
+* the LM zoo's RWKV-6 (``repro_torch.models``, ``repro_torch.launch``):
+  ``rwkv6_1b6`` served at its published width in bf16 through
+  ``launch/serve.py`` and trained 4 steps through ``launch/train.py``, its
+  bf16 checkpoint restored bit for bit; float32 prefill + decode against a
+  longer prefill, the chunked WKV against the scan, bf16 against float32
+  logits; the smoke config held against ``tests/fixtures/
+  reference_rwkv.npz``; and the freeze-thaw example over 8 real RWKV
+  training runs, its refits on the routed ``cuda`` engine (plain PyTorch
+  otherwise: the reference has no kernel on this path);
 * the batched dense path (``fit_batch``, ``stack_states``,
   ``posterior_batch``) on 16 tasks: per-task ``fit`` and ``fit_batch``
   bitwise equal, a task's posterior bitwise equal at batch sizes 1 and 16,
@@ -87,7 +96,9 @@ n=2000, m=52; the ladder at n=64, m=32), serve_lcbench (n=2000, m=52, also again
 freeze-thaw at n=2000, m=52), batch (16 tasks of n=48, m=20, d=4; the
 fixture), service (8 tenants of n=16, m=12 and of n=8, m=10, dense; 4 of
 n=48, m=20 on cuda), curvepred (2000 pretrain steps; 45 cells of n=16,
-m=12), distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
+m=12), zoo (rwkv6_1b6 at full width: serve batch 8 x 64 + 32 tokens, train
+4 steps of 8 x 64; the smoke config; freeze-thaw over 8 runs, n=8, m=10),
+distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
 fit), gram
 (n=8192 and n=2000, d=7), routes_used (every bucket the tuner resolved).
 Then a summary line ``{"kernels": [...]}``, the card's name and power limit
@@ -99,8 +110,10 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -175,6 +188,17 @@ from repro_torch.amortize import (FIXTURE_DIR,  # noqa: E402
 from repro_torch.baselines import (CurveTransformerConfig,  # noqa: E402
                                    PretrainConfig, head_to_head, pretrain)
 from repro_torch.baselines import forward as curve_forward  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.models import build_model, count_params  # noqa: E402
+from repro_torch.models import rwkv  # noqa: E402
+from repro_torch.models.layers import layer_norm  # noqa: E402
+from repro_torch.train.optimizers import tree_leaves, tree_map  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+import torch_automl_early_stopping as automl_example  # noqa: E402
 
 SEED = 0
 DEV = torch.device("cuda", 0)
@@ -244,12 +268,14 @@ REFERENCE_NPZ = (Path(__file__).resolve().parent / "tests" / "fixtures"
 # the solvers phase's ladder (64, 32, 1) and near-singular system (8, 6, 1);
 # the automl phase's (2000, 52) and Hyperband's (243, 27) at the fit's three
 # and final()'s B=65 (B=64: a keyed final() on a posterior whose alpha is
-# cached solves only the residuals); the cuda service's fits at (48, 20).
+# cached solves only the residuals); the cuda service's fits at (48, 20);
+# the zoo phase's freeze-thaw over 8 RWKV runs at (8, 10).
 ROUTE_SHAPES = [(8192, 64, 65), (8192, 64, 1), (8192, 64, 16),
                 (2000, 52, 65), (2000, 52, 1), (2000, 52, 16),
                 (2000, 52, 17), (24, 16, 1), (64, 32, 1), (8, 6, 1),
                 (2000, 52, 64), (243, 27, 65), (243, 27, 17), (243, 27, 16),
-                (243, 27, 1), (48, 20, 17), (48, 20, 16)]
+                (243, 27, 1), (48, 20, 17), (48, 20, 16), (8, 10, 17),
+                (8, 10, 16), (8, 10, 1), (8, 10, 65)]
 # The wrappers each route launches per sweep.
 ROUTE_KERNELS = {"fused": ("lk_mvm_fused",),
                  "two_stage": ("lk_mvm_stage_right", "lk_mvm_stage_left")}
@@ -3221,6 +3247,287 @@ def phase_curvepred() -> dict:
     return out
 
 
+# The zoo phase: the LM zoo's RWKV-6 at its published width (rwkv6_1b6:
+# 24 layers, d_model 2048, d_ff 7168, vocabulary 65,536), served and trained
+# through the entry points a user calls, and the paper's AutoML loop over
+# real (reduced) RWKV training runs. Its bands, fixed before the first run on
+# the card:
+ZOO_ARCH = "rwkv6_1b6"
+ZOO_SERVE = ["--arch", ZOO_ARCH, "--batch", "8", "--prompt-len", "64",
+             "--gen", "32"]
+ZOO_TRAIN_STEPS = 4
+ZOO_TRAIN = ["--arch", ZOO_ARCH, "--steps", str(ZOO_TRAIN_STEPS), "--batch",
+             "8", "--seq", "64", "--optimizer", "adamw", "--log-every",
+             "1000", "--ckpt-every", "1000"]
+ZOO_CONSISTENCY = dict(batch=2, seq=64)
+# prefill(S) + one decode step against prefill(S + 1): the reference's band
+# (tests/test_models_smoke.py: rtol = atol = 2e-3), element by element.
+ZOO_CONSISTENCY_TOL = 2e-3
+# _wkv_chunked against _wkv_scan: the reference's band (tests/
+# test_substrate.py: rtol = atol = 2e-4) element by element, on the model's
+# own layer-0 inputs and at the reference test's decay scales 0.5 and 8.0.
+ZOO_WKV_TOL = 2e-4
+ZOO_WKV_SCALES = (0.5, 8.0)
+# bf16 against float32 logits of the same parameters: max error over
+# max|logit|.
+ZOO_BF16_BAND = 0.1
+# The smoke config against the reference's outputs: times max|reference|.
+ZOO_REFERENCE_TOL = 1e-4
+REFERENCE_RWKV_NPZ = (Path(__file__).resolve().parent / "tests" / "fixtures"
+                      / "reference_rwkv.npz")
+ZOO_CKPT_DIR = RENDEZVOUS_DIR / "zoo_ckpt"
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its printed lines captured: (result, lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def zoo_serve() -> dict:
+    """launch.serve at the published config in bf16: a short warm-up call
+    (the library handles' first use), then the timed call."""
+    cfg = get_config(ZOO_ARCH)
+    n_params = count_params(cfg)
+    warm, _ = quiet(lm_serve.main, ZOO_SERVE[:-1] + ["2"])
+    torch.cuda.reset_peak_memory_stats()
+    res, printed = quiet(lm_serve.main, ZOO_SERVE)
+    check(res.tokens.shape == (8, 32) and (res.tokens >= 0).all()
+          and (res.tokens < cfg.vocab_size).all(),
+          f"zoo serve: generated tokens {res.tokens.shape}")
+    weight_bytes = n_params * torch.finfo(cfg.dtype_param).bits // 8
+    bound_ms = weight_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"dtype": str(cfg.dtype_param), "params": n_params,
+            "weight_bytes": weight_bytes, "batch": 8, "prompt_len": 64,
+            "gen": 32, "wkv_path": "chunked (rwkv_chunk 16)",
+            "prefill_ms": res.prefill_ms,
+            "prefill_ms_first_call": warm.prefill_ms,
+            "decode_ms_per_token": res.decode_ms_per_token,
+            "tokens_per_s": res.tokens_per_s,
+            "decode_bound_ms": bound_ms, "bound_by": "bytes",
+            "decode_bound_share": bound_ms / res.decode_ms_per_token,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "printed": printed}
+
+
+def elementwise_excess(got: torch.Tensor, want: torch.Tensor,
+                       tol: float) -> float:
+    """max(|got - want| - tol * |want|): <= tol is numpy's
+    assert_allclose(rtol=atol=tol)."""
+    return float(((got - want).abs() - tol * want.abs()).max())
+
+
+def zoo_consistency() -> dict:
+    """Float32 at full width (TF32 off): prefill(S) + decode against
+    prefill(S + 1); the chunked WKV against the scan at H=32, N=64, S=64;
+    the bf16 logits of the same parameters against the float32 ones."""
+    out = {"matmul": check_full_f32_matmuls("zoo")}
+    base = get_config(ZOO_ARCH)
+    cfg = base.replace(dtype_act=torch.float32, dtype_param=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    B, S = ZOO_CONSISTENCY["batch"], ZOO_CONSISTENCY["seq"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), dtype=torch.int32,
+                           device=DEV, generator=torch.Generator(
+                               device=DEV).manual_seed(SEED + 1))
+    with torch.no_grad():
+        logits_s, cache = model.prefill(params, {"tokens": tokens[:, :S]})
+        logits_a, _ = model.decode_step(params, cache, tokens[:, S:])
+        logits_b, _ = model.prefill(params, {"tokens": tokens})
+    excess = elementwise_excess(logits_a, logits_b, ZOO_CONSISTENCY_TOL)
+    out["prefill_decode"] = {
+        "S": S, "max_abs_err": float((logits_a - logits_b).abs().max()),
+        "max_abs_logit": float(logits_b.abs().max()),
+        "excess_over_rtol": excess, "tol": ZOO_CONSISTENCY_TOL,
+        "paths": "chunked prefill(64) + scan decode vs scan prefill(65)"}
+    check(excess <= ZOO_CONSISTENCY_TOL and bool(torch.isfinite(
+        logits_b).all()), f"zoo: prefill + decode against a longer "
+          f"prefill: {out['prefill_decode']}")
+
+    # the chunked WKV against the scan on the model's own layer-0 inputs
+    H, N = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    with torch.no_grad():
+        lp = rwkv._layer(params["layers"], 0)
+        x = rwkv._embed(params, tokens[:, :S], cfg)
+        hn = layer_norm(x, 1.0 + lp["ln1"], lp["ln1_b"])
+        xr, xk, xv, xw, _ = rwkv._ddlerp(hn, rwkv._shift(hn), lp["tm"])
+        r, k, v = (rwkv._mm("bsd,dh->bsh", a, lp["tm"][w])
+                   for a, w in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
+        cases = [("model_layer0", (r, k, v, rwkv._decay(xw, lp["tm"]),
+                                   lp["tm"]["u"], None))]
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+        for scale in ZOO_WKV_SCALES:
+            rnd = [torch.randn((B, S, cfg.d_model), device=DEV,
+                               generator=gen) for _ in range(4)]
+            w = torch.exp(-torch.exp(scale * rnd[3] - 2))
+            u = 0.3 * torch.randn(cfg.d_model, device=DEV, generator=gen)
+            s0 = torch.randn((B, H, N, N), device=DEV, generator=gen)
+            cases.append((f"decay_scale_{scale}", (*rnd[:3], w, u, s0)))
+        rows = []
+        for name, (r, k, v, w, u, s0) in cases:
+            y_s, st_s = rwkv._wkv_scan(r, k, v, w, u, H, N, s0)
+            y_c, st_c = rwkv._wkv_chunked(r, k, v, w, u, H, N,
+                                          cfg.rwkv_chunk, s0)
+            row = {"case": name, "H": H, "N": N, "S": S,
+                   "chunk": cfg.rwkv_chunk}
+            for part, got, want in (("y", y_c, y_s), ("state", st_c, st_s)):
+                row[part] = {
+                    "max_abs_err": float((got - want).abs().max()),
+                    "max_abs": float(want.abs().max()),
+                    "excess_over_rtol": elementwise_excess(got, want,
+                                                           ZOO_WKV_TOL)}
+                check(row[part]["excess_over_rtol"] <= ZOO_WKV_TOL,
+                      f"zoo: chunked WKV against the scan: {row}")
+            rows.append(row)
+    out["wkv_chunked_vs_scan"] = rows
+
+    # bf16 logits of the same parameters
+    params16 = tree_map(lambda p: p.to(base.dtype_param), params)
+    del params
+    with torch.no_grad():
+        logits16, _ = build_model(base).prefill(params16,
+                                                {"tokens": tokens[:, :S]})
+    gap = float((logits16.float() - logits_s).abs().max())
+    scale = float(logits_s.abs().max())
+    out["bf16_vs_float32"] = {"max_abs_err": gap, "max_abs_logit": scale,
+                              "relative": gap / scale, "band": ZOO_BF16_BAND}
+    check(gap / scale <= ZOO_BF16_BAND, f"zoo: bf16 logits against float32: "
+          f"{out['bf16_vs_float32']}")
+    return out
+
+
+def zoo_reference_rows() -> list[dict]:
+    """The smoke config on the card against the reference's outputs in
+    ``reference_rwkv.npz`` (no JAX): forward logits, loss, prefill logits
+    and cache, two decode steps, on both WKV paths."""
+    with np.load(REFERENCE_RWKV_NPZ) as z:
+        ref = {k: z[k] for k in z.files}
+    params = tree_from_numpy({k.split("/", 1)[1]: v for k, v in ref.items()
+                              if k.startswith("params/")}, device=DEV)
+    rows = []
+    for path, chunk in (("scan", 0), ("chunk", 16)):
+        cfg = get_smoke_config(ZOO_ARCH).replace(rwkv_chunk=chunk)
+        model = build_model(cfg)
+        r = {k.split("/", 1)[1]: v for k, v in ref.items()
+             if k.startswith(path + "/")}
+        tokens = torch.from_numpy(r["tokens"]).to(DEV)
+        labels = torch.from_numpy(r["labels"]).to(DEV)
+        with torch.no_grad():
+            hidden = rwkv.rwkv_forward(params, tokens, cfg)
+            got = {"logits": torch.einsum("bsd,dv->bsv", hidden,
+                                          params["head"]),
+                   "loss": model.loss(params, {"tokens": tokens,
+                                               "labels": labels})}
+            logits, cache = model.prefill(params, {"tokens": tokens})
+            got["prefill_logits"] = logits
+            for field in cache._fields:
+                got[f"cache_{field}"] = getattr(cache, field)
+            dec = []
+            for fed in r["decode_tokens"]:
+                logits, cache = model.decode_step(
+                    params, cache, torch.from_numpy(fed).to(DEV))
+                dec.append(logits)
+            got["decode_logits"] = torch.stack(dec)
+        for name, value in got.items():
+            want = r[name]
+            err = float(np.abs(value.detach().cpu().numpy().astype(
+                np.float64) - want).max())
+            tol = ZOO_REFERENCE_TOL * float(np.abs(want).max())
+            row = {"path": path, "output": name, "max_abs_err": err,
+                   "tol": tol}
+            rows.append(row)
+            check(value.shape == want.shape and err <= tol,
+                  f"zoo: the smoke config against reference_rwkv.npz: "
+                  f"{row}")
+    return rows
+
+
+def zoo_train() -> dict:
+    """launch.train at the published config (bf16 parameters, remat on),
+    AdamW, batch 8 x 64; the checkpoint it writes restored bit for bit."""
+    shutil.rmtree(ZOO_CKPT_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    res, printed = quiet(lm_train.main, ZOO_TRAIN + ["--ckpt-dir",
+                                                     str(ZOO_CKPT_DIR)])
+    out = {"steps": ZOO_TRAIN_STEPS, "batch": 8, "seq": 64,
+           "optimizer": "adamw", "remat": get_config(ZOO_ARCH).remat,
+           "losses": res.losses, "first_step_ms": res.first_step_ms,
+           "ms_per_step": res.ms_per_step,
+           "tokens_per_s": 8 * 64 / (res.ms_per_step / 1e3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "printed": printed}
+    check(len(res.losses) == ZOO_TRAIN_STEPS
+          and all(np.isfinite(res.losses)), f"zoo train: losses {res.losses}")
+    state = res.state
+    del res
+    t0 = time.perf_counter()
+    restored = CheckpointManager(str(ZOO_CKPT_DIR)).restore(state)
+    torch.cuda.synchronize()
+    saved, back = tree_leaves(state.params) + tree_leaves(state.opt_state), \
+        tree_leaves(restored.params) + tree_leaves(restored.opt_state)
+    bf16 = [a for a in saved if a.dtype == torch.bfloat16]
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(saved, back)) and torch.equal(state.step,
+                                                            restored.step)
+    out["checkpoint"] = {
+        "bytes": sum(f.stat().st_size for f in ZOO_CKPT_DIR.rglob("*")
+                     if f.is_file()),
+        "restore_seconds": time.perf_counter() - t0, "leaves": len(saved),
+        "bf16_leaves": len(bf16), "restored_bit_for_bit": same,
+        "step": int(restored.step)}
+    check(same and len(saved) == len(back) and bf16,
+          f"zoo: the checkpoint did not restore bit for bit: "
+          f"{out['checkpoint']}")
+    del state, restored, saved, back, bf16
+    shutil.rmtree(ZOO_CKPT_DIR, ignore_errors=True)
+    return out
+
+
+def zoo_freeze_thaw() -> dict:
+    """The port's AutoML example on the card: 8 reduced RWKV runs under the
+    freeze-thaw scheduler, its refits on the routed cuda engine."""
+    reset_launch_counts()
+    res = automl_example.run_pool(device=DEV, gp_backend="cuda")
+    launches = launch_counts()
+    out = {k: res[k] for k in ("stop_events", "epochs_spent", "full_budget",
+                               "survivors", "best_cfg", "observed_best",
+                               "seconds", "train_seconds", "gp_seconds",
+                               "train_steps")}
+    out["launches"] = launches
+    check(res["best_cfg"] in res["survivors"],
+          f"zoo: the scheduler stopped the best config {res['best_cfg']}")
+    check(res["epochs_spent"] < res["full_budget"],
+          "zoo: no budget was saved")
+    check(sum(launches[k] for k in ("lk_mvm_fused", "lk_mvm_stage_right",
+                                    "lk_mvm_stage_left")) > 0,
+          f"zoo: the refits launched no MVM kernel: {launches}")
+    return out
+
+
+def phase_zoo() -> dict:
+    """The LM zoo's RWKV-6 at full width (serve, consistency, train), the
+    smoke config against the reference, then freeze-thaw over real runs
+    (its MVM launches in ``out["freeze_thaw"]["launches"]``)."""
+    t_phase = time.perf_counter()
+    out = {"phase": "zoo", "arch": ZOO_ARCH,
+           "allocated_at_start_bytes": start_memory()}
+    for part, fn in (("serve", zoo_serve), ("consistency", zoo_consistency),
+                     ("reference", zoo_reference_rows), ("train", zoo_train)):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        if isinstance(out[part], dict):
+            out[part]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["freeze_thaw"] = zoo_freeze_thaw()
+    out["freeze_thaw"]["phase_seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def build_all() -> dict:
     """Compile every kernel source at once (one nvcc process each)."""
     t0 = time.perf_counter()
@@ -3456,6 +3763,19 @@ def main() -> None:
         emit(phase_curvepred())
     torch.cuda.empty_cache()
 
+    # Main path 4d, the LM zoo: RWKV-6 served and trained at its published
+    # width through launch/serve.py and launch/train.py (no hand-written
+    # kernel: the reference writes it in plain jnp), then freeze-thaw over 8
+    # real RWKV runs whose refits run the MVM kernels on the routed cuda
+    # engine (counted from zero over the freeze-thaw, held > 0 there).
+    with unescalated("zoo"):
+        zoo_out = phase_zoo()
+    zoo_totals = zoo_out["freeze_thaw"]["launches"]
+    emit(zoo_out)
+    del zoo_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # Main path 5, the distributed engine in an NCCL group of one rank.
     rendezvous = init_process_group("nccl")
     reset_launch_counts()
@@ -3486,6 +3806,7 @@ def main() -> None:
     csrc = "src/repro_torch/kernels/csrc/"
     main_paths = {k: serve_launches[k] + solvers_totals[k] + fit_totals[k]
                   + warm_totals[k] + automl_totals[k] + amortize_totals[k]
+                  + zoo_totals[k]
                   for k in ("lk_mvm_fused", "lk_mvm_stage_right",
                             "lk_mvm_stage_left")}
     emit({"kernels": [

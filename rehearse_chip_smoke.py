@@ -14,6 +14,7 @@
     python3 rehearse_chip_smoke.py service
     python3 rehearse_chip_smoke.py amortize --n 200
     python3 rehearse_chip_smoke.py curvepred
+    python3 rehearse_chip_smoke.py zoo
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -45,6 +46,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "examples"))
 
 CPU = torch.device("cpu")
 
@@ -70,7 +72,9 @@ def _patch_port_for_cpu() -> None:
                 "repro_torch.core.posterior", "repro_torch.kernels.ops",
                 "repro_torch.convert", "repro_torch.train.trainer",
                 "repro_torch.baselines.evaluate",
-                "repro_torch.amortize.encoder"):
+                "repro_torch.amortize.encoder", "repro_torch.models.rwkv",
+                "repro_torch.launch.serve", "repro_torch.launch.train",
+                "torch_automl_early_stopping"):
         importlib.import_module(mod)
         sys.modules[mod].resolve_device = resolve
     lk = importlib.import_module("repro_torch.kernels.lk_mvm")
@@ -100,7 +104,8 @@ def main() -> None:
     ap.add_argument("phase", choices=("fit", "kernels", "distributed",
                                       "gram", "routes", "warm", "batch",
                                       "solvers", "exact", "automl",
-                                      "service", "amortize", "curvepred"))
+                                      "service", "amortize", "curvepred",
+                                      "zoo"))
     ap.add_argument("--n", type=int, default=300,
                     help="configurations of the fit, warm and automl "
                          "phases (m=52, d=7; the automl phase's Hyperband "
@@ -112,7 +117,9 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=40,
                     help="training steps of the amortize phase's amortizer "
                          "and of the curvepred phase's transformer (the "
-                         "card runs 400 and 2000)")
+                         "card runs 400 and 2000); the zoo phase's training "
+                         "steps per epoch of the example's runs are "
+                         "--steps // 20 (the card runs 8)")
     args = ap.parse_args()
     _patch_cuda_for_cpu()
     _patch_port_for_cpu()
@@ -190,6 +197,18 @@ def main() -> None:
         cs.CURVEPRED_TASKS = 1
         with cs.unescalated("curvepred"):
             print(json.dumps(cs.phase_curvepred()))
+    elif args.phase == "zoo":
+        # The published width does not fit the CPU: the smoke config with
+        # the published config's numerics (bf16, remat, chunk-parallel WKV).
+        smoke = cs.get_smoke_config(cs.ZOO_ARCH).replace(
+            rwkv_chunk=16, dtype_act=torch.bfloat16,
+            dtype_param=torch.bfloat16, remat=True)
+        cs.get_config = lambda arch: smoke
+        for mod in ("repro_torch.launch.serve", "repro_torch.launch.train"):
+            sys.modules[mod].get_config = cs.get_config
+        cs.automl_example.STEPS_PER_EPOCH = max(1, args.steps // 20)
+        with cs.unescalated("zoo"):
+            print(json.dumps(cs.phase_zoo()))
     elif args.phase == "exact":
         with cs.unescalated("exact"):
             print(json.dumps(cs.phase_exact()))

@@ -19,7 +19,9 @@ hyper-parameter init (``repro_torch.amortize``: ``fit(init="amortized")``,
 ``hyper_init="amortized"``, its training) and the paper's Transformer
 baseline (``repro_torch.baselines``: the curve transformer, its
 pre-training through ``repro_torch.train``, the head-to-head against the
-LKGP), through the
+LKGP), the LM zoo's RWKV-6 family (``repro_torch.configs``,
+``repro_torch.models.build_model``, served and trained by
+``repro_torch.launch``), through the
 ``dense``, ``iterative``, ``cuda`` and ``distributed`` inference engines. On
 the ``cuda`` engine every CG iteration of the fit's marginal likelihood and
 of the posterior solves is one sweep of the hand-written latent-Kronecker

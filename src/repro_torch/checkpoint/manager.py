@@ -17,6 +17,12 @@ dataclass field as ``.name``; a dataclass field that holds no tensor (an
 tree with the saved values, in the template leaves' dtypes, on ``device``
 (default: each template leaf's own device).
 
+A bfloat16 leaf is written as the reference writes it (``np.savez`` of an
+``ml_dtypes.bfloat16`` array): 2-byte ``|V2`` records holding the raw bits.
+Restore reinterprets such a record's bytes as bfloat16 (numpy has no cast
+from ``|V2``), then casts to the template leaf's dtype, so a bfloat16 leaf
+comes back bit for bit.
+
 An optional background thread makes saves asynchronous; ``wait()`` joins it.
 """
 from __future__ import annotations
@@ -100,10 +106,23 @@ def _rebuild(node: Any, leaf: Callable[[str, Any], Any], path=()) -> Any:
     return node
 
 
+_BF16_RECORD = np.dtype("V2")
+
+
 def _to_host(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        host = leaf.detach().cpu()
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(_BF16_RECORD)
+        return host.numpy()
     return np.asarray(leaf)
+
+
+def _from_host(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype == _BF16_RECORD:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.as_tensor(arr)
 
 
 class CheckpointManager:
@@ -189,7 +208,7 @@ class CheckpointManager:
         def leaf(key, tgt):
             arr = host[key]
             if isinstance(tgt, torch.Tensor):
-                return torch.as_tensor(arr).to(
+                return _from_host(arr).to(
                     dtype=tgt.dtype,
                     device=tgt.device if device is None else device)
             if hasattr(tgt, "dtype"):

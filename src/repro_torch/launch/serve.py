@@ -1,0 +1,178 @@
+"""Serving drivers: LM decode on one device, or the LKGP curve service
+(counterpart of ``repro.launch.serve``).
+
+LM mode (default; batched prefill + greedy decode)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1b6 \
+        --smoke --batch 8 --prompt-len 32 --gen 32
+
+prints the prefill's milliseconds, the decode's milliseconds per token and
+tokens per second, timed on the host clock around work that ends in
+``torch.cuda.synchronize()`` on the card.
+
+Curve-prediction mode drives :class:`repro_torch.serving.PredictionService`
+- multi-tenant streaming observes with warm refits, coalesced predictions::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --service curves \
+        --tenants 8 --rounds 4
+
+Both run on the GPU unless ``--device`` names another device.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..configs import get_config, get_smoke_config
+from ..models import build_model
+from ..train.trainer import make_serve_steps
+
+__all__ = ["ServeResult", "main", "main_curves"]
+
+
+class ServeResult(NamedTuple):
+    tokens: np.ndarray          # (batch, gen) generated token ids
+    prefill_ms: float
+    decode_ms_per_token: float
+    tokens_per_s: float
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main_curves(args):
+    """Streaming LKGP curve-service driver (synthetic tenants)."""
+    from ..core import LKGPConfig
+    from ..data.curves import sample_task
+    from ..serving import PredictionService, ServiceConfig
+
+    svc = PredictionService(ServiceConfig(
+        gp=LKGPConfig(lbfgs_iters=args.lbfgs_iters, backend="dense"),
+        capacity=max(args.tenants, 1),
+        refit_every=args.refit_every), device=args.device)
+    tasks = {f"tenant-{i}": sample_task(args.seed + i, n=args.n, m=args.m,
+                                        d=4)
+             for i in range(args.tenants)}
+
+    # Cold fits, coalesced across tenants into one batched L-BFGS.
+    svc.observe_batch([
+        dict(tenant=name, task="run", X=task.X, t=task.t,
+             Y=task.Y, mask=task.mask)
+        for name, task in tasks.items()])
+
+    masks = {name: np.asarray(task.mask).copy()
+             for name, task in tasks.items()}
+    for rnd in range(args.rounds):
+        for name, task in tasks.items():   # reveal one more epoch per curve
+            mask = masks[name]
+            for i in range(mask.shape[0]):
+                k = int(mask[i].sum())
+                if k < mask.shape[1]:
+                    mask[i, k] = 1.0
+            Y = np.where(mask > 0, np.asarray(task.Y_full), 0.0)
+            svc.observe(name, "run", Y, mask)
+        preds = svc.predict_many([(name, "run") for name in tasks])
+        # Prediction.mean is host numpy already: no device read here.
+        best = {p.tenant: float(np.max(p.mean)) for p in preds}
+        print(f"round {rnd}: coalesced batch={preds[0].batch_size} "
+              f"best-final={max(best.values()):.4f}")
+
+    # Per-request repeats ride the warm state-keyed posterior cache.
+    t0 = time.perf_counter()
+    for name in tasks:
+        svc.predict(name, "run")
+    print(f"warm per-request sweep: "
+          f"{(time.perf_counter() - t0) / max(len(tasks), 1) * 1e3:.2f} "
+          f"ms/req")
+    m = svc.metrics()
+    print(f"store={m['store']} counters={m['counters']}")
+    print(f"predict p50={m['predict_latency']['p50_ms']:.2f} ms "
+          f"p99={m['predict_latency']['p99_ms']:.2f} ms")
+    return m
+
+
+def main(argv=None):
+    """LM mode returns a :class:`ServeResult`; curve mode the service's
+    metrics."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--service", default="lm", choices=["lm", "curves"],
+                    help="lm: decode loop (default); curves: LKGP service")
+    ap.add_argument("--arch")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--mesh", default="debug",
+                    choices=["debug", "single", "multi"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU)")
+    # curve-service knobs
+    ap.add_argument("--tenants", type=int, default=8)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--n", type=int, default=8)
+    ap.add_argument("--m", type=int, default=10)
+    ap.add_argument("--refit-every", type=int, default=4)
+    ap.add_argument("--lbfgs-iters", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    if args.service == "curves":
+        return main_curves(args)
+    if args.arch is None:
+        ap.error("--arch is required for --service lm")
+    if args.mesh == "multi":
+        raise NotImplementedError(
+            "--mesh multi needs distributed/sharding.py, which is not ported "
+            "to repro_torch yet (ROADMAP queue 1 item 14)")
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg)
+    dev = resolve_device(args.device)
+    num_patch = getattr(cfg, "num_patch_tokens", 0) or 0
+    serve = make_serve_steps(model,
+                             max_len=args.prompt_len + args.gen + num_patch,
+                             device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    tokens = torch.randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=torch.int32,
+        device=dev,
+        generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = serve["prefill"](params, {"tokens": tokens})
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(args.gen - 1):
+        logits, cache = serve["decode_step"](params, cache, tok)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        out.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    gen = torch.cat(out, dim=1).cpu().numpy()
+    decode_ms = t_decode / max(args.gen - 1, 1) * 1e3
+    tok_s = args.batch * (args.gen - 1) / max(t_decode, 1e-9)
+    print(f"arch={args.arch} batch={args.batch} prompt={args.prompt_len} "
+          f"generated={gen.shape[1]}")
+    print(f"prefill: {t_prefill*1e3:.1f} ms; decode: {decode_ms:.1f} "
+          f"ms/token ({tok_s:.0f} tok/s)")
+    for i in range(min(2, args.batch)):
+        print(f"  req {i}: {gen[i, :10].tolist()} ...")
+    return ServeResult(tokens=gen, prefill_ms=t_prefill * 1e3,
+                       decode_ms_per_token=decode_ms, tokens_per_s=tok_s)
+
+
+if __name__ == "__main__":
+    main()

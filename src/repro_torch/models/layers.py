@@ -1,10 +1,12 @@
 """Shared neural-net layers (counterpart of ``repro.models.layers``).
 
-Only what the curve transformer (:mod:`repro_torch.baselines`) and the
-hyper-parameter amortizer (:mod:`repro_torch.amortize`) call is ported:
-``rms_norm``, ``mlp`` / ``mlp_params`` and ``attention`` with both of its
-paths. Rotary embeddings, decode attention, ``chunked_ce_loss`` and the KV
-``Cache`` belong to the LM zoo and wait for ROADMAP queue 1 item 14.
+What the curve transformer (:mod:`repro_torch.baselines`), the
+hyper-parameter amortizer (:mod:`repro_torch.amortize`) and the RWKV family
+(:mod:`repro_torch.models.rwkv`) call is ported: ``rms_norm``,
+``layer_norm``, ``mlp`` / ``mlp_params``, ``attention`` with both of its
+paths and ``chunked_ce_loss``. Rotary embeddings, decode attention and the
+KV ``Cache`` belong to the decoder family and wait for ROADMAP queue 1 item
+14.
 
 Conventions, as the reference's: activations are (batch, seq, d_model);
 attention scores and the softmax are computed in float32 and the output is
@@ -14,7 +16,9 @@ whose lengths divide into the chunks take the chunked (flash-style) path:
 query blocks against key blocks with an online softmax, so no (Sq, Sk) score
 matrix is held. The reference wraps its key loop in ``jax.checkpoint``; that
 only trades memory in the backward pass and changes no value, so the port's
-loops are plain.
+loops are plain. ``chunked_ce_loss`` recomputes each chunk's logits in the
+backward pass under autograd (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` does, so no (B, S, vocab) tensor is kept.
 """
 from __future__ import annotations
 
@@ -22,8 +26,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["rms_norm", "mlp", "mlp_params", "attention"]
+__all__ = ["rms_norm", "layer_norm", "mlp", "mlp_params", "attention",
+           "chunked_ce_loss"]
 
 
 # --------------------------------------------------------------------------
@@ -36,6 +42,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in float32 (population variance), cast back to x's dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -167,3 +183,45 @@ def attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0,
     if Sq <= max(q_chunk, 1024) or Sq % q_chunk or Sk % kv_chunk:
         return _plain_attention(q, k, v, causal, window, q_offset)
     return _chunked_attention(q, k, v, causal, window, q_chunk, kv_chunk)
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+def _ce_chunk(xc, embed, lc, logit_cap):
+    """Summed NLL and valid-label count of one sequence chunk."""
+    logits = torch.einsum("bsd,vd->bsv", xc, embed).float()
+    if logit_cap is not None:
+        logits = logit_cap * torch.tanh(logits / logit_cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp_min(lc, 0).long()[..., None])[..., 0]
+    valid = (lc >= 0).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
+def chunked_ce_loss(x: torch.Tensor, embed: torch.Tensor,
+                    labels: torch.Tensor, *, chunk: int = 512,
+                    logit_cap: float | None = None) -> torch.Tensor:
+    """Cross-entropy with the float32 logits computed per sequence chunk.
+
+    x: (B, S, D); embed: (V, D) output table; labels (B, S) with -1 =
+    ignore. A sequence that does not divide into chunks is one chunk. Returns
+    the summed NLL over the count of valid labels (at least 1).
+    """
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    if S % chunk != 0:
+        chunk = S
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, S, chunk):
+        args = (x[:, start:start + chunk], embed,
+                labels[:, start:start + chunk], logit_cap)
+        if torch.is_grad_enabled():
+            nll, valid = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            nll, valid = _ce_chunk(*args)
+        total = total + nll
+        count = count + valid
+    return total / torch.clamp_min(count, 1.0)

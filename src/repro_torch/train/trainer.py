@@ -9,9 +9,9 @@ reference's *strided* ones: microbatch ``i`` holds rows ``i, i + accum,
 i + 2 accum, ...`` of every batch entry (the reference's reshape to
 (B / accum, accum, ...) and swap of the first two axes). The reference's
 mesh, shardings, gradient compression and donated buffers have nothing to
-do on one device and are left out; its ``make_serve_steps`` and
-``distributed/sharding.py`` serve the LM zoo and wait for ROADMAP queue 1
-item 14.
+do on one device and are left out (``distributed/sharding.py`` waits for
+ROADMAP queue 1 item 14). :func:`make_serve_steps` gives a zoo model's
+prefill and decode step on one device.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from .._device import resolve_device
 from .optimizers import (OptConfig, apply_update, init_opt_state, tree_leaves,
                          tree_map)
 
-__all__ = ["TrainState", "TrainSetup", "make_train_step"]
+__all__ = ["TrainState", "TrainSetup", "make_train_step", "make_serve_steps"]
 
 
 class TrainState(NamedTuple):
@@ -95,3 +95,28 @@ def make_train_step(model, opt_cfg: OptConfig | None = None,
                           step=torch.zeros((), dtype=torch.int32, device=dev))
 
     return TrainSetup(step_fn=train_step, init_state=init_state, device=dev)
+
+
+def make_serve_steps(model, max_len: int = 2048, device=None) -> dict:
+    """The prefill and decode step of a zoo ``model`` on one device
+    (``None``: the GPU).
+
+    ``prefill(params, batch) -> (logits, cache)`` and ``decode_step(params,
+    cache, tokens) -> (logits, cache)`` move their token inputs to the
+    device and run without autograd; the parameters must already live
+    there. On one card the reference's parameter and cache shardings, its
+    ``constrain`` hook and its donated caches have nothing to do: a decode
+    step returns a new cache and the caller drops the old one.
+    """
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def prefill(params, batch: dict):
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        return model.prefill(params, batch, max_len)
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens: torch.Tensor):
+        return model.decode_step(params, cache, tokens.to(dev))
+
+    return {"prefill": prefill, "decode_step": decode_step, "device": dev}

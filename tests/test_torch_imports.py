@@ -12,6 +12,10 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+ARCH_IDS = ("whisper_tiny", "recurrentgemma_2b", "arctic_480b",
+            "qwen3_moe_235b", "stablelm_12b", "nemotron4_15b",
+            "phi3_medium_14b", "qwen2_72b", "llava_next_mistral_7b",
+            "rwkv6_1b6")
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py"))
 SCANNED = PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "rehearse_chip_smoke.py"]
@@ -62,7 +66,11 @@ def test_port_has_the_modules_of_this_slice():
                 "baselines/curve_transformer", "baselines/pretrain",
                 "baselines/evaluate", "train/__init__", "train/optimizers",
                 "train/trainer", "amortize/__init__", "amortize/encoder",
-                "amortize/train", "amortize/make_fixture"):
+                "amortize/train", "amortize/make_fixture",
+                "configs/__init__", "configs/base", "data/tokens",
+                "models/rwkv", "models/registry", "launch/__init__",
+                "launch/train", "launch/serve",
+                *(f"configs/{arch}" for arch in ARCH_IDS)):
         assert f"src/repro_torch/{mod}.py" in have
     for src in KERNEL_SOURCES:
         assert (PORT / "kernels" / "csrc" / src).is_file()
@@ -175,7 +183,22 @@ ENTRY_POINTS = {
         "repro_torch.amortize").Amortizer.load(_fixture()),
     "get_amortizer": lambda rt: _fresh_registry().get_amortizer(5),
     "tree_from_numpy": lambda rt: rt.tree_from_numpy({}),
+    "make_serve_steps": lambda rt: importlib.import_module(
+        "repro_torch.train").make_serve_steps(_rwkv_model()),
+    "init_cache": lambda rt: _rwkv_model().init_cache(1),
+    "launch.train": lambda rt: importlib.import_module(
+        "repro_torch.launch.train").main(["--arch", "rwkv6_1b6", "--smoke"]),
+    "launch.serve": lambda rt: importlib.import_module(
+        "repro_torch.launch.serve").main(["--arch", "rwkv6_1b6", "--smoke"]),
+    "launch.serve curves": lambda rt: importlib.import_module(
+        "repro_torch.launch.serve").main(["--service", "curves"]),
 }
+
+
+def _rwkv_model():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    return build_model(get_smoke_config("rwkv6_1b6"))
 
 
 def _task():

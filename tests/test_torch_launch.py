@@ -1,0 +1,280 @@
+"""PyTorch port, the LM zoo's entry points (``repro_torch.launch``), its
+one-device train and serve steps with the RWKV model, and bfloat16
+checkpoints (``repro_torch.checkpoint``), held against ``repro`` where the
+reference runs on the CPU.
+
+The trainer: five steps of the smoke RWKV from the reference's parameters
+(carried across) on the reference's token stream, within 1e-4 of the
+reference's trainer on a 1 x 1 debug mesh (float32; gradients through
+autograd on one side and ``jax.grad`` on the other). A resumed
+``launch.train`` run gives the losses of an uninterrupted one to 1e-6.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+
+jax.config.update("jax_enable_x64", True)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+import repro.configs as ref_configs  # noqa: E402
+import repro.models as ref_models  # noqa: E402
+import repro.train.optimizers as ref_opt  # noqa: E402
+from repro.checkpoint import CheckpointManager as RefCheckpointManager  # noqa
+from repro.data import TokenPipeline  # noqa: E402
+from repro.distributed.sharding import TP_RULES  # noqa: E402
+from repro.launch.mesh import make_debug_mesh  # noqa: E402
+from repro.train.trainer import TrainState as RefTrainState  # noqa: E402
+from repro.train.trainer import make_train_step as ref_make_train_step  # noqa
+from repro_torch import tree_from_numpy  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.train import (OptConfig, TrainState,  # noqa: E402
+                               init_opt_state, make_serve_steps,
+                               make_train_step)
+
+ROOT = Path(__file__).resolve().parents[1]
+CPU = "cpu"
+TRAIN_TOL = 1e-4
+RESUME_TOL = 1e-6
+OPT = dict(peak_lr=3e-3, warmup_steps=2, decay_steps=10, weight_decay=0.1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _close(ours, ref, tol, path=""):
+    if isinstance(ref, dict):
+        assert set(ours) == set(ref), path
+        for k in ref:
+            _close(ours[k], ref[k], tol, f"{path}/{k}")
+        return
+    want = np.asarray(ref)
+    np.testing.assert_allclose(ours.detach().numpy(), want, rtol=0,
+                               err_msg=path,
+                               atol=tol * max(1.0, float(np.abs(want).max())))
+
+
+# --------------------------------------------------------------------------
+# bfloat16 checkpoints
+# --------------------------------------------------------------------------
+def _bf16_tree():
+    g = torch.Generator().manual_seed(0)
+    return {"w": torch.randn((4, 3), generator=g).to(torch.bfloat16),
+            "b": {"x": torch.randn(5, generator=g).to(torch.bfloat16),
+                  "f": torch.randn(2, generator=g)},
+            "step": torch.tensor(7, dtype=torch.int32)}
+
+
+def test_bf16_checkpoint_round_trips_bit_for_bit(tmp_path):
+    """A bf16 leaf is saved as the reference saves it (2-byte |V2 records
+    of the raw bits) and restored into a bf16 template by reinterpreting
+    the bytes: the same bits. Before the fix the save raised TypeError."""
+    tree = _bf16_tree()
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    mgr.save(3, tree)
+    with np.load(tmp_path / "step_0000000003" / "state.npz") as z:
+        assert z["w"].dtype == np.dtype("V2") and z["b//f"].dtype == np.float32
+        np.testing.assert_array_equal(
+            z["w"].view(np.int16), tree["w"].view(torch.int16).numpy())
+    template = {"w": torch.zeros((4, 3), dtype=torch.bfloat16),
+                "b": {"x": torch.zeros(5, dtype=torch.bfloat16),
+                      "f": torch.zeros(2)},
+                "step": torch.tensor(0, dtype=torch.int32)}
+    back = mgr.restore(template)
+    for a, b in zip(_leaves(tree), _leaves(back)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    # into a float32 template: the bf16 values, cast
+    as32 = mgr.restore({**template, "w": torch.zeros((4, 3))})
+    assert torch.equal(as32["w"], tree["w"].float())
+
+
+def test_bf16_checkpoint_written_by_the_reference_restores(tmp_path):
+    rng = np.random.default_rng(1)
+    w = jnp.asarray(rng.standard_normal((3, 4)), jnp.bfloat16)
+    RefCheckpointManager(str(tmp_path), async_save=False).save(
+        5, {"w": w, "v": jnp.arange(3, dtype=jnp.float32)})
+    back = CheckpointManager(str(tmp_path)).restore(
+        {"w": torch.zeros((3, 4), dtype=torch.bfloat16),
+         "v": torch.zeros(3)})
+    assert back["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(back["w"].float().numpy(),
+                                  np.asarray(w, np.float32))
+    np.testing.assert_array_equal(back["v"].numpy(), np.arange(3))
+
+
+# --------------------------------------------------------------------------
+# the trainer and the serve steps with the RWKV model
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("chunk,seq,grad_accum", [(0, 12, 1), (16, 32, 2)])
+def test_five_rwkv_train_steps_match_reference(chunk, seq, grad_accum):
+    """Five steps of make_train_step on the smoke RWKV from the reference's
+    initial parameters, on the token stream: every parameter, every moment
+    and each step's loss within TRAIN_TOL of the reference's trainer."""
+    cfg = get_smoke_config("rwkv6_1b6").replace(rwkv_chunk=chunk)
+    rcfg = ref_configs.get_smoke_config("rwkv6_1b6").replace(rwkv_chunk=chunk)
+    model, rmodel = build_model(cfg), ref_models.build_model(rcfg)
+    params = rmodel.init(jax.random.PRNGKey(0))
+    ocfg, rocfg = OptConfig(**OPT), ref_opt.OptConfig(**OPT)
+    mesh = make_debug_mesh(data=1, model=1)
+    rsetup = ref_make_train_step(rmodel, mesh, opt_cfg=rocfg,
+                                 grad_accum=grad_accum, rules=TP_RULES)
+    setup = make_train_step(model, opt_cfg=ocfg, grad_accum=grad_accum,
+                            device=CPU)
+    ours = TrainState(params=tree_from_numpy(jax.tree_util.tree_map(
+        np.asarray, params), device=CPU), opt_state=None,
+        step=torch.zeros((), dtype=torch.int32))
+    ours = ours._replace(opt_state=init_opt_state(ours.params, ocfg))
+    ref = RefTrainState(params=params,
+                        opt_state=ref_opt.init_opt_state(params, rocfg),
+                        step=jnp.zeros((), jnp.int32))
+    pipe = TokenPipeline(cfg.vocab_size, 4, seq)
+    with mesh:
+        for step in range(5):
+            tokens, labels = pipe.batch_at(step)
+            ours, m = setup.step_fn(ours, {"tokens": torch.from_numpy(tokens),
+                                           "labels": torch.from_numpy(labels)})
+            ref, rm = rsetup.step_fn(ref, {"tokens": jnp.asarray(tokens),
+                                           "labels": jnp.asarray(labels)})
+            np.testing.assert_allclose(float(m["loss"]), float(rm["loss"]),
+                                       rtol=TRAIN_TOL)
+    assert int(ours.step) == int(ref.step) == 5
+    _close(ours.params, ref.params, TRAIN_TOL)
+    _close(ours.opt_state, ref.opt_state, TRAIN_TOL)
+
+
+def test_serve_steps_are_the_models_without_autograd():
+    cfg = get_smoke_config("rwkv6_1b6")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    for p in _leaves(params):
+        p.requires_grad_()
+    serve = make_serve_steps(model, max_len=16, device=CPU)
+    assert serve["device"] == torch.device("cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9),
+                           generator=torch.Generator().manual_seed(1))
+    logits, cache = serve["prefill"](params, {"tokens": tokens})
+    with torch.no_grad():
+        want, wcache = model.prefill(params, {"tokens": tokens})
+    assert not logits.requires_grad and torch.equal(logits, want)
+    for a, b in zip(cache, wcache):
+        assert torch.equal(a, b)
+    nxt = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    logits, cache = serve["decode_step"](params, cache, nxt)
+    with torch.no_grad():
+        want, _ = model.decode_step(params, wcache, nxt)
+    assert not logits.requires_grad and torch.equal(logits, want)
+    assert int(cache.length) == 10
+
+
+# --------------------------------------------------------------------------
+# launch/train.py
+# --------------------------------------------------------------------------
+TRAIN_ARGS = ["--arch", "rwkv6_1b6", "--smoke", "--steps", "6", "--batch",
+              "4", "--seq", "16", "--log-every", "100", "--device", CPU]
+
+
+def test_train_resumed_from_a_checkpoint_replays_the_stream(tmp_path):
+    """A run preempted at step 3 (a subprocess killed by
+    --simulate-preempt, checkpoint every 3 steps) and resumed gives the
+    uninterrupted run's losses at steps 3-5; the final states agree."""
+    ckpt = str(tmp_path / "ckpt")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGS,
+         "--ckpt-dir", ckpt, "--ckpt-every", "3", "--simulate-preempt", "3"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=240)
+    assert proc.returncode == 42, proc.stderr[-2000:]
+    assert "SIMULATED PREEMPTION at step 3" in proc.stdout
+    resumed = train_mod.main(TRAIN_ARGS + ["--ckpt-dir", ckpt])
+    assert resumed.start_step == 3 and len(resumed.losses) == 3
+    whole = train_mod.main(TRAIN_ARGS)
+    assert whole.start_step == 0 and len(whole.losses) == 6
+    np.testing.assert_allclose(resumed.losses, whole.losses[3:],
+                               rtol=RESUME_TOL)
+    assert int(resumed.state.step) == int(whole.state.step) == 6
+    _close(resumed.state.params, tree_to_ref(whole.state.params), RESUME_TOL)
+    # the run saved its last state at --steps
+    assert CheckpointManager(ckpt).latest_step() == 6
+
+
+def tree_to_ref(tree):
+    return {k: tree_to_ref(v) if isinstance(v, dict) else v.numpy()
+            for k, v in tree.items()}
+
+
+def test_train_loss_decreases():
+    """The reference's test_train_loss_decreases_on_mesh, on the port."""
+    res = train_mod.main(["--arch", "rwkv6_1b6", "--smoke", "--steps", "30",
+                          "--batch", "8", "--seq", "32", "--lr", "5e-3",
+                          "--log-every", "10", "--device", CPU])
+    assert res.losses[-1] < res.losses[0] - 0.2, (res.losses[0],
+                                                  res.losses[-1])
+    assert np.isfinite(res.ms_per_step) and res.ms_per_step > 0
+
+
+@pytest.mark.parametrize("mod", [train_mod, serve_mod])
+def test_multi_card_mesh_is_refused(mod):
+    with pytest.raises(NotImplementedError, match="sharding.py"):
+        mod.main(["--arch", "rwkv6_1b6", "--smoke", "--mesh", "multi",
+                  "--device", CPU])
+
+
+def test_other_families_are_refused_by_the_entry_points():
+    with pytest.raises(NotImplementedError, match="item 14"):
+        train_mod.main(["--arch", "stablelm_12b", "--smoke", "--device", CPU])
+
+
+# --------------------------------------------------------------------------
+# launch/serve.py
+# --------------------------------------------------------------------------
+def test_serve_lm_mode_on_the_cpu():
+    """--arch rwkv6_1b6 --smoke end to end: prefill + greedy decode, the
+    same tokens on a second run (seeded), and the timings printed."""
+    args = ["--arch", "rwkv6_1b6", "--smoke", "--batch", "2",
+            "--prompt-len", "8", "--gen", "3", "--device", CPU]
+    res = serve_mod.main(args)
+    assert res.tokens.shape == (2, 3)
+    assert np.issubdtype(res.tokens.dtype, np.integer)
+    assert res.prefill_ms > 0 and res.decode_ms_per_token > 0
+    assert res.tokens_per_s > 0
+    np.testing.assert_array_equal(serve_mod.main(args).tokens, res.tokens)
+    # the chunk-parallel prefill: a prompt longer than the chunk
+    chunked = serve_mod.main(["--arch", "rwkv6_1b6", "--smoke", "--batch",
+                              "2", "--prompt-len", "32", "--gen", "2",
+                              "--device", CPU])
+    assert chunked.tokens.shape == (2, 2)
+
+
+def test_serve_curves_mode_on_the_cpu():
+    m = serve_mod.main(["--service", "curves", "--tenants", "2", "--rounds",
+                        "2", "--n", "6", "--m", "8", "--lbfgs-iters", "5",
+                        "--device", CPU])
+    assert m["counters"]["cold_fits"] == 2
+    assert m["counters"]["observes"] == 2 + 2 * 2
+    assert m["counters"]["predicts"] == 2 * 2 + 2
+
+
+def test_serve_lm_mode_needs_an_arch():
+    with pytest.raises(SystemExit):
+        serve_mod.main(["--device", CPU])
