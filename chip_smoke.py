@@ -63,6 +63,17 @@ ran through the kernels:
   reference_rwkv.npz``; and the freeze-thaw example over 8 real RWKV
   training runs, its refits on the routed ``cuda`` engine (plain PyTorch
   otherwise: the reference has no kernel on this path);
+* the LM zoo's decoder family (dense, VLM prefix, MoE) in bf16 at published
+  width: ``stablelm_12b``, ``nemotron4_15b``, ``phi3_medium_14b`` and
+  ``llava_next_mistral_7b`` (2880 patch tokens, the chunked attention)
+  served whole through ``launch/serve.py``, and ``qwen2_72b``,
+  ``qwen3_moe_235b``, ``arctic_480b`` with their depth cut; float32 prefill
+  + decode against a longer prefill, bf16 against float32 logits, the
+  chunked attention against the plain one, ``moe_ffn`` against a dense
+  per-token sum and its routing ties; the seven smoke configs held against
+  ``tests/fixtures/reference_decoder.npz``; donated AdamW steps of
+  ``stablelm_12b`` and ``qwen3_moe_235b`` (plain PyTorch: the reference
+  writes the decoder in plain jnp);
 * the batched dense path (``fit_batch``, ``stack_states``,
   ``posterior_batch``) on 16 tasks: per-task ``fit`` and ``fit_batch``
   bitwise equal, a task's posterior bitwise equal at batch sizes 1 and 16,
@@ -98,6 +109,9 @@ fixture), service (8 tenants of n=16, m=12 and of n=8, m=10, dense; 4 of
 n=48, m=20 on cuda), curvepred (2000 pretrain steps; 45 cells of n=16,
 m=12), zoo (rwkv6_1b6 at full width: serve batch 8 x 64 + 32 tokens, train
 4 steps of 8 x 64; the smoke config; freeze-thaw over 8 runs, n=8, m=10),
+decoder (seven decoder configs at published width, three of them at a depth
+cut: serve batch 8 x 128 + 32 tokens, the VLM 4 x (2880 + 192); float32
+checks at 2 layers; the seven smoke configs; train 4 steps of 8 x 64),
 distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
 fit), gram
 (n=8192 and n=2000, d=7), routes_used (every bucket the tuner resolved).
@@ -124,6 +138,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -193,8 +208,11 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import build_model, count_params  # noqa: E402
-from repro_torch.models import rwkv  # noqa: E402
+from repro_torch.models import moe, rope, rwkv, transformer  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models.layers import layer_norm  # noqa: E402
+from repro_torch.data import TokenPipeline  # noqa: E402
+from repro_torch.train import OptConfig, make_train_step  # noqa: E402
 from repro_torch.train.optimizers import tree_leaves, tree_map  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
@@ -3528,6 +3546,374 @@ def phase_zoo() -> dict:
     return out
 
 
+# The decoder phase: the LM zoo's decoder family (dense, VLM prefix, MoE) in
+# bf16, at published width. The three dense configs and the VLM fit one H100
+# whole and are served through launch/serve.py; qwen2_72b, qwen3_moe_235b and
+# arctic_480b do not (143, 469 and 953 GB in bf16) and are served at full
+# width with their depth cut (DECODER_CUT: the layers kept). Its bands,
+# fixed before the first run on the card:
+DECODER_SERVE = {   # arch: (batch, prompt_len, gen)
+    "stablelm_12b": (8, 128, 32), "nemotron4_15b": (8, 128, 32),
+    "phi3_medium_14b": (8, 128, 32),
+    # 2880 patch tokens + 192 text tokens = 3072: the chunked attention
+    "llava_next_mistral_7b": (4, 192, 32)}
+DECODER_CUT = {"qwen2_72b": 8, "qwen3_moe_235b": 4, "arctic_480b": 1}
+DECODER_CUT_SERVE = (8, 128, 32)
+# prefill(S) + one decode step against prefill(S + 1) at 2 layers, float32:
+# max |difference| over max|logit|. The MoE runs at capacity_factor
+# E / top_k, where no token is dropped: at 1.25 a longer prefill drops late
+# tokens that a one-token decode step keeps (the reference's own behaviour;
+# tests/test_torch_decoder.py).
+DECODER_CONSISTENCY = dict(archs=("stablelm_12b", "qwen3_moe_235b"),
+                           layers=2, batch=2, seq=64)
+DECODER_CONSISTENCY_TOL = 2e-3
+# _chunked_attention against _plain_attention on the model's own layer-0
+# q, k, v (stablelm_12b, float32, S = 2048): the reference's band
+# (tests/test_substrate.py: atol 2e-5), times max(1, max|plain|).
+DECODER_ATTN_SEQ = 2048
+DECODER_ATTN_TOL = 2e-5
+# bf16 against float32 logits of the same parameters: max error over
+# max|logit|.
+DECODER_BF16_BAND = 0.1
+# moe_ffn at capacity_factor 8.0 (dropless: 16 groups of 8 tokens, C = 8)
+# against each token's top-k experts computed densely: the reference's
+# band (tests/test_models_smoke.py: rtol = atol = 2e-4), element by element.
+DECODER_MOE_DENSE_TOL = 2e-4
+# The smoke configs against the reference's outputs: times max|reference|.
+DECODER_REFERENCE_TOL = 1e-4
+REFERENCE_DECODER_NPZ = (Path(__file__).resolve().parent / "tests"
+                         / "fixtures" / "reference_decoder.npz")
+# Train: make_train_step with AdamW in place (donate=True), batch 8 x 64,
+# at a peak lr of 3e-5, a hundredth of launch.train's 3e-3 (which made the
+# RWKV losses rise at full width; so did 3e-4 here: AdamW's first steps move
+# every weight by about the lr, and at d_model 4096-5120 that is a large
+# change of each layer's output).
+DECODER_TRAIN = {"stablelm_12b": 4, "qwen3_moe_235b": 2}   # layers kept
+DECODER_TRAIN_STEPS = 4
+DECODER_TRAIN_OPT = OptConfig(name="adamw", peak_lr=3e-5, warmup_steps=2,
+                              decay_steps=DECODER_TRAIN_STEPS)
+
+
+def attention_path(cfg, seq: int) -> str:
+    """Which path ``layers.attention`` takes for a prefill of ``seq``."""
+    chunked = seq > max(cfg.q_chunk, 1024) and not seq % cfg.q_chunk \
+        and not seq % cfg.kv_chunk
+    return "chunked" if chunked else "plain"
+
+
+def decoder_serve_row(arch: str, layers: int | None = None) -> dict:
+    """Serve ``arch`` in bf16 at published width: through launch/serve.py
+    when it fits whole (``layers`` None), else ``serve_lm`` on the config
+    with ``layers`` layers. First the parameters alone (their peak memory:
+    the bf16 tree plus the largest leaf's float32 draw), then a 2-token
+    warm-up call, then the timed call."""
+    batch, prompt, gen = DECODER_SERVE.get(arch, DECODER_CUT_SERVE)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    n_params = count_params(cfg)
+    weight_bytes = n_params * torch.finfo(cfg.dtype_param).bits // 8
+    start = start_memory()
+    params = build_model(cfg).init(
+        torch.Generator(device=DEV).manual_seed(SEED))
+    init_peak = torch.cuda.max_memory_allocated() - start
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--gen"]
+    if layers is None:
+        def run(g):
+            return quiet(lm_serve.main, argv + [str(g)])
+    else:
+        def run(g):
+            return lm_serve.serve_lm(cfg, batch, prompt, g, SEED), []
+    warm, _ = run(2)
+    start_memory()
+    res, printed = run(gen)
+    check(res.tokens.shape == (batch, gen) and (res.tokens >= 0).all()
+          and (res.tokens < cfg.vocab_size).all(),
+          f"decoder serve {arch}: generated tokens {res.tokens.shape}")
+    bound_ms = weight_bytes / PEAK_BYTES_PER_S * 1e3
+    num_patch = cfg.num_patch_tokens
+    return {"arch": arch, "layers": cfg.num_layers,
+            "published_layers": get_config(arch).num_layers,
+            "dtype": str(cfg.dtype_param), "params": n_params,
+            "weight_bytes": weight_bytes, "batch": batch,
+            "prompt_len": prompt, "patch_tokens": num_patch, "gen": gen,
+            "prefill_attention": attention_path(cfg, prompt + num_patch),
+            "prefill_ms": res.prefill_ms,
+            "prefill_ms_first_call": warm.prefill_ms,
+            "decode_ms_per_token": res.decode_ms_per_token,
+            "tokens_per_s": res.tokens_per_s,
+            "decode_bound_ms": bound_ms, "bound_by": "bytes",
+            "decode_bound_share": bound_ms / res.decode_ms_per_token,
+            "init_peak_bytes": init_peak,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "printed": printed}
+
+
+def decoder_consistency() -> dict:
+    """Float32 at published width and 2 layers (TF32 off): prefill(S) +
+    decode against prefill(S + 1); bf16 against float32 logits of the same
+    parameters; the chunked attention against the plain one on stablelm's
+    layer-0 q, k, v; moe_ffn against a dense per-token computation, its
+    routing ties and two bf16 runs bit for bit."""
+    out = {"matmul": check_full_f32_matmuls("decoder"), "models": []}
+    B, S = DECODER_CONSISTENCY["batch"], DECODER_CONSISTENCY["seq"]
+    for arch in DECODER_CONSISTENCY["archs"]:
+        base = get_config(arch)
+        over = ({"capacity_factor": base.num_experts / base.moe_top_k}
+                if base.moe else {})
+        cfg = base.replace(num_layers=DECODER_CONSISTENCY["layers"],
+                           dtype_act=torch.float32,
+                           dtype_param=torch.float32, **over)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                               dtype=torch.int32, device=DEV,
+                               generator=torch.Generator(
+                                   device=DEV).manual_seed(SEED + 1))
+        with torch.no_grad():
+            logits_s, cache = model.prefill(params, {"tokens": tokens[:, :S]},
+                                            S + 1)
+            logits_a, _ = model.decode_step(params, cache, tokens[:, S:])
+            logits_b, _ = model.prefill(params, {"tokens": tokens}, S + 1)
+        scale = float(logits_b.abs().max())
+        row = {"arch": arch, "layers": cfg.num_layers, "S": S, **over,
+               "prefill_decode": {
+                   "max_abs_err": float((logits_a - logits_b).abs().max()),
+                   "max_abs_logit": scale, "tol": DECODER_CONSISTENCY_TOL}}
+        row["prefill_decode"]["relative"] =             row["prefill_decode"]["max_abs_err"] / scale
+        check(row["prefill_decode"]["relative"] <= DECODER_CONSISTENCY_TOL
+              and bool(torch.isfinite(logits_b).all()),
+              f"decoder: prefill + decode against a longer prefill: {row}")
+        if arch == "stablelm_12b":
+            row["attention"] = attention_paths_row(params, cfg)
+        if base.moe:
+            row["moe"] = moe_rows(params, cfg)
+        # bf16 logits of the same parameters
+        params16 = tree_map(lambda p: p.to(base.dtype_param), params)
+        del params
+        with torch.no_grad():
+            logits16, _ = build_model(base.replace(
+                num_layers=cfg.num_layers, **over)).prefill(
+                    params16, {"tokens": tokens[:, :S]}, S)
+        gap = float((logits16.float() - logits_s).abs().max())
+        scale = float(logits_s.abs().max())
+        row["bf16_vs_float32"] = {"max_abs_err": gap, "max_abs_logit": scale,
+                                  "relative": gap / scale,
+                                  "band": DECODER_BF16_BAND}
+        check(gap / scale <= DECODER_BF16_BAND, f"decoder: bf16 logits "
+              f"against float32: {row['bf16_vs_float32']}")
+        if base.moe:
+            row["moe"]["bf16_two_runs_bitwise"] = moe_bits(params16, base)
+        del params16, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["models"].append(row)
+    return out
+
+
+def attention_paths_row(params, cfg) -> dict:
+    """The chunked attention against the plain one on the model's own
+    layer-0 q, k, v at S = DECODER_ATTN_SEQ (batch 2, float32)."""
+    S = DECODER_ATTN_SEQ
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), dtype=torch.int32,
+                           device=DEV, generator=torch.Generator(
+                               device=DEV).manual_seed(SEED + 3))
+    with torch.no_grad():
+        x = transformer._embed(params, tokens, cfg)
+        cos, sin = rope(torch.arange(S, device=DEV), cfg.head_dim,
+                        cfg.rope_theta)
+        q, k, v = transformer._qkv_rope(
+            x, transformer._layer(params["layers"], 0), cfg, cos, sin)
+        plain = layers_mod._plain_attention(q, k, v, True, None, 0)
+        chunked = layers_mod._chunked_attention(q, k, v, True, None,
+                                                cfg.q_chunk, cfg.kv_chunk)
+    err = float((chunked - plain).abs().max())
+    tol = DECODER_ATTN_TOL * max(1.0, float(plain.abs().max()))
+    row = {"S": S, "head_dim": cfg.head_dim, "q_chunk": cfg.q_chunk,
+           "kv_chunk": cfg.kv_chunk, "max_abs_err": err, "tol": tol,
+           "dispatch": attention_path(cfg, S)}
+    check(err <= tol, f"decoder: chunked against plain attention: {row}")
+    return row
+
+
+def moe_rows(params, cfg) -> dict:
+    """moe_ffn (float32, layer 0, 2 x 64 tokens) at capacity_factor 8.0
+    against each token's top-k experts computed densely, one expert at a
+    time; and a zero router's ties: experts 0..K-1 for every token."""
+    lp = transformer._layer(params["layers"], 0)["moe"]
+    mcfg = cfg.replace(capacity_factor=8.0)
+    x = torch.randn((2, 64, cfg.d_model), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(SEED))
+    T = x.shape[0] * x.shape[1]
+    G = moe.moe_groups(T, mcfg.num_moe_groups)
+    C = moe.moe_capacity(T // G, mcfg.num_experts, mcfg.moe_top_k,
+                         mcfg.capacity_factor)
+    check(C >= T // G, f"decoder: the dense check needs a dropless dispatch "
+          f"(C {C}, {T // G} tokens a group)")
+    with torch.no_grad():
+        got = moe.moe_ffn(x, lp, mcfg, mcfg.num_moe_groups)
+        xf = x.reshape(T, -1)
+        probs = torch.softmax(xf @ lp["router"], dim=-1)
+        top_p, top_e = moe._top_k(probs, mcfg.moe_top_k)
+        top_p = top_p / top_p.sum(-1, keepdim=True)
+        want = torch.zeros_like(xf)
+        for e in range(mcfg.num_experts):
+            tok, j = torch.nonzero(top_e == e, as_tuple=True)
+            if tok.numel():
+                xe = xf[tok]
+                h = F.silu(xe @ lp["wi_0"][e]) * (xe @ lp["wi_1"][e])
+                want.index_add_(0, tok, top_p[tok, j, None]
+                                * (h @ lp["wo"][e]))
+        want = want.reshape(x.shape)
+        zero = torch.softmax(torch.zeros((4, mcfg.num_experts), device=DEV),
+                             -1)
+        _, tied = moe._top_k(zero, mcfg.moe_top_k)
+    excess = elementwise_excess(got, want, DECODER_MOE_DENSE_TOL)
+    row = {"capacity_factor": 8.0, "groups": G, "capacity": C,
+           "max_abs_err": float((got - want).abs().max()),
+           "max_abs": float(want.abs().max()), "excess_over_rtol": excess,
+           "tol": DECODER_MOE_DENSE_TOL,
+           "zero_router_experts": tied[0].tolist()}
+    check(excess <= DECODER_MOE_DENSE_TOL, f"decoder: moe_ffn against a "
+          f"dense per-token computation: {row}")
+    check(bool((tied == torch.arange(mcfg.moe_top_k, device=DEV)).all()),
+          f"decoder: a zero router's ties went to {tied.tolist()}")
+    return row
+
+
+def moe_bits(params16, base) -> bool:
+    """moe_ffn in bf16 at published width (layer 0, batch 8 x 128 tokens,
+    capacity_factor 1.25 as published) twice: the same bits."""
+    lp = transformer._layer(params16["layers"], 0)["moe"]
+    x = torch.randn((8, 128, base.d_model), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(
+                        SEED)).to(torch.bfloat16)
+    with torch.no_grad():
+        a = moe.moe_ffn(x, lp, base, base.num_moe_groups)
+        b = moe.moe_ffn(x, lp, base, base.num_moe_groups)
+    same = bool(torch.equal(a, b))
+    check(same and bool(torch.isfinite(a.float()).all()),
+          "decoder: two bf16 moe_ffn runs differ")
+    return same
+
+
+def decoder_reference_rows() -> list[dict]:
+    """The seven smoke configs on the card against the reference's outputs
+    in ``reference_decoder.npz`` (no JAX): the forward's hidden states, the
+    loss, the prefill's logits and cache, three decode steps."""
+    with np.load(REFERENCE_DECODER_NPZ) as z:
+        ref = {k: z[k] for k in z.files}
+    rows = []
+    for arch in sorted({k.split("/", 1)[0] for k in ref}):
+        sub = {k.split("/", 1)[1]: v for k, v in ref.items()
+               if k.startswith(arch + "/")}
+        params = tree_from_numpy({k.split("/", 1)[1]: v
+                                  for k, v in sub.items()
+                                  if k.startswith("params/")}, device=DEV)
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg)
+        data = {k: torch.from_numpy(sub[k]).to(DEV)
+                for k in ("tokens", "labels", "prefix_embeds") if k in sub}
+        prompt = {k: v for k, v in data.items() if k != "labels"}
+        with torch.no_grad():
+            got = {"hidden": transformer.decoder_forward(
+                       params, data["tokens"], cfg,
+                       prefix_embeds=data.get("prefix_embeds")),
+                   "loss": model.loss(params, data)}
+            logits, cache = model.prefill(params, prompt,
+                                          sub["cache_k"].shape[2])
+            got.update(prefill_logits=logits, cache_k=cache.k,
+                       cache_v=cache.v, cache_length=cache.length)
+            dec = []
+            for fed in sub["decode_tokens"]:
+                logits, cache = model.decode_step(
+                    params, cache, torch.from_numpy(fed).to(DEV))
+                dec.append(logits)
+            got["decode_logits"] = torch.stack(dec)
+        for name, value in got.items():
+            want = sub[name]
+            err = float(np.abs(value.detach().cpu().numpy().astype(
+                np.float64) - want).max())
+            tol = DECODER_REFERENCE_TOL * max(float(np.abs(want).max()),
+                                              1e-30)
+            row = {"arch": arch, "output": name, "max_abs_err": err,
+                   "tol": tol}
+            rows.append(row)
+            check(tuple(value.shape) == want.shape and err <= tol,
+                  f"decoder: the smoke config against "
+                  f"reference_decoder.npz: {row}")
+    return rows
+
+
+def decoder_train_row(arch: str, layers: int) -> dict:
+    """``make_train_step`` (AdamW in place) on ``arch`` at published width
+    and ``layers`` layers, bf16 parameters, remat on: 4 steps at 8 x 64."""
+    cfg = get_config(arch).replace(num_layers=layers)
+    start = start_memory()
+    setup = make_train_step(build_model(cfg), opt_cfg=DECODER_TRAIN_OPT,
+                            device=DEV, donate=True)
+    state = setup.init_state(SEED)
+    pipe = TokenPipeline(cfg.vocab_size, 8, 64)
+    losses, times = [], []
+    for step in range(DECODER_TRAIN_STEPS):
+        tokens, labels = pipe.batch_at(step)
+        batch = {"tokens": torch.from_numpy(tokens).to(DEV),
+                 "labels": torch.from_numpy(labels).to(DEV)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = setup.step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"])
+    losses = [float(x) for x in losses]
+    row = {"arch": arch, "layers": layers, "params": count_params(cfg),
+           "batch": 8, "seq": 64, "optimizer": "adamw (donated)",
+           "peak_lr": DECODER_TRAIN_OPT.peak_lr, "remat": cfg.remat,
+           "losses": losses, "first_step_ms": times[0],
+           "ms_per_step": statistics.mean(times[1:]),
+           "allocated_at_start_bytes": start,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    row["tokens_per_s"] = 8 * 64 / (row["ms_per_step"] / 1e3)
+    check(len(losses) == DECODER_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"decoder train {arch}: losses {losses}")
+    del state, setup, metrics
+    return row
+
+
+def phase_decoder() -> dict:
+    """The decoder family at published width: the three dense configs and
+    the VLM served whole, qwen2_72b / qwen3_moe_235b / arctic_480b at a depth
+    cut; the float32 checks; the smoke configs against the reference; the
+    train steps."""
+    t_phase = time.perf_counter()
+    out = {"phase": "decoder", "allocated_at_start_bytes": start_memory(),
+           "serve": [], "train": []}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        row = fn(*args)
+        if isinstance(row, dict):
+            row["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return row
+
+    for arch in DECODER_SERVE:
+        out["serve"].append(timed(decoder_serve_row, arch))
+    for arch, layers in DECODER_CUT.items():
+        out["serve"].append(timed(decoder_serve_row, arch, layers))
+    out["consistency"] = timed(decoder_consistency)
+    out["reference"] = timed(decoder_reference_rows)
+    for arch, layers in DECODER_TRAIN.items():
+        out["train"].append(timed(decoder_train_row, arch, layers))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def build_all() -> dict:
     """Compile every kernel source at once (one nvcc process each)."""
     t0 = time.perf_counter()
@@ -3773,6 +4159,16 @@ def main() -> None:
     zoo_totals = zoo_out["freeze_thaw"]["launches"]
     emit(zoo_out)
     del zoo_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Main path 4e, the LM zoo's decoder family (dense, VLM prefix, MoE) in
+    # bf16 at published width: served through launch/serve.py (the depth
+    # of the three that do not fit one card cut), the float32 checks, the
+    # smoke configs against the reference, train steps. Plain PyTorch: the
+    # reference writes the decoder and its MoE in plain jnp, no kernel.
+    with unescalated("decoder"):
+        emit(phase_decoder())
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -15,6 +15,7 @@
     python3 rehearse_chip_smoke.py amortize --n 200
     python3 rehearse_chip_smoke.py curvepred
     python3 rehearse_chip_smoke.py zoo
+    python3 rehearse_chip_smoke.py decoder
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -73,6 +74,7 @@ def _patch_port_for_cpu() -> None:
                 "repro_torch.convert", "repro_torch.train.trainer",
                 "repro_torch.baselines.evaluate",
                 "repro_torch.amortize.encoder", "repro_torch.models.rwkv",
+                "repro_torch.models.transformer",
                 "repro_torch.launch.serve", "repro_torch.launch.train",
                 "torch_automl_early_stopping"):
         importlib.import_module(mod)
@@ -105,7 +107,7 @@ def main() -> None:
                                       "gram", "routes", "warm", "batch",
                                       "solvers", "exact", "automl",
                                       "service", "amortize", "curvepred",
-                                      "zoo"))
+                                      "zoo", "decoder"))
     ap.add_argument("--n", type=int, default=300,
                     help="configurations of the fit, warm and automl "
                          "phases (m=52, d=7; the automl phase's Hyperband "
@@ -209,6 +211,20 @@ def main() -> None:
         cs.automl_example.STEPS_PER_EPOCH = max(1, args.steps // 20)
         with cs.unescalated("zoo"):
             print(json.dumps(cs.phase_zoo()))
+    elif args.phase == "decoder":
+        # The published widths do not fit the CPU: each smoke config with
+        # the published config's numerics (bf16, remat); the cut configs
+        # keep the smoke depth.
+        def smoke(arch):
+            return cs.get_smoke_config(arch).replace(
+                dtype_act=torch.bfloat16, dtype_param=torch.bfloat16,
+                remat=True)
+        cs.get_config = smoke
+        sys.modules["repro_torch.launch.serve"].get_config = smoke
+        cs.DECODER_CUT = {arch: smoke(arch).num_layers
+                          for arch in cs.DECODER_CUT}
+        with cs.unescalated("decoder"):
+            print(json.dumps(cs.phase_decoder()))
     elif args.phase == "exact":
         with cs.unescalated("exact"):
             print(json.dumps(cs.phase_exact()))

@@ -8,7 +8,10 @@ LM mode (default; batched prefill + greedy decode)::
 
 prints the prefill's milliseconds, the decode's milliseconds per token and
 tokens per second, timed on the host clock around work that ends in
-``torch.cuda.synchronize()`` on the card.
+``torch.cuda.synchronize()`` on the card. A VLM config (``llava_next_
+mistral_7b``) gets zero float32 patch embeddings as its prefix, as the
+reference's launcher gives it; :func:`serve_lm` is the same loop for a config
+built by the caller.
 
 Curve-prediction mode drives :class:`repro_torch.serving.PredictionService`
 - multi-tenant streaming observes with warm refits, coalesced predictions::
@@ -32,7 +35,7 @@ from ..configs import get_config, get_smoke_config
 from ..models import build_model
 from ..train.trainer import make_serve_steps
 
-__all__ = ["ServeResult", "main", "main_curves"]
+__all__ = ["ServeResult", "main", "main_curves", "serve_lm"]
 
 
 class ServeResult(NamedTuple):
@@ -133,44 +136,59 @@ def main(argv=None):
             "to repro_torch yet (ROADMAP queue 1 item 14)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    res = serve_lm(cfg, args.batch, args.prompt_len, args.gen, args.seed,
+                   args.device)
+    gen = res.tokens
+    print(f"arch={args.arch} batch={args.batch} prompt={args.prompt_len} "
+          f"generated={gen.shape[1]}")
+    print(f"prefill: {res.prefill_ms:.1f} ms; decode: "
+          f"{res.decode_ms_per_token:.1f} ms/token "
+          f"({res.tokens_per_s:.0f} tok/s)")
+    for i in range(min(2, args.batch)):
+        print(f"  req {i}: {gen[i, :10].tolist()} ...")
+    return res
+
+
+def serve_lm(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
+             device=None) -> ServeResult:
+    """Batched prefill + greedy decode of ``cfg`` from parameters drawn at
+    ``seed``, on ``device`` (``None``: the GPU), timed."""
     model = build_model(cfg)
-    dev = resolve_device(args.device)
+    dev = resolve_device(device)
+    # Only VLM configs carry patch tokens; they count toward the cache.
     num_patch = getattr(cfg, "num_patch_tokens", 0) or 0
-    serve = make_serve_steps(model,
-                             max_len=args.prompt_len + args.gen + num_patch,
+    serve = make_serve_steps(model, max_len=prompt_len + gen + num_patch,
                              device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
-    tokens = torch.randint(
-        0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=torch.int32,
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    inputs = {"tokens": torch.randint(
+        0, cfg.vocab_size, (batch, prompt_len), dtype=torch.int32,
         device=dev,
-        generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
+        generator=torch.Generator(device=dev).manual_seed(seed + 1))}
+    if cfg.family == "vlm":
+        inputs["prefix_embeds"] = torch.zeros(
+            (batch, cfg.num_patch_tokens, cfg.d_model), dtype=torch.float32,
+            device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = serve["prefill"](params, {"tokens": tokens})
+    logits, cache = serve["prefill"](params, inputs)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     out = [tok]
     t0 = time.perf_counter()
-    for _ in range(args.gen - 1):
+    for _ in range(gen - 1):
         logits, cache = serve["decode_step"](params, cache, tok)
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
         out.append(tok)
     _sync(dev)
     t_decode = time.perf_counter() - t0
 
-    gen = torch.cat(out, dim=1).cpu().numpy()
-    decode_ms = t_decode / max(args.gen - 1, 1) * 1e3
-    tok_s = args.batch * (args.gen - 1) / max(t_decode, 1e-9)
-    print(f"arch={args.arch} batch={args.batch} prompt={args.prompt_len} "
-          f"generated={gen.shape[1]}")
-    print(f"prefill: {t_prefill*1e3:.1f} ms; decode: {decode_ms:.1f} "
-          f"ms/token ({tok_s:.0f} tok/s)")
-    for i in range(min(2, args.batch)):
-        print(f"  req {i}: {gen[i, :10].tolist()} ...")
-    return ServeResult(tokens=gen, prefill_ms=t_prefill * 1e3,
+    tokens = torch.cat(out, dim=1).cpu().numpy()
+    decode_ms = t_decode / max(gen - 1, 1) * 1e3
+    tok_s = batch * (gen - 1) / max(t_decode, 1e-9)
+    return ServeResult(tokens=tokens, prefill_ms=t_prefill * 1e3,
                        decode_ms_per_token=decode_ms, tokens_per_s=tok_s)
 
 

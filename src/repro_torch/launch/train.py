@@ -11,7 +11,8 @@ process at step N to exercise the restart. ``--mesh debug`` and
 ``--mesh single`` both mean one device here; a multi-card mesh needs
 ``distributed/sharding.py``, which is not ported (ROADMAP queue 1 item 14).
 The step's loss stays on the device inside the loop and is read once at the
-end (and at each log line).
+end (and at each log line). A VLM config gets zero float32 patch embeddings
+as its prefix, as the reference's launcher gives it.
 """
 from __future__ import annotations
 
@@ -99,6 +100,10 @@ def main(argv=None) -> TrainResult:
         tokens, labels = pipe.batch_at(step)
         batch = {"tokens": torch.from_numpy(tokens).to(dev),
                  "labels": torch.from_numpy(labels).to(dev)}
+        if cfg.family == "vlm":
+            batch["prefix_embeds"] = torch.zeros(
+                (args.batch, cfg.num_patch_tokens, cfg.d_model),
+                dtype=torch.float32, device=dev)
         state, metrics = setup.step_fn(state, batch)
         # A device scalar: reading it here would wait for the device every
         # step. Read in bulk after the loop.

@@ -1,12 +1,9 @@
 """Shared neural-net layers (counterpart of ``repro.models.layers``).
 
-What the curve transformer (:mod:`repro_torch.baselines`), the
-hyper-parameter amortizer (:mod:`repro_torch.amortize`) and the RWKV family
-(:mod:`repro_torch.models.rwkv`) call is ported: ``rms_norm``,
-``layer_norm``, ``mlp`` / ``mlp_params``, ``attention`` with both of its
-paths and ``chunked_ce_loss``. Rotary embeddings, decode attention and the
-KV ``Cache`` belong to the decoder family and wait for ROADMAP queue 1 item
-14.
+Every layer of the reference is ported: ``rms_norm``, ``layer_norm``,
+``rope`` / ``apply_rope``, ``mlp`` / ``mlp_params``, ``attention`` with both
+of its paths, ``decode_attention`` against a KV cache, ``chunked_ce_loss``
+and the decoder's KV ``Cache``.
 
 Conventions, as the reference's: activations are (batch, seq, d_model);
 attention scores and the softmax are computed in float32 and the output is
@@ -23,13 +20,25 @@ reference's ``jax.checkpoint`` does, so no (B, S, vocab) tensor is kept.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["rms_norm", "layer_norm", "mlp", "mlp_params", "attention",
-           "chunked_ce_loss"]
+__all__ = ["rms_norm", "layer_norm", "rope", "apply_rope", "mlp",
+           "mlp_params", "attention", "decode_attention", "chunked_ce_loss",
+           "Cache"]
+
+
+def _mm(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum`` of an activation and a weight in their promoted dtype (JAX
+    promotes mixed bfloat16 / float32 operands, ``torch.einsum`` refuses
+    them)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.einsum(eq, x, w)
 
 
 # --------------------------------------------------------------------------
@@ -54,6 +63,35 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (out * scale.float() + bias.float()).to(x.dtype)
 
 
+# --------------------------------------------------------------------------
+# rotary position embeddings
+# --------------------------------------------------------------------------
+def rope(positions: torch.Tensor, head_dim: int, theta: float = 10_000.0,
+         dtype: torch.dtype = torch.float32):
+    """positions: (..., S) -> cos, sin of shape (..., S, head_dim / 2).
+
+    Frequencies and angles in float32, as the reference's
+    ``theta ** (arange(0, Dh, 2) / Dh)``."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    freqs = 1.0 / (theta ** exps)
+    angles = positions[..., None].to(torch.float32) * freqs
+    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, Dh); cos / sin: (B, S, Dh / 2) or (S, Dh / 2). Rotates
+    the two halves of every head in float32 and casts back."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    if cos.ndim == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
@@ -65,12 +103,12 @@ def mlp(x: torch.Tensor, params: dict, act: str) -> torch.Tensor:
     """act in {swiglu, geglu, gelu, relu2}. Gated acts use wi_0 (gate) and
     wi_1; the others take the optional biases bi_0 / bo."""
     if act in ("swiglu", "geglu"):
-        g = torch.einsum("bsd,df->bsf", x, params["wi_0"])
-        u = torch.einsum("bsd,df->bsf", x, params["wi_1"])
+        g = _mm("bsd,df->bsf", x, params["wi_0"])
+        u = _mm("bsd,df->bsf", x, params["wi_1"])
         g = F.silu(g.float()) if act == "swiglu" else _gelu(g.float())
         h = (g * u.float()).to(x.dtype)
     else:
-        h = torch.einsum("bsd,df->bsf", x, params["wi_0"])
+        h = _mm("bsd,df->bsf", x, params["wi_0"])
         if act == "gelu":
             h = _gelu(h.float()).to(x.dtype)
         elif act == "relu2":  # squared ReLU (Nemotron-4)
@@ -80,7 +118,7 @@ def mlp(x: torch.Tensor, params: dict, act: str) -> torch.Tensor:
             raise ValueError(act)
         if "bi_0" in params:
             h = h + params["bi_0"].to(h.dtype)
-    out = torch.einsum("bsf,fd->bsd", h, params["wo"])
+    out = _mm("bsf,fd->bsd", h, params["wo"])
     if "bo" in params:
         out = out + params["bo"].to(out.dtype)
     return out
@@ -185,6 +223,32 @@ def attention(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0,
     return _chunked_attention(q, k, v, causal, window, q_chunk, kv_chunk)
 
 
+def decode_attention(q, k_cache, v_cache, cache_len, window=None):
+    """One query position against a whole KV cache.
+
+    q: (B, 1, Hq, Dh); k / v_cache: (B, T, Hkv, Dh); ``cache_len``: the
+    count of valid entries (a 0-d device tensor or an int; the new token is
+    already written at ``cache_len - 1``). The scores are float32 over all T
+    positions, ``-1e30`` where a position is not below ``cache_len`` (or
+    falls outside the window), and the softmax is cast to the cache's dtype
+    before the value product, as the reference's.
+    """
+    B, T, Hkv, Dh = k_cache.shape
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, 1, Hkv, G, Dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache).float()
+    s = s / math.sqrt(Dh)
+    kpos = torch.arange(T, device=q.device)
+    valid = kpos < cache_len
+    if window is not None:
+        valid &= kpos >= cache_len - window
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, Hq, Dh)
+
+
 # --------------------------------------------------------------------------
 # loss
 # --------------------------------------------------------------------------
@@ -225,3 +289,10 @@ def chunked_ce_loss(x: torch.Tensor, embed: torch.Tensor,
         total = total + nll
         count = count + valid
     return total / torch.clamp_min(count, 1.0)
+
+
+class Cache(NamedTuple):
+    """Decode-time KV cache of one attention stack (stacked over layers)."""
+    k: torch.Tensor        # (L, B, T, Hkv, Dh)
+    v: torch.Tensor        # (L, B, T, Hkv, Dh)
+    length: torch.Tensor   # 0-d int32: the count of valid positions

@@ -8,9 +8,11 @@
     init_cache(batch, max_len, dtype, device) -> cache
 plus the parameter table and its logical-axis tree.
 
-Only the ``ssm`` family (RWKV-6) is ported; every other family raises
-``NotImplementedError`` (ROADMAP queue 1 item 14). One device: the
-reference's ``constrain`` hooks (sharding constraints) are left out.
+The decoder family (``dense``, ``moe``, ``vlm``) and the ``ssm`` family
+(RWKV-6) are ported; the encoder-decoder (``encdec``, ``audio``) and the
+hybrid (``hybrid``) raise ``NotImplementedError`` (ROADMAP queue 1 item
+14). One device: the reference's ``constrain`` hooks (sharding constraints)
+are left out.
 """
 from __future__ import annotations
 
@@ -19,13 +21,13 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from . import rwkv
+from . import rwkv, transformer
 from .transformer import build_params, table_logical
 
 __all__ = ["Model", "InputSpec", "build_model", "count_params",
            "active_params", "make_input_specs"]
 
-_NOT_PORTED = ("dense", "moe", "vlm", "encdec", "audio", "hybrid")
+_NOT_PORTED = ("encdec", "audio", "hybrid")
 
 
 class Model(NamedTuple):
@@ -47,6 +49,21 @@ class InputSpec(NamedTuple):
 
 def build_model(cfg) -> Model:
     fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        table = transformer.decoder_param_table(cfg)
+        return Model(
+            cfg=cfg, param_table=table, logical=table_logical(table),
+            init=lambda generator, dtype=cfg.dtype_param: build_params(
+                generator, table, dtype),
+            loss=lambda p, b: transformer.decoder_loss(p, b, cfg),
+            prefill=lambda p, b, max_len: transformer.decoder_prefill(
+                p, b, cfg, max_len),
+            decode_step=lambda p, c, t: transformer.decoder_decode_step(
+                p, c, t, cfg),
+            init_cache=lambda batch, max_len, dtype=cfg.dtype_act,
+            device=None: transformer.init_decoder_cache(cfg, batch, max_len,
+                                                        dtype, device),
+        )
     if fam == "ssm":
         table = rwkv.rwkv_param_table(cfg)
         return Model(

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from .layers import chunked_ce_loss, layer_norm
+from .layers import _mm, chunked_ce_loss, layer_norm
+from .transformer import _layer
 
 __all__ = ["rwkv_layer_table", "rwkv_param_table", "rwkv_forward",
            "rwkv_loss", "rwkv_prefill", "rwkv_decode_step",
@@ -95,16 +96,6 @@ def rwkv_param_table(cfg):
         table[f"layers/{k}"] = ((cfg.num_layers, *shape),
                                 ("layers", *logical), fan)
     return table
-
-
-def _mm(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum`` of an activation and a weight in their promoted dtype (JAX
-    promotes mixed bfloat16 / float32 operands, ``torch.einsum`` refuses
-    them)."""
-    if x.dtype != w.dtype:
-        dt = torch.promote_types(x.dtype, w.dtype)
-        x, w = x.to(dt), w.to(dt)
-    return torch.einsum(eq, x, w)
 
 
 # --------------------------------------------------------------------------
@@ -269,12 +260,6 @@ def _block(h, lp, cfg, last_tm=None, last_cm=None, state0=None):
     hn = layer_norm(h, 1.0 + lp["ln2"], lp["ln2_b"])
     h = h + _channel_mix(hn, _shift(hn, last_cm), lp["cm"])
     return h, state, x_tm, hn[:, -1, :]
-
-
-def _layer(layers: dict, l: int) -> dict:
-    """Layer ``l``'s parameters: a view of each stacked leaf."""
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
-            for k, v in layers.items()}
 
 
 def _embed(params, tokens, cfg):

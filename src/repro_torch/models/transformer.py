@@ -1,24 +1,99 @@
-"""Parameter tables and their materialisation (counterpart of
-``repro.models.transformer``, the part the curve transformer and the
-amortizer use).
+"""Decoder-only transformer LM (dense / MoE / VLM prefix) and the parameter
+tables (counterpart of ``repro.models.transformer``).
+
+One implementation covers stablelm-12b, nemotron-4-15b, phi3-medium-14b,
+qwen2-72b, llava-next-mistral-7b (patch-embedding prefix), arctic-480b and
+qwen3-moe-235b (MoE FFN, optional parallel dense residual, optional QK-norm).
 
 A table maps a ``/``-joined path to ``(shape, logical_axes, fan_in or
 None)``; :func:`build_params` turns it into a nested dict of tensors that
 mirrors the reference's pytree, :func:`table_logical` into the same nesting
-of logical axes. The decoder-only LM itself (``decoder_param_table``,
-``decoder_forward`` / ``_loss`` / ``_prefill`` / ``_decode_step``), its MoE
-FFN and the sharding imports it needs (``repro/models/transformer.py:19-22``)
-wait for ROADMAP queue 1 item 14.
+of logical axes. Every layer's weights are stacked on a leading (L, ...)
+axis, so a reference parameter tree carries across one to one
+(``convert.tree_from_numpy``). Where the reference scans over layers, this
+module loops in Python; its ``lax.switch`` over ``layer_windows`` is a
+branch on ``layer % len(windows)``. With ``cfg.remat`` each layer is
+recomputed in the backward pass under autograd (``torch.utils.checkpoint``),
+as the reference's ``jax.checkpoint``; that changes no value.
+
+Serving: :func:`decoder_prefill` fills a KV :class:`Cache` of ``max_len``
+positions; :func:`decoder_decode_step` writes the new token's K / V at the
+cache's ``length`` (a 0-d device int32, so no step reads the device), with
+the start clamped to the last position as XLA's ``dynamic_update_slice``
+clamps it, and attends over the whole cache with the tail masked. A decode
+step returns a new cache and leaves its argument as it was.
+
+One device: the reference's sharding constraints (``constrain``) and its
+expert-parallel MoE paths (``get_active_mesh``) have nothing to do here.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["build_params", "table_logical"]
+from .._device import resolve_device
+from .layers import (Cache, _mm, apply_rope, attention, chunked_ce_loss,
+                     decode_attention, mlp, mlp_params, rms_norm, rope)
+from .moe import moe_ffn, moe_param_table
+
+__all__ = ["decoder_param_table", "decoder_layer_table", "build_params",
+           "table_logical", "decoder_forward", "decoder_loss",
+           "decoder_prefill", "decoder_decode_step", "init_decoder_cache"]
 
 _NORM_SUFFIXES = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+
+
+# --------------------------------------------------------------------------
+# parameter tables:  path -> (shape, logical_axes, fan_in or None)
+# --------------------------------------------------------------------------
+def _attn_table(cfg):
+    D, Hq, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    t = {
+        "ln1": ((D,), ("embed",), None),
+        "wq": ((D, Hq * Dh), ("embed", "heads_fused"), D),
+        "wk": ((D, Hkv * Dh), ("embed", "kv_fused"), D),
+        "wv": ((D, Hkv * Dh), ("embed", "kv_fused"), D),
+        "wo": ((Hq * Dh, D), ("heads_fused", "embed"), Hq * Dh),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = ((Hq * Dh,), ("heads_fused",), None)
+        t["bk"] = ((Hkv * Dh,), ("kv_fused",), None)
+        t["bv"] = ((Hkv * Dh,), ("kv_fused",), None)
+    if cfg.qk_norm:
+        t["q_norm"] = ((Dh,), (None,), None)
+        t["k_norm"] = ((Dh,), (None,), None)
+    return t
+
+
+def decoder_layer_table(cfg):
+    t = dict(_attn_table(cfg))
+    t["ln2"] = ((cfg.d_model,), ("embed",), None)
+    if cfg.moe:
+        for k, v in moe_param_table(cfg).items():
+            t[f"moe/{k}"] = v
+        if cfg.moe_dense_residual:
+            for k, v in mlp_params(cfg.mlp_act, cfg.d_model,
+                                   cfg.d_ff).items():
+                t[f"residual_mlp/{k}"] = v
+    else:
+        for k, v in mlp_params(cfg.mlp_act, cfg.d_model, cfg.d_ff,
+                               bias=cfg.mlp_bias).items():
+            t[f"mlp/{k}"] = v
+    return t
+
+
+def decoder_param_table(cfg):
+    table = {
+        "embed": ((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), None),
+        "final_norm": ((cfg.d_model,), ("embed",), None),
+    }
+    for k, v in decoder_layer_table(cfg).items():
+        shape, logical, fan = v
+        table[f"layers/{k}"] = ((cfg.num_layers, *shape),
+                                ("layers", *logical), fan)
+    return table
 
 
 def build_params(generator: torch.Generator, table: dict,
@@ -41,9 +116,9 @@ def build_params(generator: torch.Generator, table: dict,
             arr = torch.zeros(shape, dtype=dtype, device=dev)
         else:
             std = 0.02 if fan is None else fan ** -0.5
-            z = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=dev)
-            arr = (std * z).to(dtype)
+            # one float32 draw alive at a time, scaled in place
+            arr = torch.randn(shape, generator=generator, dtype=torch.float32,
+                              device=dev).mul_(std).to(dtype)
         _assign(params, name, arr)
     return params
 
@@ -61,3 +136,196 @@ def _assign(tree: dict, path: str, value) -> None:
     for p in parts[:-1]:
         tree = tree.setdefault(p, {})
     tree[parts[-1]] = value
+
+
+def _layer(layers: dict, l: int) -> dict:
+    """Layer ``l``'s parameters: a view of each stacked leaf."""
+    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
+            for k, v in layers.items()}
+
+
+def _window(cfg, l: int):
+    """Layer ``l``'s attention window (the reference's ``lax.switch``)."""
+    windows = cfg.layer_windows
+    return cfg.window if windows is None else windows[l % len(windows)]
+
+
+# --------------------------------------------------------------------------
+# blocks
+# --------------------------------------------------------------------------
+def _project_qkv(x, p, cfg):
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _mm("bsd,dh->bsh", x, p["wq"])
+    k = _mm("bsd,dh->bsh", x, p["wk"])
+    v = _mm("bsd,dh->bsh", x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, S, Hq, Dh)
+    k = k.reshape(B, S, Hkv, Dh)
+    v = v.reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _ffn(x, p, cfg):
+    if cfg.moe:
+        out = moe_ffn(x, p["moe"], cfg, cfg.num_moe_groups)
+        if cfg.moe_dense_residual:
+            out = out + mlp(x, p["residual_mlp"], cfg.mlp_act)
+        return out
+    return mlp(x, p["mlp"], cfg.mlp_act)
+
+
+def _attn_out(a, p):
+    B, S = a.shape[:2]
+    return _mm("bsh,hd->bsd", a.reshape(B, S, -1), p["wo"])
+
+
+def _qkv_rope(x, p, cfg, cos, sin):
+    """The pre-norm, the projections and the rotary embedding of a block."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(h, p, cfg)
+    if cfg.use_rope:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _decoder_layer(x, p, cfg, cos, sin, layer_window):
+    """One block over a whole sequence: (new x, its K, its V)."""
+    q, k, v = _qkv_rope(x, p, cfg, cos, sin)
+    a = attention(q, k, v, causal=True, window=layer_window,
+                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    x = x + _attn_out(a, p)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _ffn(h, p, cfg), k, v
+
+
+def _run_layers(params, x, cfg, cos, sin, cache=None):
+    """Every block in order; with ``cache``, each block's K / V are written
+    at its positions [0, S)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    S = x.shape[1]
+    for l in range(cfg.num_layers):
+        args = (x, _layer(params["layers"], l), cfg, cos, sin,
+                _window(cfg, l))
+        if remat:
+            x, k, v = checkpoint(_decoder_layer, *args, use_reentrant=False)
+        else:
+            x, k, v = _decoder_layer(*args)
+        if cache is not None:
+            cache.k[l, :, :S] = k
+            cache.v[l, :, :S] = v
+    return x
+
+
+def _embed(params, tokens, cfg, prefix_embeds=None):
+    x = params["embed"][tokens].to(cfg.dtype_act)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    if cfg.scale_embed:
+        x = x * cfg.d_model ** 0.5
+    return x
+
+
+def _logits(params, x, cfg):
+    """Tied output head (the embedding), with the optional logit cap."""
+    logits = torch.einsum("...d,vd->...v", x, params["embed"].to(x.dtype))
+    if cfg.final_logit_cap is not None:
+        logits = cfg.final_logit_cap * torch.tanh(logits
+                                                  / cfg.final_logit_cap)
+    return logits
+
+
+# --------------------------------------------------------------------------
+# forward / loss / serve
+# --------------------------------------------------------------------------
+def decoder_forward(params, tokens, cfg, *, prefix_embeds=None):
+    """tokens: (B, S_text) int; prefix_embeds: (B, P, D) or None.
+
+    Returns the final hidden states (B, P + S_text, D).
+    """
+    x = _embed(params, tokens, cfg, prefix_embeds)
+    S = x.shape[1]
+    cos, sin = rope(torch.arange(S, device=x.device), cfg.head_dim,
+                    cfg.rope_theta)
+    x = _run_layers(params, x, cfg, cos, sin)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def decoder_loss(params, batch, cfg):
+    prefix = batch.get("prefix_embeds")
+    x = decoder_forward(params, batch["tokens"], cfg, prefix_embeds=prefix)
+    P = 0 if prefix is None else prefix.shape[1]
+    return chunked_ce_loss(x[:, P:, :], params["embed"].to(cfg.dtype_act),
+                           batch["labels"], chunk=cfg.loss_chunk,
+                           logit_cap=cfg.final_logit_cap)
+
+
+def init_decoder_cache(cfg, batch, max_len, dtype, device=None) -> Cache:
+    """An empty cache of ``max_len`` positions on ``device`` (``None``: the
+    GPU)."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return Cache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                 v=torch.zeros(shape, dtype=dtype, device=dev),
+                 length=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _decode_layer(x, lp, cache_k, cache_v, at, length, cfg, cos, sin,
+                  layer_window):
+    """One block for one new position: K / V written into ``cache_k`` /
+    ``cache_v`` (one layer's (B, T, Hkv, Dh)) at index ``at``."""
+    q, k, v = _qkv_rope(x, lp, cfg, cos, sin)
+    cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+    a = decode_attention(q, cache_k, cache_v, length + 1,
+                         window=layer_window)
+    x = x + _attn_out(a, lp)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + _ffn(h, lp, cfg)
+
+
+def decoder_decode_step(params, cache: Cache, tokens, cfg):
+    """One greedy decode step. tokens: (B, 1) -> (logits (B, V), new cache).
+
+    The new K / V go to position ``cache.length``, clamped to the cache's
+    last position (XLA's ``dynamic_update_slice`` rule: a full cache is
+    overwritten at its end, not refused).
+    """
+    x = _embed(params, tokens, cfg)
+    pos = cache.length
+    cos, sin = rope(torch.arange(1, device=x.device) + pos, cfg.head_dim,
+                    cfg.rope_theta)
+    T = cache.k.shape[2]
+    at = torch.clamp(pos, 0, T - 1).long().reshape(1)
+    new_k, new_v = cache.k.clone(), cache.v.clone()
+    for l in range(cfg.num_layers):
+        x = _decode_layer(x, _layer(params["layers"], l), new_k[l],
+                          new_v[l], at, pos, cfg, cos, sin, _window(cfg, l))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, x, cfg)
+    return logits[:, 0], Cache(k=new_k, v=new_v, length=cache.length + 1)
+
+
+def decoder_prefill(params, batch, cfg, max_len):
+    """Process a full prompt (and the VLM's prefix), return (last position's
+    logits (B, V), a cache of ``max_len`` positions holding its K / V)."""
+    x = _embed(params, batch["tokens"], cfg, batch.get("prefix_embeds"))
+    B, S = x.shape[:2]
+    if S > max_len:
+        raise ValueError(f"a prompt of {S} positions does not fit a cache "
+                         f"of max_len {max_len}")
+    cos, sin = rope(torch.arange(S, device=x.device), cfg.head_dim,
+                    cfg.rope_theta)
+    cache = init_decoder_cache(cfg, B, max_len, cfg.dtype_act, x.device)
+    x = _run_layers(params, x, cfg, cos, sin, cache)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, x[:, -1, :], cfg)
+    return logits, cache._replace(
+        length=torch.tensor(S, dtype=torch.int32, device=x.device))

@@ -18,7 +18,12 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 __all__ = ["OptConfig", "cosine_lr", "init_opt_state", "apply_update",
-           "global_norm", "clip_by_global_norm", "tree_map", "tree_leaves"]
+           "apply_update_", "global_norm", "clip_by_global_norm", "tree_map",
+           "tree_leaves"]
+
+# Elements of a leaf the in-place update (``apply_update_``) takes at once:
+# its float32 temporaries stay near 256 MB each, whatever the leaf's size.
+DONATE_CHUNK = 1 << 26
 
 
 class OptConfig(NamedTuple):
@@ -102,14 +107,16 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
     raise ValueError(cfg.name)
 
 
-def _adamw_leaf(p, g, m, v, lr, step, cfg: OptConfig):
+def _adamw_leaf(p, g, m, v, lr, step, cfg: OptConfig, decay=None):
+    """One AdamW step of a leaf; ``decay`` (default: ``p.ndim >= 2``) says
+    whether the leaf takes weight decay."""
     g32 = g.float()
     m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
     v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g32 * g32
     mhat = m32 / (1 - torch.pow(cfg.b1, step))
     vhat = v32 / (1 - torch.pow(cfg.b2, step))
     upd = mhat / (torch.sqrt(vhat) + cfg.eps)
-    if p.ndim >= 2:  # no weight decay on norms / biases
+    if p.ndim >= 2 if decay is None else decay:  # none on norms / biases
         upd = upd + cfg.weight_decay * p.float()
     newp = p.float() - lr * upd
     return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
@@ -157,6 +164,55 @@ def apply_update(params, grads, opt_state: dict, step, cfg: OptConfig):
     newp, new_a, new_b = (_pick(out, i) for i in range(3))
     return newp, {keys[0]: new_a, keys[1]: new_b}, {"lr": lr,
                                                     "grad_norm": gnorm}
+
+
+def _chunks(x: torch.Tensor):
+    """Contiguous flat views of ``x`` of at most ``DONATE_CHUNK`` elements."""
+    flat = x.view(-1)
+    return [flat[i:i + DONATE_CHUNK]
+            for i in range(0, flat.numel(), DONATE_CHUNK)]
+
+
+def apply_update_(params, grads, opt_state: dict, step, cfg: OptConfig):
+    """:func:`apply_update` in place: ``params`` and ``opt_state`` are
+    overwritten with the new values (the reference's donated train state)
+    and ``grads`` is consumed; returns the metrics.
+
+    AdamW runs over flat chunks of each leaf, so no float32 copy of a whole
+    leaf is made; the global norm sums the chunks' squares, so it may differ
+    from :func:`global_norm`'s in the last bits. Adafactor's factored
+    moments need whole leaves: each leaf is updated at once and copied back.
+    """
+    grads = tree_map(torch.Tensor.contiguous, grads)
+    sq = [torch.sum(torch.square(c.float()))
+          for g in tree_leaves(grads) for c in _chunks(g)]
+    gnorm = torch.sqrt(sum(sq))
+    scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
+                        max=1.0)
+    step = torch.as_tensor(step, device=gnorm.device)
+    lr = cosine_lr(cfg, step)
+    stepf = step.to(torch.float32) + 1.0
+    keys = {"adamw": ("m", "v"), "adafactor": ("vr", "vc")}.get(cfg.name)
+    if keys is None:
+        raise ValueError(cfg.name)
+    leaves = zip(tree_leaves(params), tree_leaves(grads),
+                 tree_leaves(opt_state[keys[0]]),
+                 tree_leaves(opt_state[keys[1]]))
+    for p, g, a, b in leaves:
+        if cfg.name == "adamw":
+            parts = zip(_chunks(p), _chunks(g), _chunks(a), _chunks(b))
+            for pc, gc, ac, bc in parts:
+                gc = (gc.float() * scale).to(gc.dtype)
+                new = _adamw_leaf(pc, gc, ac, bc, lr, stepf, cfg,
+                                  decay=p.ndim >= 2)
+                for old, value in zip((pc, ac, bc), new):
+                    old.copy_(value)
+        else:
+            g = (g.float() * scale).to(g.dtype)
+            new = _adafactor_leaf(p, g, a, b, lr, stepf, cfg)
+            for old, value in zip((p, a, b), new):
+                old.copy_(value)
+    return {"lr": lr, "grad_norm": gnorm}
 
 
 def _pick(tree, i: int):

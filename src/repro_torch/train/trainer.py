@@ -7,10 +7,13 @@ accumulated over ``grad_accum`` microbatches, then one step of
 :func:`repro_torch.train.optimizers.apply_update`. The microbatches are the
 reference's *strided* ones: microbatch ``i`` holds rows ``i, i + accum,
 i + 2 accum, ...`` of every batch entry (the reference's reshape to
-(B / accum, accum, ...) and swap of the first two axes). The reference's
-mesh, shardings, gradient compression and donated buffers have nothing to
-do on one device and are left out (``distributed/sharding.py`` waits for
-ROADMAP queue 1 item 14). :func:`make_serve_steps` gives a zoo model's
+(B / accum, accum, ...) and swap of the first two axes). With
+``donate=True`` the step updates the state's tensors in place
+(:func:`repro_torch.train.optimizers.apply_update_`), as the reference's
+donated train state does; the caller must not use the state it passed in
+again. The reference's mesh, shardings and gradient compression have
+nothing to do on one device and are left out (``distributed/sharding.py``
+waits for ROADMAP queue 1 item 14). :func:`make_serve_steps` gives a zoo model's
 prefill and decode step on one device.
 """
 from __future__ import annotations
@@ -20,8 +23,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from .._device import resolve_device
-from .optimizers import (OptConfig, apply_update, init_opt_state, tree_leaves,
-                         tree_map)
+from .optimizers import (OptConfig, apply_update, apply_update_,
+                         init_opt_state, tree_leaves, tree_map)
 
 __all__ = ["TrainState", "TrainSetup", "make_train_step", "make_serve_steps"]
 
@@ -52,7 +55,8 @@ def _value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(model, opt_cfg: OptConfig | None = None,
-                    grad_accum: int = 1, device=None) -> TrainSetup:
+                    grad_accum: int = 1, device=None,
+                    donate: bool = False) -> TrainSetup:
     """The train step of ``model`` on ``device`` (``None``: the GPU).
 
     ``init_state(seed)`` draws the parameters from a ``torch.Generator`` on
@@ -61,6 +65,12 @@ def make_train_step(model, opt_cfg: OptConfig | None = None,
     divisible by it, and the loss and gradient are the means over the
     microbatches. ``metrics`` holds device scalars (``loss``, ``lr``,
     ``grad_norm``): nothing in a step reads the device.
+
+    ``donate`` defaults to False, where the reference's defaults to True:
+    JAX refuses a donated buffer's later use, PyTorch would read the new
+    values silently, so the in-place step is asked for by name. It holds
+    the parameters, gradients and moments once, where the functional step
+    holds a new copy of each beside the old.
     """
     opt_cfg = opt_cfg or OptConfig()
     dev = resolve_device(device)
@@ -80,8 +90,13 @@ def make_train_step(model, opt_cfg: OptConfig | None = None,
             loss = lsum / grad_accum
         else:
             loss, grads = _value_and_grad(model.loss, state.params, batch)
-        new_params, new_opt, metrics = apply_update(
-            state.params, grads, state.opt_state, state.step, opt_cfg)
+        if donate:
+            metrics = apply_update_(state.params, grads, state.opt_state,
+                                    state.step, opt_cfg)
+            new_params, new_opt = state.params, state.opt_state
+        else:
+            new_params, new_opt, metrics = apply_update(
+                state.params, grads, state.opt_state, state.step, opt_cfg)
         metrics["loss"] = loss
         return TrainState(params=new_params, opt_state=new_opt,
                           step=state.step + 1), metrics

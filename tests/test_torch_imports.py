@@ -68,7 +68,8 @@ def test_port_has_the_modules_of_this_slice():
                 "train/trainer", "amortize/__init__", "amortize/encoder",
                 "amortize/train", "amortize/make_fixture",
                 "configs/__init__", "configs/base", "data/tokens",
-                "models/rwkv", "models/registry", "launch/__init__",
+                "models/rwkv", "models/registry", "models/moe",
+                "launch/__init__",
                 "launch/train", "launch/serve",
                 *(f"configs/{arch}" for arch in ARCH_IDS)):
         assert f"src/repro_torch/{mod}.py" in have
@@ -186,6 +187,16 @@ ENTRY_POINTS = {
     "make_serve_steps": lambda rt: importlib.import_module(
         "repro_torch.train").make_serve_steps(_rwkv_model()),
     "init_cache": lambda rt: _rwkv_model().init_cache(1),
+    "init_decoder_cache": lambda rt: _decoder_model().init_cache(1, 4),
+    "serve_lm": lambda rt: importlib.import_module(
+        "repro_torch.launch.serve").serve_lm(
+            _decoder_model().cfg, 1, 4, 2),
+    "launch.serve decoder": lambda rt: importlib.import_module(
+        "repro_torch.launch.serve").main(["--arch", "llava_next_mistral_7b",
+                                          "--smoke"]),
+    "launch.train decoder": lambda rt: importlib.import_module(
+        "repro_torch.launch.train").main(["--arch", "qwen3_moe_235b",
+                                          "--smoke"]),
     "launch.train": lambda rt: importlib.import_module(
         "repro_torch.launch.train").main(["--arch", "rwkv6_1b6", "--smoke"]),
     "launch.serve": lambda rt: importlib.import_module(
@@ -199,6 +210,12 @@ def _rwkv_model():
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
     return build_model(get_smoke_config("rwkv6_1b6"))
+
+
+def _decoder_model():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    return build_model(get_smoke_config("qwen3_moe_235b"))
 
 
 def _task():

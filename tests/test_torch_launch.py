@@ -242,7 +242,95 @@ def test_multi_card_mesh_is_refused(mod):
 
 def test_other_families_are_refused_by_the_entry_points():
     with pytest.raises(NotImplementedError, match="item 14"):
-        train_mod.main(["--arch", "stablelm_12b", "--smoke", "--device", CPU])
+        train_mod.main(["--arch", "recurrentgemma_2b", "--smoke", "--device",
+                        CPU])
+
+
+@pytest.mark.parametrize("arch", ["llava_next_mistral_7b", "qwen3_moe_235b"])
+def test_train_runs_the_decoder_family(arch):
+    """--smoke --device cpu for the VLM (zero patch embeddings as its
+    prefix, as the reference's launcher) and the MoE: finite losses that
+    fall at the smoke widths."""
+    res = train_mod.main(["--arch", arch, "--smoke", "--steps", "8",
+                          "--batch", "4", "--seq", "16", "--lr", "5e-3",
+                          "--log-every", "100", "--device", CPU])
+    assert len(res.losses) == 8 and np.all(np.isfinite(res.losses))
+    assert res.losses[-1] < res.losses[0]
+
+
+@pytest.mark.parametrize("arch", ["llava_next_mistral_7b", "qwen3_moe_235b"])
+def test_serve_lm_mode_runs_the_decoder_family(arch):
+    """The VLM's prefill takes its patch prefix into the cache; the same
+    tokens on a second run; serve_lm is main's loop."""
+    args = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "8",
+            "--gen", "3", "--device", CPU]
+    res = serve_mod.main(args)
+    assert res.tokens.shape == (2, 3) and res.tokens_per_s > 0
+    np.testing.assert_array_equal(serve_mod.main(args).tokens, res.tokens)
+    again = serve_mod.serve_lm(get_smoke_config(arch), 2, 8, 3, device=CPU)
+    np.testing.assert_array_equal(again.tokens, res.tokens)
+
+
+def test_serve_steps_carry_the_vlm_prefix():
+    """make_serve_steps moves prefix_embeds to the device with the tokens;
+    the cache holds max_len positions, the prefix counted."""
+    cfg = get_smoke_config("llava_next_mistral_7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    max_len = cfg.num_patch_tokens + 8 + 2
+    serve = make_serve_steps(model, max_len=max_len, device=CPU)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 8), generator=g),
+             "prefix_embeds": torch.randn((2, cfg.num_patch_tokens,
+                                           cfg.d_model), generator=g)}
+    logits, cache = serve["prefill"](params, batch)
+    assert cache.k.shape[2] == max_len
+    assert int(cache.length) == cfg.num_patch_tokens + 8
+    with torch.no_grad():
+        want, _ = model.prefill(params, batch, max_len)
+        no_prefix, _ = model.prefill(params, {"tokens": batch["tokens"]},
+                                     max_len)
+    assert torch.equal(logits, want) and not torch.equal(logits, no_prefix)
+    with pytest.raises(ValueError, match="max_len"):
+        make_serve_steps(model, max_len=9, device=CPU)["prefill"](params,
+                                                                  batch)
+
+
+@pytest.mark.parametrize("arch,optimizer", [("qwen3_moe_235b", "adamw"),
+                                            ("stablelm_12b", "adamw"),
+                                            ("stablelm_12b", "adafactor")])
+def test_donated_train_step_updates_in_place(arch, optimizer, monkeypatch):
+    """make_train_step(donate=True): the state's own tensors take the new
+    values (chunked AdamW, here in chunks of 1000 elements), which equal
+    the functional step's to 1e-6."""
+    import repro_torch.train.optimizers as opt_mod
+    monkeypatch.setattr(opt_mod, "DONATE_CHUNK", 1000)
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    opt = OptConfig(name=optimizer, **OPT)
+    pipe = TokenPipeline(cfg.vocab_size, 4, 16)
+    runs = {}
+    for donate in (False, True):
+        setup = make_train_step(model, opt_cfg=opt, device=CPU,
+                                donate=donate)
+        state = setup.init_state(0)
+        first = _leaves(state.params)
+        for step in range(3):
+            tokens, labels = pipe.batch_at(step)
+            state, metrics = setup.step_fn(state, {
+                "tokens": torch.from_numpy(tokens),
+                "labels": torch.from_numpy(labels)})
+        same = all(a is b for a, b in zip(first, _leaves(state.params)))
+        assert same == donate
+        runs[donate] = (state, float(metrics["loss"]))
+    (ref_state, ref_loss), (state, loss) = runs[False], runs[True]
+    assert loss == pytest.approx(ref_loss, rel=1e-6)
+    for tree, ref_tree in ((state.params, ref_state.params),
+                           (state.opt_state, ref_state.opt_state)):
+        for a, b in zip(_leaves(tree), _leaves(ref_tree)):
+            assert a.shape == b.shape
+            if b.numel():
+                _close(a, b.numpy(), 1e-6)
 
 
 # --------------------------------------------------------------------------

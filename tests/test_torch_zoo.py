@@ -373,7 +373,7 @@ def test_count_params_equals_the_reference():
     assert count_params(get_config("rwkv6_1b6")) == 1_599_873_024
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "rwkv6_1b6"])
+@pytest.mark.parametrize("arch", ["whisper_tiny", "recurrentgemma_2b"])
 def test_other_families_are_refused(arch):
     with pytest.raises(NotImplementedError, match="item 14"):
         build_model(get_smoke_config(arch))
