@@ -74,6 +74,18 @@ ran through the kernels:
   ``tests/fixtures/reference_decoder.npz``; donated AdamW steps of
   ``stablelm_12b`` and ``qwen3_moe_235b`` (plain PyTorch: the reference
   writes the decoder in plain jnp);
+* the LM zoo's Griffin hybrid and Whisper encoder-decoder in bf16 at
+  published width, whole: ``recurrentgemma_2b`` served through
+  ``launch/serve.py`` with a prompt past its 2048 window (the chunked
+  windowed attention, the rotating buffer wrapped) and one inside it,
+  ``whisper_tiny`` with 1500 frames; each trained 4 donated AdamW steps
+  through ``launch/train.py``; float32 prefill + decode against a longer
+  prefill (Griffin's across the window), the RG-LRU's doubling scan against
+  the sequential loop (on the model's gates and on gates near 1, where every
+  offset up to 2048 counts), the chunked windowed attention against the plain
+  one, bf16 against float32 logits; the smoke configs held against
+  ``tests/fixtures/reference_{griffin,encdec}.npz`` (plain PyTorch: the
+  reference writes both in plain jnp);
 * the batched dense path (``fit_batch``, ``stack_states``,
   ``posterior_batch``) on 16 tasks: per-task ``fit`` and ``fit_batch``
   bitwise equal, a task's posterior bitwise equal at batch sizes 1 and 16,
@@ -112,6 +124,10 @@ m=12), zoo (rwkv6_1b6 at full width: serve batch 8 x 64 + 32 tokens, train
 decoder (seven decoder configs at published width, three of them at a depth
 cut: serve batch 8 x 128 + 32 tokens, the VLM 4 x (2880 + 192); float32
 checks at 2 layers; the seven smoke configs; train 4 steps of 8 x 64),
+griffin (recurrentgemma_2b whole: serve batch 8 x 3072 + 32 and 8 x 1024 +
+32 tokens; float32 checks at 3 layers; the smoke config; train 4 steps of 8
+x 64), encdec (whisper_tiny whole: serve batch 16 x (1500 frames, 32) + 64
+tokens; float32 checks; the smoke config; train 4 steps of 8 x 64),
 distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
 fit), gram
 (n=8192 and n=2000, d=7), routes_used (every bucket the tuner resolved).
@@ -126,6 +142,7 @@ import functools
 import gc
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -208,9 +225,10 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import build_model, count_params  # noqa: E402
-from repro_torch.models import moe, rope, rwkv, transformer  # noqa: E402
+from repro_torch.models import (encdec, griffin, moe, rope,  # noqa: E402
+                                rwkv, transformer)
 from repro_torch.models import layers as layers_mod  # noqa: E402
-from repro_torch.models.layers import layer_norm  # noqa: E402
+from repro_torch.models.layers import layer_norm, rms_norm  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.train import OptConfig, make_train_step  # noqa: E402
 from repro_torch.train.optimizers import tree_leaves, tree_map  # noqa: E402
@@ -3884,6 +3902,17 @@ def decoder_train_row(arch: str, layers: int) -> dict:
     return row
 
 
+def timed_row(fn, *args):
+    """``fn(*args)`` with its seconds, then the memory it left freed."""
+    t0 = time.perf_counter()
+    row = fn(*args)
+    if isinstance(row, dict):
+        row["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_decoder() -> dict:
     """The decoder family at published width: the three dense configs and
     the VLM served whole, qwen2_72b / qwen3_moe_235b / arctic_480b at a depth
@@ -3892,24 +3921,539 @@ def phase_decoder() -> dict:
     t_phase = time.perf_counter()
     out = {"phase": "decoder", "allocated_at_start_bytes": start_memory(),
            "serve": [], "train": []}
-
-    def timed(fn, *args):
-        t0 = time.perf_counter()
-        row = fn(*args)
-        if isinstance(row, dict):
-            row["seconds"] = time.perf_counter() - t0
-        gc.collect()
-        torch.cuda.empty_cache()
-        return row
-
     for arch in DECODER_SERVE:
-        out["serve"].append(timed(decoder_serve_row, arch))
+        out["serve"].append(timed_row(decoder_serve_row, arch))
     for arch, layers in DECODER_CUT.items():
-        out["serve"].append(timed(decoder_serve_row, arch, layers))
-    out["consistency"] = timed(decoder_consistency)
-    out["reference"] = timed(decoder_reference_rows)
+        out["serve"].append(timed_row(decoder_serve_row, arch, layers))
+    out["consistency"] = timed_row(decoder_consistency)
+    out["reference"] = timed_row(decoder_reference_rows)
     for arch, layers in DECODER_TRAIN.items():
-        out["train"].append(timed(decoder_train_row, arch, layers))
+        out["train"].append(timed_row(decoder_train_row, arch, layers))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# The griffin phase: the LM zoo's Griffin hybrid (recurrentgemma_2b, 3.42 B
+# table parameters: every layer holds both branches) whole at published
+# width in bf16. Served through launch/serve.py twice: a prompt of 3072
+# runs past the 2048 window (the buffer wraps) and takes the chunked
+# attention with the window (3072 divides into the 512 / 1024 chunks); a
+# prompt of 1024 takes the plain path and leaves the window part-filled.
+# Its bands, fixed before the first run on the card:
+GRIFFIN_ARCH = "recurrentgemma_2b"
+GRIFFIN_SERVE = ((8, 3072, 32), (8, 1024, 32))   # (batch, prompt, gen)
+# Float32 at published width, 3 layers (rec, rec, attn), batch 2:
+# prefill(S) + k decode steps against prefill(S + k), elementwise within the
+# reference's band (rtol = atol = 2e-3); (2046, 4) crosses the window.
+GRIFFIN_CONSISTENCY = dict(layers=3, batch=2, cases=((3072, 1), (2046, 4)))
+GRIFFIN_CONSISTENCY_TOL = 2e-3
+# The doubling scan and the sequential loop (float32) against the loop in
+# float64 at (2, 3072, 2560), on the model's own layer-0 gates and on gates
+# near 1 (1 - a down to 1e-4, the long memory of a trained RG-LRU, where every
+# doubling offset up to 2048 counts): max |difference| over max|h|.
+GRIFFIN_SCAN_SEQ = 3072
+GRIFFIN_SCAN_TOL = 1e-5
+# The chunked windowed attention against the plain one on the model's own
+# attention-layer q, k, v (10 q heads, 1 kv head, Dh 256) at S = 4096,
+# window 2048, batch 1: the reference's band, times max(1, max|plain|).
+GRIFFIN_ATTN_SEQ = 4096
+GRIFFIN_ATTN_TOL = 2e-5
+GRIFFIN_BF16_BAND = 0.1
+# The smoke config against the reference's outputs: times max|reference|.
+GRIFFIN_REFERENCE_TOL = 1e-4
+REFERENCE_GRIFFIN_NPZ = (Path(__file__).resolve().parent / "tests"
+                         / "fixtures" / "reference_griffin.npz")
+# Train: 4 donated AdamW steps of the whole model through launch/train.py
+# at 8 x 64, lr 3e-5 (3e-4 made the decoder's losses rise at full width).
+LM_TRAIN_STEPS = 4
+LM_TRAIN_ARGS = ["--steps", str(LM_TRAIN_STEPS), "--batch", "8", "--seq",
+                 "64", "--lr", "3e-5", "--log-every", "100"]
+# The encdec phase: whisper_tiny whole (4 + 4 layers, 49.06 M table
+# parameters, 32768 rows of dec_pos) at published width in bf16, served
+# through launch/serve.py at batch 16 x (1500 zero frames, prompt 32) + 64
+# tokens: the encoder's 1500 frames take the plain attention (1500 is not a
+# multiple of 512). Float32 checks whole, on standard normal frames.
+ENCDEC_ARCH = "whisper_tiny"
+ENCDEC_SERVE = (16, 32, 64)
+ENCDEC_CONSISTENCY = dict(batch=2, seq=32, steps=3)
+ENCDEC_CONSISTENCY_TOL = 2e-3
+ENCDEC_BF16_BAND = 0.1
+ENCDEC_REFERENCE_TOL = 1e-4
+REFERENCE_ENCDEC_NPZ = (Path(__file__).resolve().parent / "tests"
+                        / "fixtures" / "reference_encdec.npz")
+
+
+def tensor_bytes(tree) -> int:
+    leaves = tree_leaves(tree) if isinstance(tree, dict) else [
+        t for t in tree if isinstance(t, torch.Tensor)]
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def table_bytes(table: dict, names, dtype) -> int:
+    """Bytes of the table's entries ``names`` stored in ``dtype``."""
+    size = torch.finfo(dtype).bits // 8
+    return sum(math.prod(table[n][0]) for n in names) * size
+
+
+def griffin_decode_bytes(cfg, batch: int) -> dict:
+    """What one decode step reads: each layer's branch (18 rec, 8 attn for
+    the published config) and its MLP, the tied embedding once for the
+    logits, the final norm, and the cache state the layers read (the
+    attention layers' window K, V and positions, the recurrent layers' h
+    and conv tail). Per layer, a slice of the stacked leaf."""
+    table = griffin.griffin_param_table(cfg)
+    L = cfg.num_layers
+    size = torch.finfo(cfg.dtype_param).bits // 8
+    per_layer = {n: math.prod(s[1:]) * size for n, (s, _, _) in table.items()
+                 if n.startswith("layers/")}
+    attn = [li for li in range(L) if griffin._is_attn(cfg, li)]
+    rec = [li for li in range(L) if li not in attn]
+
+    def branch(prefix):
+        return sum(b for n, b in per_layer.items()
+                   if n.startswith(f"layers/{prefix}"))
+    act = torch.finfo(cfg.dtype_act).bits // 8
+    W, Hkv, Dh, R = cfg.window, cfg.num_kv_heads, cfg.head_dim, cfg.rnn_width
+    out = {"rec_branches": len(rec) * branch("rec/"),
+           "attn_branches": len(attn) * branch("attn/"),
+           "mlps": L * (branch("mlp/") + branch("mlp_ln")),
+           "embed_and_final_norm": table_bytes(table, ("embed",
+                                                       "final_norm"),
+                                               cfg.dtype_param),
+           "window_kv": len(attn) * 2 * batch * W * Hkv * Dh * act,
+           "window_pos": len(attn) * batch * W * 4,
+           "recurrent_state": len(rec) * batch * R * (
+               4 + (cfg.conv_width - 1) * act)}
+    out["total"] = sum(out.values())
+    out["layers"] = {"rec": len(rec), "attn": len(attn)}
+    return out
+
+
+def encdec_decode_bytes(cfg, batch: int, max_len: int) -> dict:
+    """What one decode step reads: the decoder's weights but the cross
+    attention's K / V projections (the cross cache holds their output), one
+    row of dec_pos, the tied embedding once, the self-attention cache of
+    ``max_len`` positions and the cross K / V cache over all frames."""
+    table = encdec.encdec_param_table(cfg)
+    skip = ("dec_layers/xattn/wk", "dec_layers/xattn/wv",
+            "dec_layers/xattn/bv")
+    names = [n for n in table if (n.startswith("dec_layers/")
+                                  and n not in skip)
+             or n in ("embed", "dec_ln", "dec_ln_b")]
+    act = torch.finfo(cfg.dtype_act).bits // 8
+    kv = cfg.num_layers * 2 * batch * cfg.num_heads * cfg.head_dim * act
+    out = {"decoder_weights": table_bytes(
+               table, [n for n in names if n != "embed"], cfg.dtype_param)
+           + cfg.d_model * torch.finfo(cfg.dtype_param).bits // 8,
+           "embed": table_bytes(table, ["embed"], cfg.dtype_param),
+           "self_kv_cache": kv * max_len,
+           "cross_kv_cache": kv * cfg.enc_frames}
+    out["total"] = sum(out.values())
+    return out
+
+
+def lm_serve_row(arch: str, batch: int, prompt: int, gen: int,
+                 decode_bytes: dict, cache) -> dict:
+    """``arch`` whole in bf16 through launch/serve.py: the parameters alone
+    first (their init peak), then a 2-token warm-up call, then the timed
+    call. ``cache`` is the served cache's layout (meta tensors)."""
+    cfg = get_config(arch)
+    n_params = count_params(cfg)
+    start = start_memory()
+    params = build_model(cfg).init(
+        torch.Generator(device=DEV).manual_seed(SEED))
+    init_peak = torch.cuda.max_memory_allocated() - start
+    del params
+    start_memory()
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--gen"]
+    warm, _ = quiet(lm_serve.main, argv + ["2"])
+    start_memory()
+    res, printed = quiet(lm_serve.main, argv + [str(gen)])
+    check(res.tokens.shape == (batch, gen) and (res.tokens >= 0).all()
+          and (res.tokens < cfg.vocab_size).all(),
+          f"{arch} serve: generated tokens {res.tokens.shape}")
+    bound_ms = decode_bytes["total"] / PEAK_BYTES_PER_S * 1e3
+    return {"arch": arch, "layers": cfg.num_layers,
+            "dtype": str(cfg.dtype_param), "params": n_params,
+            "weight_bytes": n_params * torch.finfo(
+                cfg.dtype_param).bits // 8,
+            "batch": batch, "prompt_len": prompt, "gen": gen,
+            "prefill_attention": attention_path(cfg, prompt),
+            "cache_bytes": tensor_bytes(cache),
+            "prefill_ms": res.prefill_ms,
+            "prefill_ms_first_call": warm.prefill_ms,
+            "decode_ms_per_token": res.decode_ms_per_token,
+            "tokens_per_s": res.tokens_per_s,
+            "decode_bytes": decode_bytes,
+            "decode_bound_ms": bound_ms, "bound_by": "bytes",
+            "decode_bound_share": bound_ms / res.decode_ms_per_token,
+            "init_peak_bytes": init_peak,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "printed": printed}
+
+
+def logits_gap(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
+    """The elementwise excess over rtol = atol = tol (<= tol passes) and
+    the largest difference beside max|want|."""
+    return {"max_abs_err": float((got - want).abs().max()),
+            "max_abs_logit": float(want.abs().max()),
+            "excess_over_rtol": elementwise_excess(got, want, tol),
+            "tol": tol}
+
+
+def f32_config(arch: str, **over):
+    return get_config(arch).replace(dtype_act=torch.float32,
+                                    dtype_param=torch.float32, **over)
+
+
+def bf16_gap(params, cfg32, cfg16, run, band: float) -> dict:
+    """``run(params, cfg)`` (logits) in float32, then on the same parameters
+    in bf16: max error over max|logit|."""
+    with torch.no_grad():
+        want = run(params, cfg32)
+        got = run(tree_map(lambda p: p.to(cfg16.dtype_param), params), cfg16)
+    gap = float((got.float() - want).abs().max())
+    scale = float(want.abs().max())
+    return {"max_abs_err": gap, "max_abs_logit": scale,
+            "relative": gap / scale, "band": band}
+
+
+def near_one_gates(shape) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gates of a trained RG-LRU, float32 on the card: a near 1, with 1 - a
+    drawn per channel log-uniform in [1e-4, 1e-1] and jittered per step, so
+    the slowest channels keep most of what they held 2048 steps back; b =
+    sqrt(1 - a^2) x, as ``_rglru_gates`` builds it."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    B, S, R = shape
+    rate = 10.0 ** (-4 + 3 * torch.rand((1, 1, R), dtype=torch.float64,
+                                        device=DEV, generator=gen))
+    a = 1 - rate * (0.5 + torch.rand(shape, dtype=torch.float64, device=DEV,
+                                     generator=gen))
+    x = torch.randn(shape, dtype=torch.float64, device=DEV, generator=gen)
+    return a.float(), (torch.sqrt(1 - a * a) * x).float()
+
+
+def griffin_scan_row(what: str, a: torch.Tensor, b: torch.Tensor,
+                     long_range: bool = False) -> dict:
+    """The doubling scan and the sequential loop on float32 gates (B, S, R),
+    timed, both against the loop in float64 on the same gates within
+    ``GRIFFIN_SCAN_TOL`` of max|h|. ``tail_effect`` (S > 2048) is how far h
+    moves past step 2048 when what came before is dropped; with
+    ``long_range`` it must exceed 1e3 tolerances, so that a fault at any
+    offset up to 2048 shows."""
+    S = a.shape[1]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan = griffin._doubling_scan(a, b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loop = griffin._rglru_loop(a, b)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        want = griffin._rglru_loop(a.double(), b.double())
+        tail = None
+        if S > 2048:
+            cut = griffin._rglru_loop(a[:, 2048:].double(),
+                                      b[:, 2048:].double())
+            tail = float((cut - want[:, 2048:]).abs().max())
+    tol = GRIFFIN_SCAN_TOL * float(want.abs().max())
+    row = {"gates": what, "shape": list(a.shape),
+           "max_abs_h": float(want.abs().max()),
+           "max_abs_err": float((scan.double() - want).abs().max()),
+           "loop_max_abs_err": float((loop.double() - want).abs().max()),
+           "tail_effect": tail,
+           "tol": tol, "doubling_steps": math.ceil(math.log2(S)),
+           "doubling_ms": (t1 - t0) * 1e3, "loop_ms": (t2 - t1) * 1e3}
+    check(row["max_abs_err"] <= tol and row["loop_max_abs_err"] <= tol,
+          f"griffin: the doubling scan against the loop: {row}")
+    if long_range and tail is not None:
+        check(tail > 1e3 * tol, f"griffin: gates near 1 that forget what "
+              f"came 2048 steps back: {row}")
+    return row
+
+
+def griffin_consistency() -> dict:
+    """Float32 at published width, 3 layers (TF32 off): prefill + decode
+    against a longer prefill (once across the window); the doubling scan
+    against the loop on the model's own gates and on gates near 1; the
+    chunked windowed attention against the plain one; bf16 against float32
+    logits."""
+    out = {"matmul": check_full_f32_matmuls("griffin"), "prefill_decode": []}
+    spec = GRIFFIN_CONSISTENCY
+    cfg = f32_config(GRIFFIN_ARCH, num_layers=spec["layers"])
+    check([griffin._is_attn(cfg, li) for li in range(cfg.num_layers)]
+          == [False, False, True], "griffin: the 3 layers are not rec, rec, "
+          "attn")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    B = spec["batch"]
+    longest = max(s + k for s, k in spec["cases"])
+    tokens = torch.randint(0, cfg.vocab_size, (B, longest),
+                           dtype=torch.int32, device=DEV,
+                           generator=torch.Generator(
+                               device=DEV).manual_seed(SEED + 1))
+    for S, steps in spec["cases"]:
+        with torch.no_grad():
+            a, cache = model.prefill(params, {"tokens": tokens[:, :S]})
+            for i in range(steps):
+                a, cache = model.decode_step(params, cache,
+                                             tokens[:, S + i:S + i + 1])
+            b, full = model.prefill(params, {"tokens": tokens[:, :S + steps]})
+        row = {"S": S, "steps": steps, "window": cfg.window,
+               "prefill_attention": attention_path(cfg, S),
+               "longer_prefill_attention": attention_path(cfg, S + steps),
+               **logits_gap(a, b, GRIFFIN_CONSISTENCY_TOL),
+               "positions_equal": bool(torch.equal(cache.pos, full.pos))}
+        out["prefill_decode"].append(row)
+        check(row["excess_over_rtol"] <= GRIFFIN_CONSISTENCY_TOL
+              and row["positions_equal"]
+              and bool(torch.isfinite(b).all()),
+              f"griffin: prefill + decode against a longer prefill: {row}")
+        del cache, full
+    lp = transformer._layer(params["layers"], 0)
+    S = GRIFFIN_SCAN_SEQ
+    with torch.no_grad():
+        x = griffin._embed(params, tokens[:, :S], cfg)
+        xn = rms_norm(x, lp["rec"]["ln"], cfg.norm_eps)
+        z, _ = griffin._causal_conv(xn @ lp["rec"]["wx"], lp["rec"]["conv_w"],
+                                    lp["rec"]["conv_b"])
+        a, b = griffin._rglru_gates(z, lp["rec"])
+    del z, xn, x
+    out["scan"] = griffin_scan_row("the model's gates", a, b)
+    out["scan_near_one"] = griffin_scan_row("gates near 1",
+                                            *near_one_gates(a.shape),
+                                            long_range=True)
+    del a, b
+    li = [i for i in range(cfg.num_layers) if griffin._is_attn(cfg, i)][0]
+    ap = transformer._layer(params["layers"], li)["attn"]
+    S = GRIFFIN_ATTN_SEQ
+    attn_tokens = torch.randint(0, cfg.vocab_size, (1, S), dtype=torch.int32,
+                                device=DEV, generator=torch.Generator(
+                                    device=DEV).manual_seed(SEED + 3))
+    with torch.no_grad():
+        x = rms_norm(griffin._embed(params, attn_tokens, cfg), ap["ln"],
+                     cfg.norm_eps)
+        cos, sin = rope(torch.arange(S, device=DEV), cfg.head_dim,
+                        cfg.rope_theta)
+        q, k, v = griffin._qkv(x, ap, cfg, cos, sin)
+        plain = layers_mod._plain_attention(q, k, v, True, cfg.window, 0)
+        chunked = layers_mod._chunked_attention(q, k, v, True, cfg.window,
+                                                cfg.q_chunk, cfg.kv_chunk)
+    err = float((chunked - plain).abs().max())
+    tol = GRIFFIN_ATTN_TOL * max(1.0, float(plain.abs().max()))
+    out["attention"] = {"S": S, "window": cfg.window,
+                        "q_heads": cfg.num_heads,
+                        "kv_heads": cfg.num_kv_heads,
+                        "head_dim": cfg.head_dim, "max_abs_err": err,
+                        "tol": tol, "dispatch": attention_path(cfg, S)}
+    check(err <= tol and out["attention"]["dispatch"] == "chunked",
+          f"griffin: chunked against plain windowed attention: "
+          f"{out['attention']}")
+    del q, k, v, plain, chunked, x
+    S = spec["cases"][0][0]
+    out["bf16_vs_float32"] = bf16_gap(
+        params, cfg, get_config(GRIFFIN_ARCH).replace(
+            num_layers=cfg.num_layers),
+        lambda p, c: build_model(c).prefill(p, {"tokens": tokens[:, :S]})[0],
+        GRIFFIN_BF16_BAND)
+    check(out["bf16_vs_float32"]["relative"] <= GRIFFIN_BF16_BAND,
+          f"griffin: bf16 logits against float32: {out['bf16_vs_float32']}")
+    return out
+
+
+def npz_rows(phase: str, npz: Path, got: dict, ref: dict, tol: float,
+             exact=()) -> list[dict]:
+    """Each output against the file's: within ``tol`` of max|reference|,
+    the ``exact`` ones equal."""
+    rows = []
+    for name, value in got.items():
+        want = ref[name]
+        value = value.detach().cpu().numpy()
+        err = float(np.abs(value.astype(np.float64) - want).max())
+        bound = 0.0 if name in exact else tol * max(
+            float(np.abs(want).max()), 1e-30)
+        row = {"output": name, "max_abs_err": err, "tol": bound}
+        rows.append(row)
+        check(value.shape == want.shape and err <= bound,
+              f"{phase}: the smoke config against {npz.name}: {row}")
+    return rows
+
+
+def griffin_reference_rows() -> list[dict]:
+    """The smoke config on the card against ``reference_griffin.npz`` (no
+    JAX): the forward, the loss, the prefill's logits and every cache
+    field, three decode steps across the window and the cache after them."""
+    with np.load(REFERENCE_GRIFFIN_NPZ) as z:
+        ref = {k: z[k] for k in z.files}
+    params = tree_from_numpy({k.split("/", 1)[1]: v for k, v in ref.items()
+                              if k.startswith("params/")}, device=DEV)
+    cfg = get_smoke_config(GRIFFIN_ARCH)
+    model = build_model(cfg)
+    data = {k: torch.from_numpy(ref[k]).to(DEV) for k in ("tokens",
+                                                          "labels")}
+    prompt = int(ref["cache_length"])
+    fields = ("h", "conv", "k", "v", "pos", "length")
+    with torch.no_grad():
+        got = {"hidden": griffin.griffin_forward(params, data["tokens"], cfg),
+               "loss": model.loss(params, data)}
+        logits, cache = model.prefill(
+            params, {"tokens": data["tokens"][:, :prompt]})
+        got["prefill_logits"] = logits
+        got.update({f"cache_{f}": getattr(cache, f) for f in fields})
+        dec = []
+        for fed in ref["decode_tokens"]:
+            logits, cache = model.decode_step(params, cache,
+                                              torch.from_numpy(fed).to(DEV))
+            dec.append(logits)
+        got["decode_logits"] = torch.stack(dec)
+        got.update({f"final_cache_{f}": getattr(cache, f) for f in fields})
+    return npz_rows("griffin", REFERENCE_GRIFFIN_NPZ, got, ref,
+                    GRIFFIN_REFERENCE_TOL,
+                    exact=("cache_pos", "cache_length", "final_cache_pos",
+                           "final_cache_length"))
+
+
+def lm_train_row(arch: str) -> dict:
+    """launch/train.py on ``arch`` whole (bf16 parameters, remat on): 4
+    donated AdamW steps at 8 x 64 (``LM_TRAIN_ARGS``)."""
+    start = start_memory()
+    res, printed = quiet(lm_train.main, ["--arch", arch] + LM_TRAIN_ARGS)
+    opt = dict(zip(LM_TRAIN_ARGS[::2], LM_TRAIN_ARGS[1::2]))
+    batch, seq = int(opt["--batch"]), int(opt["--seq"])
+    out = {"arch": arch, "params": count_params(get_config(arch)),
+           "steps": LM_TRAIN_STEPS, "batch": batch, "seq": seq,
+           "optimizer": "adamw (donated)", "peak_lr": float(opt["--lr"]),
+           "remat": get_config(arch).remat, "losses": res.losses,
+           "first_step_ms": res.first_step_ms,
+           "ms_per_step": res.ms_per_step,
+           "tokens_per_s": batch * seq / (res.ms_per_step / 1e3),
+           "allocated_at_start_bytes": start,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "printed": printed}
+    check(len(res.losses) == LM_TRAIN_STEPS
+          and all(np.isfinite(res.losses)),
+          f"{arch} train: losses {res.losses}")
+    return out
+
+
+def phase_griffin() -> dict:
+    """recurrentgemma_2b whole at published width: two serves, the float32
+    checks at 3 layers, the smoke config against the reference, 4 train
+    steps."""
+    t_phase = time.perf_counter()
+    out = {"phase": "griffin", "allocated_at_start_bytes": start_memory(),
+           "serve": []}
+    cfg = get_config(GRIFFIN_ARCH)
+    for batch, prompt, gen in GRIFFIN_SERVE:
+        cache = build_model(cfg).init_cache(batch, device="meta")
+        out["serve"].append(timed_row(
+            lm_serve_row, GRIFFIN_ARCH, batch, prompt, gen,
+            griffin_decode_bytes(cfg, batch), cache))
+    out["consistency"] = timed_row(griffin_consistency)
+    out["reference"] = timed_row(griffin_reference_rows)
+    out["train"] = timed_row(lm_train_row, GRIFFIN_ARCH)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def encdec_consistency() -> dict:
+    """Float32 at published width, whole (TF32 off), standard normal
+    frames: prefill + decode steps against a longer prefill; bf16 against
+    float32 logits."""
+    out = {"matmul": check_full_f32_matmuls("encdec")}
+    spec = ENCDEC_CONSISTENCY
+    cfg = f32_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    B, S, steps = spec["batch"], spec["seq"], spec["steps"]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + steps),
+                           dtype=torch.int32, device=DEV, generator=gen)
+    frames = torch.randn((B, cfg.enc_frames, cfg.d_model), device=DEV,
+                         generator=gen)
+    max_len = S + steps
+    with torch.no_grad():
+        a, cache = model.prefill(params, {"tokens": tokens[:, :S],
+                                          "frames": frames}, max_len)
+        for i in range(steps):
+            a, cache = model.decode_step(params, cache,
+                                         tokens[:, S + i:S + i + 1])
+        b, _ = model.prefill(params, {"tokens": tokens, "frames": frames},
+                             max_len)
+    out["prefill_decode"] = {"S": S, "steps": steps,
+                             "frames": cfg.enc_frames,
+                             "encoder_attention": attention_path(
+                                 cfg, cfg.enc_frames),
+                             **logits_gap(a, b, ENCDEC_CONSISTENCY_TOL)}
+    check(out["prefill_decode"]["excess_over_rtol"] <= ENCDEC_CONSISTENCY_TOL
+          and bool(torch.isfinite(b).all()),
+          f"encdec: prefill + decode against a longer prefill: "
+          f"{out['prefill_decode']}")
+    del cache
+    out["bf16_vs_float32"] = bf16_gap(
+        params, cfg, get_config(ENCDEC_ARCH),
+        lambda p, c: build_model(c).prefill(
+            p, {"tokens": tokens[:, :S], "frames": frames}, S)[0],
+        ENCDEC_BF16_BAND)
+    check(out["bf16_vs_float32"]["relative"] <= ENCDEC_BF16_BAND,
+          f"encdec: bf16 logits against float32: {out['bf16_vs_float32']}")
+    return out
+
+
+def encdec_reference_rows() -> list[dict]:
+    """The smoke config on the card against ``reference_encdec.npz`` (no
+    JAX; its dec_pos padded back with zero rows, which no output reads):
+    the encoder, the decoder's hidden states, the loss, the prefill's
+    logits and cache, three decode steps."""
+    with np.load(REFERENCE_ENCDEC_NPZ) as z:
+        ref = {k: z[k] for k in z.files}
+    cfg = get_smoke_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    flat = {k.split("/", 1)[1]: v for k, v in ref.items()
+            if k.startswith("params/")}
+    rows = model.param_table["dec_pos"][0][0]
+    flat["dec_pos"] = np.concatenate([flat["dec_pos"], np.zeros(
+        (rows - flat["dec_pos"].shape[0], cfg.d_model), np.float32)])
+    params = tree_from_numpy(flat, device=DEV)
+    data = {k: torch.from_numpy(ref[k]).to(DEV) for k in ("frames", "tokens",
+                                                          "labels")}
+    with torch.no_grad():
+        enc = encdec.encode(params, data["frames"], cfg)
+        got = {"encoded": enc,
+               "hidden": encdec.decode_train(params, enc, data["tokens"],
+                                             cfg),
+               "loss": model.loss(params, data)}
+        logits, cache = model.prefill(
+            params, {k: v for k, v in data.items() if k != "labels"},
+            ref["cache_k"].shape[2])
+        got["prefill_logits"] = logits
+        got.update({f"cache_{f}": getattr(cache, f) for f in cache._fields})
+        dec = []
+        for fed in ref["decode_tokens"]:
+            logits, cache = model.decode_step(params, cache,
+                                              torch.from_numpy(fed).to(DEV))
+            dec.append(logits)
+        got["decode_logits"] = torch.stack(dec)
+    return npz_rows("encdec", REFERENCE_ENCDEC_NPZ, got, ref,
+                    ENCDEC_REFERENCE_TOL, exact=("cache_length",))
+
+
+def phase_encdec() -> dict:
+    """whisper_tiny whole at published width: the serve, the float32
+    checks, the smoke config against the reference, 4 train steps."""
+    t_phase = time.perf_counter()
+    out = {"phase": "encdec", "allocated_at_start_bytes": start_memory()}
+    cfg = get_config(ENCDEC_ARCH)
+    batch, prompt, gen = ENCDEC_SERVE
+    cache = build_model(cfg).init_cache(batch, prompt + gen, device="meta")
+    out["serve"] = timed_row(
+        lm_serve_row, ENCDEC_ARCH, batch, prompt, gen,
+        encdec_decode_bytes(cfg, batch, prompt + gen), cache)
+    out["consistency"] = timed_row(encdec_consistency)
+    out["reference"] = timed_row(encdec_reference_rows)
+    out["train"] = timed_row(lm_train_row, ENCDEC_ARCH)
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -4169,6 +4713,21 @@ def main() -> None:
     # reference writes the decoder and its MoE in plain jnp, no kernel.
     with unescalated("decoder"):
         emit(phase_decoder())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Main path 4f, the LM zoo's last two one-card families in bf16 at
+    # published width, whole: the Griffin hybrid (recurrentgemma_2b) and the
+    # Whisper encoder-decoder (whisper_tiny), served through launch/serve.py
+    # and trained through launch/train.py, their float32 checks and smoke
+    # configs against the reference. Plain PyTorch: the reference writes
+    # the RG-LRU, the rotating window and the encoder-decoder in plain jnp.
+    with unescalated("griffin"):
+        emit(phase_griffin())
+    gc.collect()
+    torch.cuda.empty_cache()
+    with unescalated("encdec"):
+        emit(phase_encdec())
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -16,6 +16,8 @@
     python3 rehearse_chip_smoke.py curvepred
     python3 rehearse_chip_smoke.py zoo
     python3 rehearse_chip_smoke.py decoder
+    python3 rehearse_chip_smoke.py griffin
+    python3 rehearse_chip_smoke.py encdec
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -75,6 +77,7 @@ def _patch_port_for_cpu() -> None:
                 "repro_torch.baselines.evaluate",
                 "repro_torch.amortize.encoder", "repro_torch.models.rwkv",
                 "repro_torch.models.transformer",
+                "repro_torch.models.griffin", "repro_torch.models.encdec",
                 "repro_torch.launch.serve", "repro_torch.launch.train",
                 "torch_automl_early_stopping"):
         importlib.import_module(mod)
@@ -107,7 +110,8 @@ def main() -> None:
                                       "gram", "routes", "warm", "batch",
                                       "solvers", "exact", "automl",
                                       "service", "amortize", "curvepred",
-                                      "zoo", "decoder"))
+                                      "zoo", "decoder", "griffin",
+                                      "encdec"))
     ap.add_argument("--n", type=int, default=300,
                     help="configurations of the fit, warm and automl "
                          "phases (m=52, d=7; the automl phase's Hyperband "
@@ -225,6 +229,31 @@ def main() -> None:
                           for arch in cs.DECODER_CUT}
         with cs.unescalated("decoder"):
             print(json.dumps(cs.phase_decoder()))
+    elif args.phase in ("griffin", "encdec"):
+        # The published widths do not fit the CPU: the smoke config with the
+        # published config's numerics (bf16, remat); the float32 checks at
+        # the smoke widths and depth (the Griffin one at S = 2048 / window 8
+        # on the chunked path), the scan at the smoke width over 2049 steps.
+        def smoke(arch):
+            return cs.get_smoke_config(arch).replace(
+                dtype_act=torch.bfloat16, dtype_param=torch.bfloat16,
+                remat=True)
+        cs.get_config = smoke
+        for mod in ("repro_torch.launch.serve", "repro_torch.launch.train"):
+            sys.modules[mod].get_config = smoke
+        cs.GRIFFIN_SERVE = ((2, 24, 6), (2, 6, 4))
+        cs.GRIFFIN_CONSISTENCY = dict(layers=3, batch=2,
+                                      cases=((2048, 1), (6, 4)))
+        cs.GRIFFIN_SCAN_SEQ = 2049
+        cs.GRIFFIN_ATTN_SEQ = 2048
+        cs.ENCDEC_SERVE = (2, 8, 6)
+        cs.LM_TRAIN_ARGS = ["--steps", str(cs.LM_TRAIN_STEPS), "--batch",
+                            "2", "--seq", "16", "--lr", "3e-5",
+                            "--log-every", "100"]
+        phase = cs.phase_griffin if args.phase == "griffin" \
+            else cs.phase_encdec
+        with cs.unescalated(args.phase):
+            print(json.dumps(phase()))
     elif args.phase == "exact":
         with cs.unescalated("exact"):
             print(json.dumps(cs.phase_exact()))

@@ -110,8 +110,10 @@ _BF16_RECORD = np.dtype("V2")
 
 
 def _to_host(leaf: Any) -> np.ndarray:
+    """A host copy of ``leaf``: also of a CPU tensor, which a donated train
+    step goes on to overwrite while the background thread writes it."""
     if isinstance(leaf, torch.Tensor):
-        host = leaf.detach().cpu()
+        host = leaf.detach().to("cpu", copy=True)
         if host.dtype == torch.bfloat16:
             return host.view(torch.int16).numpy().view(_BF16_RECORD)
         return host.numpy()

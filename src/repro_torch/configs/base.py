@@ -105,7 +105,7 @@ class ModelConfig:
     @property
     def param_count(self) -> int:
         """Exact parameter count from the model's table (the port's
-        registry: the families not ported yet raise)."""
+        registry)."""
         from ..models.registry import count_params
         return count_params(self)
 

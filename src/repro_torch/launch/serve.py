@@ -9,9 +9,11 @@ LM mode (default; batched prefill + greedy decode)::
 prints the prefill's milliseconds, the decode's milliseconds per token and
 tokens per second, timed on the host clock around work that ends in
 ``torch.cuda.synchronize()`` on the card. A VLM config (``llava_next_
-mistral_7b``) gets zero float32 patch embeddings as its prefix, as the
-reference's launcher gives it; :func:`serve_lm` is the same loop for a config
-built by the caller.
+mistral_7b``) gets zero float32 patch embeddings as its prefix and the
+encoder-decoder (``whisper_tiny``) zero float32 frames, as the reference's
+launcher gives them; :func:`serve_lm` is the same loop for a config built by
+the caller. The hybrid (``recurrentgemma_2b``) decodes into its cache in
+place, as the reference's donated decode step does.
 
 Curve-prediction mode drives :class:`repro_torch.serving.PredictionService`
 - multi-tenant streaming observes with warm refits, coalesced predictions::
@@ -164,6 +166,10 @@ def serve_lm(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
         0, cfg.vocab_size, (batch, prompt_len), dtype=torch.int32,
         device=dev,
         generator=torch.Generator(device=dev).manual_seed(seed + 1))}
+    if cfg.family in ("audio", "encdec"):
+        inputs["frames"] = torch.zeros(
+            (batch, cfg.enc_frames, cfg.d_model), dtype=torch.float32,
+            device=dev)
     if cfg.family == "vlm":
         inputs["prefix_embeds"] = torch.zeros(
             (batch, cfg.num_patch_tokens, cfg.d_model), dtype=torch.float32,

@@ -10,9 +10,13 @@ uninterrupted run would have), and ``--simulate-preempt N`` kills the
 process at step N to exercise the restart. ``--mesh debug`` and
 ``--mesh single`` both mean one device here; a multi-card mesh needs
 ``distributed/sharding.py``, which is not ported (ROADMAP queue 1 item 14).
-The step's loss stays on the device inside the loop and is read once at the
-end (and at each log line). A VLM config gets zero float32 patch embeddings
-as its prefix, as the reference's launcher gives it.
+The step updates the state in place (``make_train_step(donate=True)``), as
+the reference's launcher donates its state: the loop never reads a state it
+has passed on, and a checkpoint copies the state to the host before the next
+step. The step's loss stays on the device inside the loop and is read once at
+the end (and at each log line). A VLM config gets zero float32 patch embeddings
+as its prefix, and the encoder-decoder zero float32 frames, as the
+reference's launcher gives them.
 """
 from __future__ import annotations
 
@@ -80,7 +84,7 @@ def main(argv=None) -> TrainResult:
                     warmup_steps=max(2, args.steps // 20),
                     decay_steps=args.steps)
     setup = make_train_step(model, opt_cfg=opt, grad_accum=args.grad_accum,
-                            device=dev)
+                            device=dev, donate=True)
 
     ckpt = CheckpointManager(args.ckpt_dir, keep=args.keep) \
         if args.ckpt_dir else None
@@ -100,6 +104,10 @@ def main(argv=None) -> TrainResult:
         tokens, labels = pipe.batch_at(step)
         batch = {"tokens": torch.from_numpy(tokens).to(dev),
                  "labels": torch.from_numpy(labels).to(dev)}
+        if cfg.family in ("audio", "encdec"):
+            batch["frames"] = torch.zeros(
+                (args.batch, cfg.enc_frames, cfg.d_model),
+                dtype=torch.float32, device=dev)
         if cfg.family == "vlm":
             batch["prefix_embeds"] = torch.zeros(
                 (args.batch, cfg.num_patch_tokens, cfg.d_model),

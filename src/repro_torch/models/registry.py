@@ -8,11 +8,12 @@
     init_cache(batch, max_len, dtype, device) -> cache
 plus the parameter table and its logical-axis tree.
 
-The decoder family (``dense``, ``moe``, ``vlm``) and the ``ssm`` family
-(RWKV-6) are ported; the encoder-decoder (``encdec``, ``audio``) and the
-hybrid (``hybrid``) raise ``NotImplementedError`` (ROADMAP queue 1 item
-14). One device: the reference's ``constrain`` hooks (sharding constraints)
-are left out.
+Every family of the reference is built: the decoder family (``dense``,
+``moe``, ``vlm``), the encoder-decoder (``encdec``, ``audio``: its prefill
+needs ``max_len``), the Griffin hybrid (``hybrid``) and RWKV-6 (``ssm``),
+whose prefill and cache take ``max_len=None`` and ignore it (their state
+does not grow with the context). One device: the reference's ``constrain``
+hooks (sharding constraints) are left out.
 """
 from __future__ import annotations
 
@@ -21,13 +22,11 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from . import rwkv, transformer
+from . import encdec, griffin, rwkv, transformer
 from .transformer import build_params, table_logical
 
 __all__ = ["Model", "InputSpec", "build_model", "count_params",
            "active_params", "make_input_specs"]
-
-_NOT_PORTED = ("encdec", "audio", "hybrid")
 
 
 class Model(NamedTuple):
@@ -64,6 +63,36 @@ def build_model(cfg) -> Model:
             device=None: transformer.init_decoder_cache(cfg, batch, max_len,
                                                         dtype, device),
         )
+    if fam in ("encdec", "audio"):
+        table = encdec.encdec_param_table(cfg)
+        return Model(
+            cfg=cfg, param_table=table, logical=table_logical(table),
+            init=lambda generator, dtype=cfg.dtype_param: build_params(
+                generator, table, dtype),
+            loss=lambda p, b: encdec.encdec_loss(p, b, cfg),
+            prefill=lambda p, b, max_len: encdec.encdec_prefill(
+                p, b, cfg, max_len),
+            decode_step=lambda p, c, t: encdec.encdec_decode_step(
+                p, c, t, cfg),
+            init_cache=lambda batch, max_len, dtype=cfg.dtype_act,
+            device=None: encdec.init_encdec_cache(cfg, batch, max_len, dtype,
+                                                  device),
+        )
+    if fam == "hybrid":
+        table = griffin.griffin_param_table(cfg)
+        return Model(
+            cfg=cfg, param_table=table, logical=table_logical(table),
+            init=lambda generator, dtype=cfg.dtype_param: build_params(
+                generator, table, dtype),
+            loss=lambda p, b: griffin.griffin_loss(p, b, cfg),
+            prefill=lambda p, b, max_len=None: griffin.griffin_prefill(
+                p, b, cfg),
+            decode_step=lambda p, c, t: griffin.griffin_decode_step(
+                p, c, t, cfg),
+            init_cache=lambda batch, max_len=None, dtype=cfg.dtype_act,
+            device=None: griffin.init_griffin_cache(cfg, batch, dtype,
+                                                    device),
+        )
     if fam == "ssm":
         table = rwkv.rwkv_param_table(cfg)
         return Model(
@@ -76,10 +105,6 @@ def build_model(cfg) -> Model:
             init_cache=lambda batch, max_len=None, dtype=cfg.dtype_act,
             device=None: rwkv.init_rwkv_cache(cfg, batch, dtype, device),
         )
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {fam!r} family ({cfg.arch_id}) is not ported to repro_torch "
-            "yet: ROADMAP queue 1 item 14")
     raise ValueError(f"unknown family: {fam}")
 
 

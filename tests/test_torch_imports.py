@@ -69,6 +69,7 @@ def test_port_has_the_modules_of_this_slice():
                 "amortize/train", "amortize/make_fixture",
                 "configs/__init__", "configs/base", "data/tokens",
                 "models/rwkv", "models/registry", "models/moe",
+                "models/griffin", "models/encdec",
                 "launch/__init__",
                 "launch/train", "launch/serve",
                 *(f"configs/{arch}" for arch in ARCH_IDS)):

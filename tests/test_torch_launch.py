@@ -12,6 +12,7 @@ autograd on one side and ``jax.grad`` on the other). A resumed
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -34,6 +35,7 @@ from repro.train.trainer import TrainState as RefTrainState  # noqa: E402
 from repro.train.trainer import make_train_step as ref_make_train_step  # noqa
 from repro_torch import tree_from_numpy  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.checkpoint.manager import _flatten  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
@@ -218,6 +220,36 @@ def test_train_resumed_from_a_checkpoint_replays_the_stream(tmp_path):
     assert CheckpointManager(ckpt).latest_step() == 6
 
 
+def test_checkpoint_saved_mid_run_holds_its_step(tmp_path, monkeypatch):
+    """A 5-step run with --device cpu saving every 2 steps keeps in its
+    step-2 checkpoint the state of a 2-step run, bit for bit. The step-2
+    write is held back on its background thread until the donated steps 3
+    and 4 have rewritten the parameters and moments in place. The first two
+    steps are in the warmup, whose learning rate does not depend on
+    --steps."""
+    write = CheckpointManager._write
+
+    def late_write(self, step, host, extra):
+        if step == 2:
+            time.sleep(1.0)
+        write(self, step, host, extra)
+
+    monkeypatch.setattr(CheckpointManager, "_write", late_write)
+    ckpt = str(tmp_path / "ckpt")
+    args = ["--arch", "rwkv6_1b6", "--smoke", "--batch", "4", "--seq", "16",
+            "--log-every", "100", "--device", CPU]
+    train_mod.main(args + ["--steps", "5", "--ckpt-dir", ckpt,
+                           "--ckpt-every", "2", "--keep", "5"])
+    two = train_mod.main(args + ["--steps", "2"])
+    assert CheckpointManager(ckpt).all_steps() == [2, 4, 5]
+    saved = CheckpointManager(ckpt).restore(two.state, step=2)
+    assert int(saved.step) == 2
+    want, got = _flatten(two.state), _flatten(saved)
+    assert set(want) == set(got)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 def tree_to_ref(tree):
     return {k: tree_to_ref(v) if isinstance(v, dict) else v.numpy()
             for k, v in tree.items()}
@@ -240,10 +272,32 @@ def test_multi_card_mesh_is_refused(mod):
                   "--device", CPU])
 
 
-def test_other_families_are_refused_by_the_entry_points():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_mod.main(["--arch", "recurrentgemma_2b", "--smoke", "--device",
-                        CPU])
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "whisper_tiny"])
+def test_train_runs_the_hybrid_and_the_encoder_decoder(arch):
+    """--smoke --device cpu for the Griffin hybrid and the encoder-decoder
+    (zero float32 frames, as the reference's launcher): finite losses that
+    fall at the smoke widths."""
+    res = train_mod.main(["--arch", arch, "--smoke", "--steps", "8",
+                          "--batch", "4", "--seq", "16", "--lr", "5e-3",
+                          "--log-every", "100", "--device", CPU])
+    assert len(res.losses) == 8 and np.all(np.isfinite(res.losses))
+    assert res.losses[-1] < res.losses[0]
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "whisper_tiny"])
+def test_serve_lm_mode_runs_the_hybrid_and_the_encoder_decoder(arch):
+    """The hybrid's prompt (12) runs past its window (8) and its decode
+    wraps the buffer; the encoder-decoder's prefill takes zero frames. The
+    same tokens on a second run; serve_lm is main's loop."""
+    args = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "12",
+            "--gen", "4", "--device", CPU]
+    res = serve_mod.main(args)
+    assert res.tokens.shape == (2, 4) and res.tokens_per_s > 0
+    cfg = get_smoke_config(arch)
+    assert ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()
+    np.testing.assert_array_equal(serve_mod.main(args).tokens, res.tokens)
+    again = serve_mod.serve_lm(cfg, 2, 12, 4, device=CPU)
+    np.testing.assert_array_equal(again.tokens, res.tokens)
 
 
 @pytest.mark.parametrize("arch", ["llava_next_mistral_7b", "qwen3_moe_235b"])

@@ -373,10 +373,16 @@ def test_count_params_equals_the_reference():
     assert count_params(get_config("rwkv6_1b6")) == 1_599_873_024
 
 
-@pytest.mark.parametrize("arch", ["whisper_tiny", "recurrentgemma_2b"])
-def test_other_families_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_model(get_smoke_config(arch))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_builds_the_reference_table(arch):
+    """build_model builds all ten configs, published and smoke: the
+    reference's parameter table, entry for entry."""
+    for get, rget in ((get_config, ref_configs.get_config),
+                      (get_smoke_config, ref_configs.get_smoke_config)):
+        model = build_model(get(arch))
+        assert model.param_table == \
+            ref_models.build_model(rget(arch)).param_table
+        assert count_params(get(arch)) == ref_models.count_params(rget(arch))
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
