@@ -86,6 +86,13 @@ ran through the kernels:
   one, bf16 against float32 logits; the smoke configs held against
   ``tests/fixtures/reference_{griffin,encdec}.npz`` (plain PyTorch: the
   reference writes both in plain jnp);
+* the LM zoo on a device mesh: the serve steps over ``DTensor`` placements
+  by the logical-axis rules on a (1, 1) ``DeviceMesh`` in an NCCL world of
+  one rank, one config of each family at published width against the
+  one-device path from the same seed (tokens equal, logits bit for bit,
+  both paths' ms), float32 against it, the smoke configs against the four
+  ``.npz``, the four expert-parallel MoE functions at published width, and
+  the per-rank plan of the three configs that need several cards;
 * the batched dense path (``fit_batch``, ``stack_states``,
   ``posterior_batch``) on 16 tasks: per-task ``fit`` and ``fit_batch``
   bitwise equal, a task's posterior bitwise equal at batch sizes 1 and 16,
@@ -128,6 +135,10 @@ griffin (recurrentgemma_2b whole: serve batch 8 x 3072 + 32 and 8 x 1024 +
 32 tokens; float32 checks at 3 layers; the smoke config; train 4 steps of 8
 x 64), encdec (whisper_tiny whole: serve batch 16 x (1500 frames, 32) + 64
 tokens; float32 checks; the smoke config; train 4 steps of 8 x 64),
+sharded (a (1, 1) mesh: stablelm_12b, recurrentgemma_2b, rwkv6_1b6,
+whisper_tiny whole and qwen3_moe_235b at 4 layers served on the mesh and on
+one device; float32 at 2-3 layers; the smoke configs; the MoE functions at
+8 x 128 and 8 x 1 tokens; the plan at (1, 4), (1, 8), (2, 8)),
 distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
 fit), gram
 (n=8192 and n=2000, d=7), routes_used (every bucket the tuner resolved).
@@ -150,6 +161,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -231,6 +243,13 @@ from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models.layers import layer_norm, rms_norm  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.train import OptConfig, make_train_step  # noqa: E402
+from repro_torch.train.trainer import make_serve_steps  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    SERVE_RULES, cache_spec, full_value, logical_to_pspec, mesh_shape,
+    param_bytes_per_rank, param_placer, set_active_mesh, shard_params,
+    spec_bytes)
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.models import table_logical  # noqa: E402
 from repro_torch.train.optimizers import tree_leaves, tree_map  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
@@ -4458,6 +4477,373 @@ def phase_encdec() -> dict:
     return out
 
 
+# The sharded phase (its tolerances fixed before the first run on the card,
+# PERF.md). The serve steps on a DeviceMesh (DTensor placements by
+# SERVE_RULES, the prefill's 'width' cache layout) in an NCCL world of one
+# rank, held to the one-device steps on the same parameters: the greedy
+# tokens equal; float32 prefill + 3 decode steps within SHARDED_F32_TOL of
+# max|logit| (one rank holds whole tensors, so the two paths run the same
+# kernels: the band is a few float32 roundings of the logits); the smoke
+# configs against the reference's .npz files in the bands of the phases that
+# hold them; the expert-parallel MoE functions at published width against
+# moe_ffn(num_groups=1) in float32 within SHARDED_MOE_TOL of max|out| (the
+# same sums, grouped in other matmul shapes).
+SHARDED_SERVE = (   # (arch, layers kept or None for whole, batch, prompt, gen)
+    ("stablelm_12b", None, 8, 128, 32),
+    ("qwen3_moe_235b", 4, 8, 128, 32),
+    ("recurrentgemma_2b", None, 8, 1024, 32),
+    ("rwkv6_1b6", None, 8, 64, 32),
+    ("whisper_tiny", None, 16, 32, 64),
+)
+SHARDED_F32 = (("stablelm_12b", 2), ("qwen3_moe_235b", 2),
+               ("recurrentgemma_2b", 3), ("rwkv6_1b6", 2),
+               ("whisper_tiny", None))
+SHARDED_F32_SHAPE = (2, 32, 3)          # batch, prompt, decode steps
+SHARDED_F32_TOL = 1e-6
+SHARDED_MOE_ARCH = "qwen3_moe_235b"
+SHARDED_MOE_TOKENS = {"moe_ffn_sharded": (8, 128),
+                      "moe_ffn_sharded_decode": (8, 1)}
+SHARDED_MOE_TOL = 1e-5
+# Bytes per rank under SERVE_RULES at (data, model), bf16, in GB (1e9 B):
+# the reference resolver's numbers on the port's tables.
+SHARDED_PLAN = {
+    "qwen2_72b": {"whole": 142.9, (1, 4): 35.7, (1, 8): 17.9, (2, 8): 10.6},
+    "qwen3_moe_235b": {"whole": 468.9, (1, 4): 117.3, (1, 8): 58.7,
+                       (2, 8): 30.3},
+    "arctic_480b": {"whole": 953.2, (1, 4): 238.4, (1, 8): 119.2,
+                    (2, 8): 60.2},
+}
+SHARDED_PLAN_MESHES = ((1, 4), (1, 8), (2, 8))
+SHARDED_PLAN_CACHE = (8, 2048)          # batch, positions
+CARD_BYTES = 80e9                       # one H100's device memory
+
+
+def sharded_serve_row(mesh, smi: str, arch: str, layers, batch: int,
+                      prompt: int, gen: int) -> dict:
+    """``arch`` in bf16 at published width served on the mesh (through
+    launch/serve.py --mesh debug when whole, else ``serve_lm`` on the cut
+    config) and on one device, from the same seed: the placed parameters
+    alone first (their init peak), a 2-token warm-up call on the mesh, the
+    timed mesh call, then the one-device call. The greedy tokens must be
+    equal."""
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    model = build_model(cfg)
+    start = start_memory()
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED),
+                        place=param_placer(model.param_table, mesh,
+                                           SERVE_RULES))
+    init_peak = torch.cuda.max_memory_allocated() - start
+    del params
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--mesh", "debug", "--gen"]
+
+    def on_mesh(g):
+        if layers is None:
+            return quiet(lm_serve.main, argv + [str(g)])[0]
+        return lm_serve.serve_lm(cfg, batch, prompt, g, SEED, None, mesh)
+    warm = on_mesh(2)
+    start = start_memory()
+    got = on_mesh(gen)
+    serve_peak = torch.cuda.max_memory_allocated() - start
+    start_memory()
+    want = lm_serve.serve_lm(cfg, batch, prompt, gen, SEED)
+    check(np.array_equal(got.tokens, want.tokens),
+          f"sharded {arch}: the mesh path's greedy tokens differ from the "
+          f"one-device path's")
+    gap = float(np.abs(got.logits - want.logits).max())
+    return {"arch": arch, "card": smi, "layers": cfg.num_layers,
+            "published_layers": get_config(arch).num_layers,
+            "dtype": str(cfg.dtype_param), "batch": batch,
+            "prompt_len": prompt, "gen": gen,
+            "mesh": {"prefill_ms": got.prefill_ms,
+                     "prefill_ms_first_call": warm.prefill_ms,
+                     "decode_ms_per_token": got.decode_ms_per_token,
+                     "tokens_per_s": got.tokens_per_s},
+            "one_device": {"prefill_ms": want.prefill_ms,
+                           "decode_ms_per_token": want.decode_ms_per_token,
+                           "tokens_per_s": want.tokens_per_s},
+            "decode_ms_ratio": got.decode_ms_per_token
+            / want.decode_ms_per_token,
+            "tokens_equal": True, "last_logits_max_abs_err": gap,
+            "max_abs_logit": float(np.abs(want.logits).max()),
+            "bitwise_equal": bool(np.array_equal(got.logits, want.logits)),
+            "init_peak_bytes": init_peak, "serve_peak_bytes": serve_peak}
+
+
+def lm_inputs(cfg, batch: int, prompt: int, gen: torch.Generator) -> dict:
+    """Random prompt tokens, and random frames / patch embeddings where the
+    family takes them."""
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                   dtype=torch.int32, device=DEV,
+                                   generator=gen)}
+    if cfg.family in ("audio", "encdec"):
+        out["frames"] = torch.randn((batch, cfg.enc_frames, cfg.d_model),
+                                   device=DEV, generator=gen)
+    if cfg.family == "vlm":
+        out["prefix_embeds"] = torch.randn(
+            (batch, cfg.num_patch_tokens, cfg.d_model), device=DEV,
+            generator=gen)
+    return out
+
+
+def sharded_f32_row(mesh, arch: str, layers) -> dict:
+    """Float32 at published width (``layers`` kept, whole when None): the
+    mesh path's prefill and decode steps against the one-device path's on
+    the same parameters (placed without a copy: one rank holds whole
+    leaves), the one-device greedy tokens fed to both."""
+    over = {} if layers is None else {"num_layers": layers}
+    cfg = f32_config(arch, **over)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    placed = shard_params(params, mesh, SERVE_RULES, model.logical)
+    batch, prompt, steps = SHARDED_F32_SHAPE
+    inputs = lm_inputs(cfg, batch, prompt,
+                       torch.Generator(device=DEV).manual_seed(SEED + 1))
+    max_len = prompt + steps + (cfg.num_patch_tokens or 0)
+    one = make_serve_steps(model, max_len, DEV)
+    on_mesh = make_serve_steps(model, max_len, DEV, mesh=mesh)
+    want, cache = one["prefill"](params, inputs)
+    got, mcache = on_mesh["prefill"](placed, inputs)
+    pairs = [(full_value(got), want)]
+    for _ in range(steps):
+        tok = torch.argmax(want, -1)[:, None].to(torch.int32)
+        want, cache = one["decode_step"](params, cache, tok)
+        got, mcache = on_mesh["decode_step"](placed, mcache, tok)
+        pairs.append((full_value(got), want))
+    scale = max(float(w.abs().max()) for _, w in pairs)
+    err = max(float((g - w).abs().max()) for g, w in pairs)
+    row = {"arch": arch, "layers": cfg.num_layers, "batch": batch,
+           "prompt_len": prompt, "decode_steps": steps,
+           "max_abs_err": err, "max_abs_logit": scale,
+           "relative": err / scale, "tol": SHARDED_F32_TOL,
+           "bitwise_equal": all(torch.equal(g, w) for g, w in pairs)}
+    check(err <= SHARDED_F32_TOL * scale,
+          f"sharded: float32 mesh path against one device: {row}")
+    return row
+
+
+def mesh_serve_outputs(model, mesh, params, prompt: dict, max_len,
+                       decode_tokens, final_cache: bool = False) -> dict:
+    """The mesh path's prefill logits and cache fields, and the logits of
+    the decode steps fed ``decode_tokens`` (and the cache after them)."""
+    steps = make_serve_steps(model, max_len, DEV, mesh=mesh)
+    placed = shard_params(params, mesh, SERVE_RULES, model.logical)
+    logits, cache = steps["prefill"](placed, prompt)
+    got = {"prefill_logits": full_value(logits)}
+    got.update({f"cache_{f}": full_value(getattr(cache, f))
+                for f in cache._fields})
+    dec = []
+    for fed in decode_tokens:
+        logits, cache = steps["decode_step"](placed, cache,
+                                             torch.from_numpy(fed).to(DEV))
+        dec.append(full_value(logits))
+    got["decode_logits"] = torch.stack(dec)
+    if final_cache:
+        got.update({f"final_cache_{f}": full_value(getattr(cache, f))
+                    for f in cache._fields})
+    return got
+
+
+def sharded_reference_rows(mesh) -> dict:
+    """Every family's smoke config through the mesh path against the
+    reference's .npz (no JAX), in the bands of the phases that hold them:
+    the prefill's logits and cache, the decode steps."""
+    rows = {}
+    with np.load(REFERENCE_DECODER_NPZ) as z:
+        ref = {k: z[k] for k in z.files}
+    for arch in sorted({k.split("/", 1)[0] for k in ref}):
+        sub = {k.split("/", 1)[1]: v for k, v in ref.items()
+               if k.startswith(arch + "/")}
+        params = tree_from_numpy({k.split("/", 1)[1]: v
+                                  for k, v in sub.items()
+                                  if k.startswith("params/")}, device=DEV)
+        prompt = {k: torch.from_numpy(sub[k]).to(DEV)
+                  for k in ("tokens", "prefix_embeds") if k in sub}
+        got = mesh_serve_outputs(build_model(get_smoke_config(arch)), mesh,
+                                 params, prompt, sub["cache_k"].shape[2],
+                                 sub["decode_tokens"])
+        rows[arch] = npz_rows("sharded", REFERENCE_DECODER_NPZ, got, sub,
+                              DECODER_REFERENCE_TOL)
+    with np.load(REFERENCE_RWKV_NPZ) as z:
+        ref = {k: z[k] for k in z.files}
+    params = tree_from_numpy({k.split("/", 1)[1]: v for k, v in ref.items()
+                              if k.startswith("params/")}, device=DEV)
+    for path, chunk in (("scan", 0), ("chunk", 16)):
+        sub = {k.split("/", 1)[1]: v for k, v in ref.items()
+               if k.startswith(path + "/")}
+        model = build_model(get_smoke_config(ZOO_ARCH).replace(
+            rwkv_chunk=chunk))
+        got = mesh_serve_outputs(
+            model, mesh, params,
+            {"tokens": torch.from_numpy(sub["tokens"]).to(DEV)}, None,
+            sub["decode_tokens"])
+        rows[f"{ZOO_ARCH}/{path}"] = npz_rows(
+            "sharded", REFERENCE_RWKV_NPZ, got, sub, ZOO_REFERENCE_TOL)
+    with np.load(REFERENCE_GRIFFIN_NPZ) as z:
+        ref = {k: z[k] for k in z.files}
+    params = tree_from_numpy({k.split("/", 1)[1]: v for k, v in ref.items()
+                              if k.startswith("params/")}, device=DEV)
+    prompt = int(ref["cache_length"])
+    got = mesh_serve_outputs(
+        build_model(get_smoke_config(GRIFFIN_ARCH)), mesh, params,
+        {"tokens": torch.from_numpy(ref["tokens"][:, :prompt]).to(DEV)},
+        None, ref["decode_tokens"], final_cache=True)
+    rows[GRIFFIN_ARCH] = npz_rows(
+        "sharded", REFERENCE_GRIFFIN_NPZ, got, ref, GRIFFIN_REFERENCE_TOL,
+        exact=("cache_pos", "cache_length", "final_cache_pos",
+               "final_cache_length"))
+    with np.load(REFERENCE_ENCDEC_NPZ) as z:
+        ref = {k: z[k] for k in z.files}
+    cfg = get_smoke_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    flat = {k.split("/", 1)[1]: v for k, v in ref.items()
+            if k.startswith("params/")}
+    n_pos = model.param_table["dec_pos"][0][0]
+    flat["dec_pos"] = np.concatenate([flat["dec_pos"], np.zeros(
+        (n_pos - flat["dec_pos"].shape[0], cfg.d_model), np.float32)])
+    got = mesh_serve_outputs(
+        model, mesh, tree_from_numpy(flat, device=DEV),
+        {k: torch.from_numpy(ref[k]).to(DEV) for k in ("frames", "tokens")},
+        ref["cache_k"].shape[2], ref["decode_tokens"])
+    rows[ENCDEC_ARCH] = npz_rows("sharded", REFERENCE_ENCDEC_NPZ, got, ref,
+                                 ENCDEC_REFERENCE_TOL,
+                                 exact=("cache_length",))
+    return rows
+
+
+def sharded_moe_rows(mesh) -> list[dict]:
+    """The four expert-parallel functions at one layer of the MoE config at
+    published width in float32, against ``moe_ffn(num_groups=1)``:
+    ``moe_ffn_sharded`` and its body ``_local_moe`` at 8 x 128 tokens,
+    ``moe_ffn_sharded_decode`` and its body ``_local_moe_tokens_gathered``
+    at 8 x 1."""
+    cfg = f32_config(SHARDED_MOE_ARCH)
+    table = moe.moe_param_table(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    params = transformer.build_params(gen, table, torch.float32)
+    placed = shard_params(params, mesh, SERVE_RULES, table_logical(table))
+    E = cfg.num_experts
+    args = (params["router"], params["wi_0"], params["wi_1"], params["wo"],
+            cfg, E)
+    bodies = {"moe_ffn_sharded": ("_local_moe", lambda x: moe._local_moe(
+                  x, *args)),
+              "moe_ffn_sharded_decode": (
+                  "_local_moe_tokens_gathered",
+                  lambda x: moe._local_moe_tokens_gathered(x, *args))}
+    rows = []
+    for name, (B, S) in SHARDED_MOE_TOKENS.items():
+        x = torch.randn((B, S, cfg.d_model), device=DEV, generator=gen)
+        with torch.no_grad():
+            want = moe.moe_ffn(x, params, cfg, 1)
+            scale = float(want.abs().max())
+            body, run_body = bodies[name]
+            for fn, got in ((name, full_value(getattr(moe, name)(
+                    x, placed, cfg, mesh))), (body, run_body(x))):
+                err = float((got - want).abs().max())
+                row = {"function": fn, "tokens": [B, S], "experts": E,
+                       "top_k": cfg.moe_top_k, "d_model": cfg.d_model,
+                       "max_abs_err": err, "max_abs_out": scale,
+                       "tol": SHARDED_MOE_TOL}
+                rows.append(row)
+                check(got.shape == want.shape
+                      and err <= SHARDED_MOE_TOL * scale,
+                      f"sharded: {fn} against moe_ffn(num_groups=1): {row}")
+    return rows
+
+
+def init_peak_per_rank(table: dict, rules, mesh, dtype) -> int:
+    """The leaf-by-leaf placed init's peak on one rank (no allocation):
+    the blocks placed so far, then a leaf's float32 draw, its cast and its
+    block (a norm or bias leaf is made in ``dtype`` directly)."""
+    size = torch.finfo(dtype).bits // 8
+    placed = peak = 0
+    for name in sorted(table):
+        shape, logical, fan = table[name]
+        n = math.prod(shape)
+        block = spec_bytes(shape, logical_to_pspec(logical, rules, mesh,
+                                                   shape), mesh, size)
+        drawn = n * size + (0 if transformer.zero_init(name) else n * 4)
+        peak = max(peak, placed + drawn + block)
+        placed += block
+    return peak
+
+
+def sharded_plan_rows() -> list[dict]:
+    """Per big config and mesh (data, model): the bf16 parameter bytes per
+    rank under SERVE_RULES (held to the resolver's table), the KV cache
+    bytes per rank at 8 x 2048 under both cache layouts, the leaf-by-leaf
+    init's peak per rank, and the smallest mesh whose parameters and cache
+    fit one card. Nothing is allocated."""
+    rows = []
+    batch, positions = SHARDED_PLAN_CACHE
+    for arch, want in SHARDED_PLAN.items():
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        size = torch.finfo(cfg.dtype_param).bits // 8
+        whole = sum(math.prod(s) for s, _, _ in model.param_table.values())
+        row = {"arch": arch, "whole_gb": whole * size / 1e9, "meshes": {}}
+        check(round(row["whole_gb"], 1) == want["whole"],
+              f"sharded plan {arch}: whole {row['whole_gb']}")
+        cache = model.init_cache(batch, positions, device="meta")
+        fits = None
+        for shape in SHARDED_PLAN_MESHES:
+            mesh = types.SimpleNamespace(
+                shape={"data": shape[0], "model": shape[1]})
+            p = param_bytes_per_rank(model.param_table, SERVE_RULES, mesh,
+                                     size)
+            kv = {prefer: sum(spec_bytes(
+                leaf.shape, cache_spec(leaf.shape, leaf.dtype, mesh, prefer),
+                mesh, leaf.element_size()) for leaf in cache)
+                for prefer in ("width", "time")}
+            entry = {"param_gb": p / 1e9, "kv_cache_gb": {
+                         k: v / 1e9 for k, v in kv.items()},
+                     "init_peak_gb": init_peak_per_rank(
+                         model.param_table, SERVE_RULES, mesh,
+                         cfg.dtype_param) / 1e9,
+                     "fits_card": p + max(kv.values()) <= CARD_BYTES}
+            check(round(entry["param_gb"], 1) == want[shape],
+                  f"sharded plan {arch} at {shape}: {entry['param_gb']} GB "
+                  f"per rank, the resolver's table says {want[shape]}")
+            if fits is None and entry["fits_card"]:
+                fits = list(shape)
+            row["meshes"]["x".join(map(str, shape))] = entry
+        row["smallest_fitting_mesh"] = fits
+        rows.append(row)
+    return rows
+
+
+def phase_sharded(backend: str = "nccl") -> dict:
+    """The serve steps on a (data=1, model=1) DeviceMesh inside a process
+    group of one rank: one config of each family served at published width
+    against the one-device path, float32 against it, the smoke configs
+    against the reference's .npz, the expert-parallel MoE functions, and the
+    plan rows of the three configs that need several cards."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    out = {"phase": "sharded", "card": smi,
+           "allocated_at_start_bytes": start_memory()}
+    rendezvous = init_process_group(backend)
+    try:
+        mesh = make_debug_mesh(data=1, model=1)
+        out["mesh"] = {"shape": mesh_shape(mesh),
+                       "device_type": mesh.device_type,
+                       "backend": dist.get_backend()}
+        out["serve"] = [timed_row(sharded_serve_row, mesh, smi, *row)
+                        for row in SHARDED_SERVE]
+        out["float32"] = [timed_row(sharded_f32_row, mesh, arch, layers)
+                          for arch, layers in SHARDED_F32]
+        out["reference"] = timed_row(sharded_reference_rows, mesh)
+        out["moe"] = timed_row(sharded_moe_rows, mesh)
+    finally:
+        set_active_mesh(None)
+        close_process_group(rendezvous)
+    out["plan"] = sharded_plan_rows()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def build_all() -> dict:
     """Compile every kernel source at once (one nvcc process each)."""
     t0 = time.perf_counter()
@@ -4728,6 +5114,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     with unescalated("encdec"):
         emit(phase_encdec())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Main path 4g, the LM zoo on a device mesh: the serve steps over
+    # DTensor placements by the logical-axis rules, in an NCCL world of one
+    # rank, one config of each family against the one-device path, the
+    # smoke configs against the reference, the expert-parallel MoE, and the
+    # per-rank plan of the configs that need several cards. Plain PyTorch:
+    # the reference's sharded steps are plain jnp under XLA, no kernel.
+    with unescalated("sharded"):
+        emit(phase_sharded())
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -18,6 +18,7 @@
     python3 rehearse_chip_smoke.py decoder
     python3 rehearse_chip_smoke.py griffin
     python3 rehearse_chip_smoke.py encdec
+    python3 rehearse_chip_smoke.py sharded
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -104,6 +105,16 @@ def _cpu_time_ms(fn, **_):
     return (time.perf_counter() - t0) * 1e3
 
 
+def _with_config(get_config, fn):
+    """``fn()`` with chip_smoke's ``get_config`` set to ``get_config``."""
+    import chip_smoke as cs
+    patched, cs.get_config = cs.get_config, get_config
+    try:
+        return fn()
+    finally:
+        cs.get_config = patched
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phase", choices=("fit", "kernels", "distributed",
@@ -111,7 +122,7 @@ def main() -> None:
                                       "solvers", "exact", "automl",
                                       "service", "amortize", "curvepred",
                                       "zoo", "decoder", "griffin",
-                                      "encdec"))
+                                      "encdec", "sharded"))
     ap.add_argument("--n", type=int, default=300,
                     help="configurations of the fit, warm and automl "
                          "phases (m=52, d=7; the automl phase's Hyperband "
@@ -254,6 +265,28 @@ def main() -> None:
             else cs.phase_encdec
         with cs.unescalated(args.phase):
             print(json.dumps(phase()))
+    elif args.phase == "sharded":
+        # The published widths do not fit the CPU: each smoke config with
+        # the published config's numerics (bf16, remat) served on a (1, 1)
+        # mesh in a gloo world of one; float32 and the MoE functions at the
+        # smoke widths; the plan rows as on the card (nothing allocated).
+        def smoke(arch):
+            return cs.get_smoke_config(arch).replace(
+                dtype_act=torch.bfloat16, dtype_param=torch.bfloat16,
+                remat=True)
+        plan_config = cs.get_config
+        cs.get_config = smoke
+        sys.modules["repro_torch.launch.serve"].get_config = smoke
+        cs.sharded_plan_rows = functools.partial(_with_config, plan_config,
+                                                 cs.sharded_plan_rows)
+        cs.SHARDED_SERVE = tuple((arch, None, 2, 12, 6)
+                                 for arch, *_ in cs.SHARDED_SERVE)
+        cs.SHARDED_F32 = tuple((arch, None) for arch, _ in cs.SHARDED_F32)
+        cs.SHARDED_MOE_TOKENS = {"moe_ffn_sharded": (4, 12),
+                                 "moe_ffn_sharded_decode": (4, 1)}
+        cs.nvidia_smi_line = lambda: "CPU rehearsal, no card"
+        with cs.unescalated("sharded"):
+            print(json.dumps(cs.phase_sharded("gloo")))
     elif args.phase == "exact":
         with cs.unescalated("exact"):
             print(json.dumps(cs.phase_exact()))

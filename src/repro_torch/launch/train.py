@@ -8,8 +8,8 @@ Fault tolerance: atomic keep-K checkpoints (async), deterministic data keyed
 by step (a run resumed at step k trains on exactly the batches an
 uninterrupted run would have), and ``--simulate-preempt N`` kills the
 process at step N to exercise the restart. ``--mesh debug`` and
-``--mesh single`` both mean one device here; a multi-card mesh needs
-``distributed/sharding.py``, which is not ported (ROADMAP queue 1 item 14).
+``--mesh single`` both mean one device here; a multi-card mesh waits for
+the sharded training slice (``make_train_step`` on a mesh, ROADMAP queue 1).
 The step updates the state in place (``make_train_step(donate=True)``), as
 the reference's launcher donates its state: the loop never reads a state it
 has passed on, and a checkpoint copies the state to the host before the next
@@ -74,8 +74,9 @@ def main(argv=None) -> TrainResult:
     args = ap.parse_args(argv)
     if args.mesh == "multi":
         raise NotImplementedError(
-            "--mesh multi needs distributed/sharding.py, which is not ported "
-            "to repro_torch yet (ROADMAP queue 1 item 14)")
+            "--mesh multi needs the sharded training slice (make_train_step "
+            "on a mesh, ROADMAP queue 1), which is not ported to repro_torch "
+            "yet; launch.serve serves on a mesh")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)

@@ -13,8 +13,9 @@ Parameters are the reference's tree, each stack's weights on a leading
 (L, ...) axis; where the reference scans over layers this module loops in
 Python, each layer's parameters views of the stacked leaves. With
 ``cfg.remat`` each layer is recomputed in the backward pass under autograd
-(``torch.utils.checkpoint``); that changes no value. One device: the
-reference's sharding constraints are left out.
+(``torch.utils.checkpoint``); that changes no value. Every function takes
+the reference's ``constrain`` hook (default: the identity), called where
+the reference calls it: the encoder's input and the training decoder's.
 
 Serving: :func:`encdec_prefill` runs the encoder once, caches each decoder
 layer's self-attention K / V of the prompt in a cache of ``max_len``
@@ -23,7 +24,8 @@ positions and its cross-attention K / V over all frames;
 ``length`` (a 0-d device int32: no host read), with the start clamped to the
 last position as XLA's ``dynamic_update_slice`` clamps it, and returns a new
 cache, leaving its argument as it was. The cross cache is static and passes
-through uncopied.
+through uncopied. On a mesh the caches are created in the prefill's layout
+and written on each rank's block (``layers.write_layer``).
 """
 from __future__ import annotations
 
@@ -33,8 +35,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from .layers import (_mm, attention, chunked_ce_loss, decode_attention,
-                     layer_norm, mlp, mlp_params)
+from .layers import (_einsum, _mm, attention, cache_zeros, chunked_ce_loss,
+                     decode_attention, identity_constrain, layer_norm,
+                     mesh_of, mlp, mlp_params, write_all, write_at,
+                     write_layer, write_prefix)
 from .transformer import _layer
 
 __all__ = ["encdec_layer_table", "encdec_param_table", "encode",
@@ -179,10 +183,14 @@ def _stack(fn, x, layers, n, cfg, *extra):
     return x
 
 
-def encode(params, frames, cfg):
+_ACT = (("batch",), None, "embed")
+
+
+def encode(params, frames, cfg, constrain=identity_constrain):
     """frames: (B, F, D) precomputed frontend embeddings -> (B, F, D)."""
     x = frames.to(cfg.dtype_act) + _sinusoid(
         frames.shape[1], cfg.d_model, cfg.dtype_act, frames.device)[None]
+    x = constrain(x, _ACT)
     x = _stack(_enc_layer, x, params["enc_layers"], cfg.enc_layers, cfg)
     return layer_norm(x, 1.0 + params["enc_ln"], params["enc_ln_b"])
 
@@ -196,35 +204,39 @@ def _final(params, x):
     return layer_norm(x, 1.0 + params["dec_ln"], params["dec_ln_b"])
 
 
-def decode_train(params, enc, tokens, cfg):
+def decode_train(params, enc, tokens, cfg, constrain=identity_constrain):
     """The decoder over whole sequences: final hidden states (B, S, D)."""
     S = tokens.shape[1]
-    x = _embed(params, tokens, cfg, slice(0, S))
+    x = constrain(_embed(params, tokens, cfg, slice(0, S)), _ACT)
     x = _stack(_dec_layer, x, params["dec_layers"], cfg.num_layers, cfg, enc)
     return _final(params, x)
 
 
-def encdec_loss(params, batch, cfg):
-    enc = encode(params, batch["frames"], cfg)
-    x = decode_train(params, enc, batch["tokens"], cfg)
+def encdec_loss(params, batch, cfg, constrain=identity_constrain):
+    enc = encode(params, batch["frames"], cfg, constrain)
+    x = decode_train(params, enc, batch["tokens"], cfg, constrain)
     return chunked_ce_loss(x, params["embed"].to(cfg.dtype_act),
                            batch["labels"], chunk=cfg.loss_chunk)
 
 
-def init_encdec_cache(cfg, batch, max_len, dtype, device=None) -> EncDecCache:
-    """An empty cache of ``max_len`` positions on ``device`` (``None``: the
-    GPU)."""
+def init_encdec_cache(cfg, batch, max_len, dtype, device=None, mesh=None,
+                      frames=None) -> EncDecCache:
+    """An empty cache of ``max_len`` positions and ``frames`` cross
+    positions (``None``: ``cfg.enc_frames``) on ``device`` (``None``: the
+    GPU), or on ``mesh`` in the prefill's layout."""
     dev = resolve_device(device)
-    L, H, Dh, F = cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.enc_frames
+    L, H, Dh = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    F = cfg.enc_frames if frames is None else frames
     return EncDecCache(
-        k=torch.zeros((L, batch, max_len, H, Dh), dtype=dtype, device=dev),
-        v=torch.zeros((L, batch, max_len, H, Dh), dtype=dtype, device=dev),
-        xk=torch.zeros((L, batch, F, H, Dh), dtype=dtype, device=dev),
-        xv=torch.zeros((L, batch, F, H, Dh), dtype=dtype, device=dev),
+        k=cache_zeros((L, batch, max_len, H, Dh), dtype, dev, mesh),
+        v=cache_zeros((L, batch, max_len, H, Dh), dtype, dev, mesh),
+        xk=cache_zeros((L, batch, F, H, Dh), dtype, dev, mesh),
+        xv=cache_zeros((L, batch, F, H, Dh), dtype, dev, mesh),
         length=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def encdec_prefill(params, batch, cfg, max_len):
+def encdec_prefill(params, batch, cfg, max_len,
+                   constrain=identity_constrain):
     """Encoder pass + decoder prompt pass: (last position's logits (B, V),
     a cache of ``max_len`` positions)."""
     tokens = batch["tokens"]
@@ -232,28 +244,27 @@ def encdec_prefill(params, batch, cfg, max_len):
     if S > max_len:
         raise ValueError(f"a prompt of {S} positions does not fit a cache "
                          f"of max_len {max_len}")
-    enc = encode(params, batch["frames"], cfg)
+    enc = encode(params, batch["frames"], cfg, constrain)
     x = _embed(params, tokens, cfg, slice(0, S))
-    L, H, Dh = cfg.num_layers, cfg.num_heads, cfg.head_dim
-    k = torch.zeros((L, B, max_len, H, Dh), dtype=cfg.dtype_act,
-                    device=x.device)
-    v = torch.zeros_like(k)
-    xk = torch.empty((L, *enc.shape[:2], H, Dh), dtype=cfg.dtype_act,
-                     device=x.device)
-    xv = torch.empty_like(xk)
-    for l in range(L):
+    cache = init_encdec_cache(cfg, B, max_len, cfg.dtype_act, x.device,
+                              mesh_of(x), frames=enc.shape[1])
+    for l in range(cfg.num_layers):
         lp = _layer(params["dec_layers"], l)
-        k[l, :, :S], v[l, :, :S] = _kv(_ln(x, lp, "ln1"), lp["attn"], cfg)
-        xk[l], xv[l] = _kv(enc, lp["xattn"], cfg)
+        k, v = _kv(_ln(x, lp, "ln1"), lp["attn"], cfg)
+        write_layer(cache.k, l, k, write_prefix, along=1)
+        write_layer(cache.v, l, v, write_prefix, along=1)
+        xk, xv = _kv(enc, lp["xattn"], cfg)
+        write_layer(cache.xk, l, xk, write_all)
+        write_layer(cache.xv, l, xv, write_all)
         x = _dec_layer(x, enc, lp, cfg)
     x = _final(params, x)
-    logits = torch.einsum("bd,vd->bv", x[:, -1], params["embed"].to(x.dtype))
-    return logits, EncDecCache(
-        k=k, v=v, xk=xk, xv=xv,
+    logits = _einsum("bd,vd->bv", x[:, -1], params["embed"].to(x.dtype))
+    return logits, cache._replace(
         length=torch.tensor(S, dtype=torch.int32, device=x.device))
 
 
-def encdec_decode_step(params, cache: EncDecCache, tokens, cfg):
+def encdec_decode_step(params, cache: EncDecCache, tokens, cfg,
+                       constrain=identity_constrain):
     """One greedy step. tokens: (B, 1) -> (logits (B, V), new cache).
 
     Reads ``dec_pos`` at ``length`` and writes the new K / V there, both
@@ -274,16 +285,15 @@ def encdec_decode_step(params, cache: EncDecCache, tokens, cfg):
         hn = _ln(x, lp, "ln1")
         q = _q(hn, p, cfg)
         k, v = _kv(hn, p, cfg)
-        ck, cv = new_k[l], new_v[l]
-        ck.index_copy_(1, at, k.to(ck.dtype))
-        cv.index_copy_(1, at, v.to(cv.dtype))
-        x = x + _out(decode_attention(q, ck, cv, pos + 1), p)
+        write_layer(new_k, l, k, write_at(at), along=1)
+        write_layer(new_v, l, v, write_at(at), along=1)
+        x = x + _out(decode_attention(q, new_k[l], new_v[l], pos + 1), p)
         # cross attention against the static encoder cache
         p = lp["xattn"]
         q = _q(_ln(x, lp, "lnx"), p, cfg)
         x = x + _out(decode_attention(q, cache.xk[l], cache.xv[l], F), p)
         x = x + mlp(_ln(x, lp, "ln2"), lp["mlp"], "gelu")
     x = _final(params, x)
-    logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    logits = _einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
     return logits[:, 0], cache._replace(k=new_k, v=new_v,
                                         length=cache.length + 1)

@@ -28,8 +28,11 @@ reference's table). Where the reference scans over layers with
 ``lax.switch(li % len(pattern))``, this module loops in Python and branches
 on ``cfg.block_pattern``; each layer's parameters are views of the stacked
 leaves. With ``cfg.remat`` each layer is recomputed in the backward pass
-under autograd (``torch.utils.checkpoint``); that changes no value. One
-device: the reference's sharding constraints are left out.
+under autograd (``torch.utils.checkpoint``); that changes no value. Every
+function takes the reference's ``constrain`` hook (default: the identity);
+as in the reference, only the forward pass calls it. On a mesh the cache is
+created in the prefill's layout and written on each rank's block
+(``layers.write_layer``).
 """
 from __future__ import annotations
 
@@ -40,8 +43,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from .layers import (_gelu, _mm, apply_rope, attention, chunked_ce_loss, mlp,
-                     mlp_params, rms_norm, rope)
+from .layers import (_einsum, _gelu, _mm, apply_rope, attention, cache_zeros,
+                     chunked_ce_loss, identity_constrain, mesh_of, mlp,
+                     mlp_params, rms_norm, rope, write_all, write_at,
+                     write_layer)
 from .transformer import _attn_out, _layer, _logits, _project_qkv
 
 __all__ = ["griffin_layer_table", "griffin_param_table", "griffin_forward",
@@ -207,7 +212,11 @@ def _embed(params, tokens, cfg):
     return params["embed"][tokens].to(cfg.dtype_act) * math.sqrt(cfg.d_model)
 
 
-def _layer_fwd(h, lp, cfg, cos, sin, attn: bool):
+_ACT = (("batch",), None, "embed")
+
+
+def _layer_fwd(h, lp, cfg, cos, sin, attn: bool,
+               constrain=identity_constrain):
     """One layer over a sequence: (new h, the branch's outputs)."""
     if attn:
         out, k, v = _attn_block(h, lp["attn"], cfg, cos, sin)
@@ -215,18 +224,19 @@ def _layer_fwd(h, lp, cfg, cos, sin, attn: bool):
     else:
         out, h_last, tail = _rec_block(h, lp["rec"], cfg)
         state = (h_last, tail)
-    h = h + out
+    h = h + constrain(out, _ACT)
     hn = rms_norm(h, lp["mlp_ln"], cfg.norm_eps)
-    return h + mlp(hn, lp["mlp"], cfg.mlp_act), state
+    return h + constrain(mlp(hn, lp["mlp"], cfg.mlp_act), _ACT), state
 
 
-def _layers(params, x, cfg, cos, sin):
+def _layers(params, x, cfg, cos, sin, constrain=identity_constrain):
     """Every layer in order: (final h, each layer's branch outputs)."""
     remat = cfg.remat and torch.is_grad_enabled()
     states = []
     for li in range(cfg.num_layers):
         attn = _is_attn(cfg, li)
-        args = (x, _layer(params["layers"], li), cfg, cos, sin, attn)
+        args = (x, _layer(params["layers"], li), cfg, cos, sin, attn,
+                constrain)
         if remat:
             x, st = checkpoint(_layer_fwd, *args, use_reentrant=False)
         else:
@@ -235,17 +245,17 @@ def _layers(params, x, cfg, cos, sin):
     return x, states
 
 
-def griffin_forward(params, tokens, cfg):
+def griffin_forward(params, tokens, cfg, constrain=identity_constrain):
     """Final hidden states (B, S, D) of ``tokens`` (B, S)."""
-    x = _embed(params, tokens, cfg)
+    x = constrain(_embed(params, tokens, cfg), _ACT)
     cos, sin = rope(torch.arange(x.shape[1], device=x.device), cfg.head_dim,
                     cfg.rope_theta)
-    x, _ = _layers(params, x, cfg, cos, sin)
+    x, _ = _layers(params, x, cfg, cos, sin, constrain)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def griffin_loss(params, batch, cfg):
-    x = griffin_forward(params, batch["tokens"], cfg)
+def griffin_loss(params, batch, cfg, constrain=identity_constrain):
+    x = griffin_forward(params, batch["tokens"], cfg, constrain)
     return chunked_ce_loss(x, params["embed"].to(cfg.dtype_act),
                            batch["labels"], chunk=cfg.loss_chunk,
                            logit_cap=cfg.final_logit_cap)
@@ -254,21 +264,21 @@ def griffin_loss(params, batch, cfg):
 # --------------------------------------------------------------------------
 # serving
 # --------------------------------------------------------------------------
-def init_griffin_cache(cfg, batch, dtype, device=None) -> GriffinCache:
-    """An empty cache on ``device`` (``None``: the GPU). Its size does not
-    depend on a context length: the window is the attention's whole
-    memory."""
+def init_griffin_cache(cfg, batch, dtype, device=None,
+                       mesh=None) -> GriffinCache:
+    """An empty cache on ``device`` (``None``: the GPU), or on ``mesh`` in
+    the prefill's layout. Its size does not depend on a context length: the
+    window is the attention's whole memory."""
     dev = resolve_device(device)
     L, R, W = cfg.num_layers, cfg.rnn_width, cfg.window
     Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
     return GriffinCache(
-        h=torch.zeros((L, batch, R), dtype=torch.float32, device=dev),
-        conv=torch.zeros((L, batch, cfg.conv_width - 1, R), dtype=dtype,
-                         device=dev),
-        k=torch.zeros((L, batch, W, Hkv, Dh), dtype=dtype, device=dev),
-        v=torch.zeros((L, batch, W, Hkv, Dh), dtype=dtype, device=dev),
-        pos=torch.full((L, batch, W), _UNSEEN, dtype=torch.int32,
-                       device=dev),
+        h=cache_zeros((L, batch, R), torch.float32, dev, mesh),
+        conv=cache_zeros((L, batch, cfg.conv_width - 1, R), dtype, dev,
+                         mesh),
+        k=cache_zeros((L, batch, W, Hkv, Dh), dtype, dev, mesh),
+        v=cache_zeros((L, batch, W, Hkv, Dh), dtype, dev, mesh),
+        pos=cache_zeros((L, batch, W), torch.int32, dev, mesh, _UNSEEN),
         length=torch.zeros((), dtype=torch.int32, device=dev))
 
 
@@ -280,17 +290,18 @@ def _windowed_decode_attention(q, kbuf, vbuf, posbuf, cur_pos, window):
     Hq = q.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, 1, Hkv, G, Dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kbuf).float()
+    s = _einsum("bqhgd,bkhd->bhgqk", qg, kbuf).float()
     s = s / math.sqrt(Dh)
     valid = (posbuf <= cur_pos) & (posbuf > cur_pos - window)
     s = torch.where(valid[:, None, None, None, :], s,
                     torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(vbuf.dtype), vbuf)
+    out = _einsum("bhgqk,bkhd->bqhgd", p.to(vbuf.dtype), vbuf)
     return out.reshape(B, 1, Hq, Dh)
 
 
-def griffin_decode_step(params, cache: GriffinCache, tokens, cfg):
+def griffin_decode_step(params, cache: GriffinCache, tokens, cfg,
+                        constrain=identity_constrain):
     """One step. tokens: (B, 1) -> (logits (B, V), new cache).
 
     The new cache is a copy of ``cache`` with each layer's new state
@@ -312,18 +323,18 @@ def griffin_decode_step(params, cache: GriffinCache, tokens, cfg):
         if _is_attn(cfg, li):
             xn = rms_norm(x, lp["attn"]["ln"], cfg.norm_eps)
             q, k, v = _qkv(xn, lp["attn"], cfg, cos, sin)
-            kbuf, vbuf, pbuf = new.k[li], new.v[li], new.pos[li]
-            kbuf.index_copy_(1, slot, k.to(kbuf.dtype))
-            vbuf.index_copy_(1, slot, v.to(vbuf.dtype))
-            pbuf.index_copy_(1, slot, stamp)
-            a = _windowed_decode_attention(q, kbuf, vbuf, pbuf, pos,
-                                           cfg.window)
+            write = write_at(slot)
+            write_layer(new.k, li, k, write, along=1)
+            write_layer(new.v, li, v, write, along=1)
+            write_layer(new.pos, li, stamp, write, along=1)
+            a = _windowed_decode_attention(q, new.k[li], new.v[li],
+                                           new.pos[li], pos, cfg.window)
             x = x + _attn_out(a, lp["attn"])
         else:
             out, h_new, tail = _rec_block(x, lp["rec"], cfg, h0=cache.h[li],
                                           conv_tail=cache.conv[li])
-            new.h[li].copy_(h_new)
-            new.conv[li].copy_(tail)
+            write_layer(new.h, li, h_new, write_all)
+            write_layer(new.conv, li, tail, write_all)
             x = x + out
         hn = rms_norm(x, lp["mlp_ln"], cfg.norm_eps)
         x = x + mlp(hn, lp["mlp"], cfg.mlp_act)
@@ -331,7 +342,7 @@ def griffin_decode_step(params, cache: GriffinCache, tokens, cfg):
     return _logits(params, x, cfg)[:, 0], new
 
 
-def griffin_prefill(params, batch, cfg):
+def griffin_prefill(params, batch, cfg, constrain=identity_constrain):
     """Prompt pass returning (last position's logits (B, V), a cache with
     every layer's state and ``length = S``). An attention layer keeps its
     last ``window`` positions in slot order ``pos % window``; a slot no
@@ -347,7 +358,7 @@ def griffin_prefill(params, batch, cfg):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, x[:, -1], cfg)
 
-    cache = init_griffin_cache(cfg, B, cfg.dtype_act, dev)
+    cache = init_griffin_cache(cfg, B, cfg.dtype_act, dev, mesh_of(x))
     W = cfg.window
     last = torch.arange(W, device=dev)
     if S >= W:
@@ -356,13 +367,15 @@ def griffin_prefill(params, batch, cfg):
         src = last
     take = torch.clamp(src, 0, S - 1)
     seen = torch.where(src < S, src, torch.full_like(src, _UNSEEN))
+    seen = seen.to(torch.int32)[None, :].repeat(B, 1)
     for li, st in enumerate(states):
         if _is_attn(cfg, li):
             k, v = st
-            cache.k[li] = k[:, take]
-            cache.v[li] = v[:, take]
-            cache.pos[li] = seen.to(torch.int32)[None, :]
+            write_layer(cache.k, li, k[:, take], write_all)
+            write_layer(cache.v, li, v[:, take], write_all)
+            write_layer(cache.pos, li, seen, write_all)
         else:
-            cache.h[li], cache.conv[li] = st
+            write_layer(cache.h, li, st[0], write_all)
+            write_layer(cache.conv, li, st[1], write_all)
     return logits, cache._replace(
         length=torch.tensor(S, dtype=torch.int32, device=dev))

@@ -28,7 +28,36 @@ from torch.utils.checkpoint import checkpoint
 
 __all__ = ["rms_norm", "layer_norm", "rope", "apply_rope", "mlp",
            "mlp_params", "attention", "decode_attention", "chunked_ce_loss",
-           "Cache"]
+           "Cache", "identity_constrain", "mesh_of", "cache_zeros",
+           "write_layer", "write_all", "write_prefix", "write_at"]
+
+
+def identity_constrain(t, logical):
+    """The models' default ``constrain``: no sharding constraint."""
+    return t
+
+
+def _even(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or for a ``DTensor`` with a dimension sharded unevenly
+    (a batch of 5 over 2 ranks) or a pending sum (``Partial``) that
+    placement replicated. DTensor cannot flatten an uneven shard, an
+    ``einsum`` flattens its operands, and DTensor's strategies would scatter
+    a pending sum over the leading axis however uneven."""
+    placements = getattr(t, "placements", None)
+    if placements is None:
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = t.device_mesh
+    even = [p if p.is_replicate() or (isinstance(p, Shard)
+                                      and t.shape[p.dim] % mesh.size(i) == 0)
+            else Replicate() for i, p in enumerate(placements)]
+    return t if even == list(placements) else t.redistribute(mesh, even)
+
+
+def _einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with :func:`_even` operands."""
+    return torch.einsum(eq, *map(_even, operands))
 
 
 def _mm(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -38,7 +67,7 @@ def _mm(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
-    return torch.einsum(eq, x, w)
+    return _einsum(eq, x, w)
 
 
 # --------------------------------------------------------------------------
@@ -161,14 +190,14 @@ def _plain_attention(q, k, v, causal, window, q_offset):
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, Sq, Hkv, G, Dh)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+    scores = _einsum("bqhgd,bkhd->bhgqk", qg, k).float()
     scores = scores / math.sqrt(Dh)
     qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(Sk, device=q.device)[None, :]
     ok = _visible(qpos, kpos, causal, window)
     scores = torch.where(ok, scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    out = _einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return out.reshape(B, Sq, Hq, Dh)
 
 
@@ -194,7 +223,7 @@ def _chunked_attention(q, k, v, causal, window, q_chunk, kv_chunk):
                           device=q.device)
         qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device)[:, None]
         for ki in range(nk):
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, ks[:, ki]).float() * scale
+            s = _einsum("bqhgd,bkhd->bhgqk", qb, ks[:, ki]).float() * scale
             kpos = ki * kv_chunk + torch.arange(kv_chunk,
                                                 device=q.device)[None, :]
             ok = _visible(qpos, kpos, causal, window)
@@ -203,11 +232,11 @@ def _chunked_attention(q, k, v, causal, window, q_chunk, kv_chunk):
             corr = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
+            acc = acc * corr[..., None] + _einsum(
                 "bhgqk,bkhd->bhgqd", p, vs[:, ki].float())
             m = m_new
         out = acc / torch.clamp_min(l[..., None], 1e-30)
-        outs.append(torch.einsum("bhgqd->bqhgd", out))   # (B, cq, Hkv, G, Dh)
+        outs.append(_einsum("bhgqd->bqhgd", out))   # (B, cq, Hkv, G, Dh)
     out = torch.stack(outs, dim=1).reshape(B, Sq, Hq, Dh)
     return out.to(q.dtype)
 
@@ -237,7 +266,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=None):
     Hq = q.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, 1, Hkv, G, Dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache).float()
+    s = _einsum("bqhgd,bkhd->bhgqk", qg, k_cache).float()
     s = s / math.sqrt(Dh)
     kpos = torch.arange(T, device=q.device)
     valid = kpos < cache_len
@@ -245,7 +274,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=None):
         valid &= kpos >= cache_len - window
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v_cache.dtype), v_cache)
+    out = _einsum("bhgqk,bkhd->bqhgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(B, 1, Hq, Dh)
 
 
@@ -254,7 +283,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=None):
 # --------------------------------------------------------------------------
 def _ce_chunk(xc, embed, lc, logit_cap):
     """Summed NLL and valid-label count of one sequence chunk."""
-    logits = torch.einsum("bsd,vd->bsv", xc, embed).float()
+    logits = _einsum("bsd,vd->bsv", xc, embed).float()
     if logit_cap is not None:
         logits = logit_cap * torch.tanh(logits / logit_cap)
     lse = torch.logsumexp(logits, dim=-1)
@@ -296,3 +325,78 @@ class Cache(NamedTuple):
     k: torch.Tensor        # (L, B, T, Hkv, Dh)
     v: torch.Tensor        # (L, B, T, Hkv, Dh)
     length: torch.Tensor   # 0-d int32: the count of valid positions
+
+
+# --------------------------------------------------------------------------
+# caches on a mesh
+# --------------------------------------------------------------------------
+def mesh_of(x: torch.Tensor):
+    """The ``DeviceMesh`` of a ``DTensor``, ``None`` for a plain tensor."""
+    return getattr(x, "device_mesh", None)
+
+
+def cache_zeros(shape, dtype: torch.dtype, device, mesh=None,
+                fill=0) -> torch.Tensor:
+    """A cache leaf filled with ``fill``: a plain tensor on ``device``, or on
+    a mesh a ``DTensor`` in the prefill's cache layout (the reference's
+    ``cache_shardings(batch, "width")`` rule)."""
+    if mesh is None:
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    from torch.distributed.tensor import full
+
+    from ..distributed.sharding import cache_spec, spec_placements
+    spec = cache_spec(shape, dtype, mesh, prefer="width")
+    return full(shape, fill, dtype=dtype, device_mesh=mesh,
+                placements=spec_placements(spec, mesh))
+
+
+def write_all(d: torch.Tensor, s: torch.Tensor) -> None:
+    """A writer for :func:`write_layer`: the whole layer."""
+    d.copy_(s)
+
+
+def write_prefix(d: torch.Tensor, s: torch.Tensor) -> None:
+    """A writer for :func:`write_layer`: positions [0, S) of a (B, T, ...)
+    layer from a (B, S, ...) source."""
+    d[:, :s.shape[1]] = s
+
+
+def write_at(at: torch.Tensor):
+    """A writer for :func:`write_layer`: a (B, 1, ...) entry at index
+    ``at`` (a 1-element device tensor) of a (B, T, ...) layer."""
+    def write(d, s):
+        d.index_copy_(1, at, s.to(d.dtype))
+    return write
+
+
+def write_layer(dst: torch.Tensor, layer: int, src: torch.Tensor, write,
+                along: int | None = None) -> None:
+    """``write(dst[layer], src)``: an in-place write into one layer of a
+    stacked (L, ...) cache leaf.
+
+    On a ``DTensor`` ``dst`` (a cache on a mesh) ``src`` is first laid out
+    as ``dst[layer]`` is and the write runs on every rank's own block, which
+    is exact as long as the dimension the write indexes (``along``, of
+    ``dst[layer]``: the time or window-slot axis) is not sharded; the
+    prefill's 'width' cache layout never shards it.
+    """
+    mesh = mesh_of(dst)
+    if mesh is None:
+        write(dst[layer], src)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    placements = []
+    for p in dst.placements:
+        if isinstance(p, Shard):
+            if p.dim == 0 or p.dim - 1 == along:
+                raise ValueError(f"a cache write along a sharded dimension "
+                                 f"({dst.placements}, along {along})")
+            placements.append(Shard(p.dim - 1))
+        else:
+            placements.append(Replicate())
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src.contiguous(), mesh,
+                                 [Replicate()] * mesh.ndim, run_check=False)
+    src = src.redistribute(mesh, placements)
+    write(dst.to_local()[layer], src.to_local())

@@ -1,19 +1,20 @@
 """Model zoo registry (counterpart of ``repro.models.registry``).
 
 ``build_model(cfg)`` returns a ``Model`` with functional endpoints:
-    init(generator, dtype)           -> params
-    loss(params, batch)              -> scalar        (train shapes)
-    prefill(params, batch, max_len)  -> (logits, cache)
-    decode_step(params, cache, tk)   -> (logits, cache)
-    init_cache(batch, max_len, dtype, device) -> cache
-plus the parameter table and its logical-axis tree.
+    init(generator, dtype, place)    -> params
+    loss(params, batch, constrain)   -> scalar        (train shapes)
+    prefill(params, batch, max_len, constrain) -> (logits, cache)
+    decode_step(params, cache, tk, constrain)  -> (logits, cache)
+    init_cache(batch, max_len, dtype, device, mesh) -> cache
+plus the parameter table and its logical-axis tree. ``constrain`` is the
+reference's sharding-constraint hook (default: the identity) and ``mesh``
+places an empty cache on a ``DeviceMesh`` in the prefill's layout.
 
 Every family of the reference is built: the decoder family (``dense``,
 ``moe``, ``vlm``), the encoder-decoder (``encdec``, ``audio``: its prefill
 needs ``max_len``), the Griffin hybrid (``hybrid``) and RWKV-6 (``ssm``),
 whose prefill and cache take ``max_len=None`` and ignore it (their state
-does not grow with the context). One device: the reference's ``constrain``
-hooks (sharding constraints) are left out.
+does not grow with the context).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from . import encdec, griffin, rwkv, transformer
+from .layers import identity_constrain as _ident
 from .transformer import build_params, table_logical
 
 __all__ = ["Model", "InputSpec", "build_model", "count_params",
@@ -52,58 +54,65 @@ def build_model(cfg) -> Model:
         table = transformer.decoder_param_table(cfg)
         return Model(
             cfg=cfg, param_table=table, logical=table_logical(table),
-            init=lambda generator, dtype=cfg.dtype_param: build_params(
-                generator, table, dtype),
-            loss=lambda p, b: transformer.decoder_loss(p, b, cfg),
-            prefill=lambda p, b, max_len: transformer.decoder_prefill(
-                p, b, cfg, max_len),
-            decode_step=lambda p, c, t: transformer.decoder_decode_step(
-                p, c, t, cfg),
+            init=lambda generator, dtype=cfg.dtype_param, place=None:
+                build_params(generator, table, dtype, place),
+            loss=lambda p, b, constrain=_ident: transformer.decoder_loss(
+                p, b, cfg, constrain),
+            prefill=lambda p, b, max_len, constrain=_ident:
+                transformer.decoder_prefill(p, b, cfg, max_len, constrain),
+            decode_step=lambda p, c, t, constrain=_ident:
+                transformer.decoder_decode_step(p, c, t, cfg, constrain),
             init_cache=lambda batch, max_len, dtype=cfg.dtype_act,
-            device=None: transformer.init_decoder_cache(cfg, batch, max_len,
-                                                        dtype, device),
+            device=None, mesh=None: transformer.init_decoder_cache(
+                cfg, batch, max_len, dtype, device, mesh),
         )
     if fam in ("encdec", "audio"):
         table = encdec.encdec_param_table(cfg)
         return Model(
             cfg=cfg, param_table=table, logical=table_logical(table),
-            init=lambda generator, dtype=cfg.dtype_param: build_params(
-                generator, table, dtype),
-            loss=lambda p, b: encdec.encdec_loss(p, b, cfg),
-            prefill=lambda p, b, max_len: encdec.encdec_prefill(
-                p, b, cfg, max_len),
-            decode_step=lambda p, c, t: encdec.encdec_decode_step(
-                p, c, t, cfg),
+            init=lambda generator, dtype=cfg.dtype_param, place=None:
+                build_params(generator, table, dtype, place),
+            loss=lambda p, b, constrain=_ident: encdec.encdec_loss(
+                p, b, cfg, constrain),
+            prefill=lambda p, b, max_len, constrain=_ident:
+                encdec.encdec_prefill(p, b, cfg, max_len, constrain),
+            decode_step=lambda p, c, t, constrain=_ident:
+                encdec.encdec_decode_step(p, c, t, cfg, constrain),
             init_cache=lambda batch, max_len, dtype=cfg.dtype_act,
-            device=None: encdec.init_encdec_cache(cfg, batch, max_len, dtype,
-                                                  device),
+            device=None, mesh=None: encdec.init_encdec_cache(
+                cfg, batch, max_len, dtype, device, mesh),
         )
     if fam == "hybrid":
         table = griffin.griffin_param_table(cfg)
         return Model(
             cfg=cfg, param_table=table, logical=table_logical(table),
-            init=lambda generator, dtype=cfg.dtype_param: build_params(
-                generator, table, dtype),
-            loss=lambda p, b: griffin.griffin_loss(p, b, cfg),
-            prefill=lambda p, b, max_len=None: griffin.griffin_prefill(
-                p, b, cfg),
-            decode_step=lambda p, c, t: griffin.griffin_decode_step(
-                p, c, t, cfg),
+            init=lambda generator, dtype=cfg.dtype_param, place=None:
+                build_params(generator, table, dtype, place),
+            loss=lambda p, b, constrain=_ident: griffin.griffin_loss(
+                p, b, cfg, constrain),
+            prefill=lambda p, b, max_len=None, constrain=_ident:
+                griffin.griffin_prefill(p, b, cfg, constrain),
+            decode_step=lambda p, c, t, constrain=_ident:
+                griffin.griffin_decode_step(p, c, t, cfg, constrain),
             init_cache=lambda batch, max_len=None, dtype=cfg.dtype_act,
-            device=None: griffin.init_griffin_cache(cfg, batch, dtype,
-                                                    device),
+            device=None, mesh=None: griffin.init_griffin_cache(
+                cfg, batch, dtype, device, mesh),
         )
     if fam == "ssm":
         table = rwkv.rwkv_param_table(cfg)
         return Model(
             cfg=cfg, param_table=table, logical=table_logical(table),
-            init=lambda generator, dtype=cfg.dtype_param: build_params(
-                generator, table, dtype),
-            loss=lambda p, b: rwkv.rwkv_loss(p, b, cfg),
-            prefill=lambda p, b, max_len=None: rwkv.rwkv_prefill(p, b, cfg),
-            decode_step=lambda p, c, t: rwkv.rwkv_decode_step(p, c, t, cfg),
+            init=lambda generator, dtype=cfg.dtype_param, place=None:
+                build_params(generator, table, dtype, place),
+            loss=lambda p, b, constrain=_ident: rwkv.rwkv_loss(
+                p, b, cfg, constrain),
+            prefill=lambda p, b, max_len=None, constrain=_ident:
+                rwkv.rwkv_prefill(p, b, cfg, constrain),
+            decode_step=lambda p, c, t, constrain=_ident:
+                rwkv.rwkv_decode_step(p, c, t, cfg, constrain),
             init_cache=lambda batch, max_len=None, dtype=cfg.dtype_act,
-            device=None: rwkv.init_rwkv_cache(cfg, batch, dtype, device),
+            device=None, mesh=None: rwkv.init_rwkv_cache(
+                cfg, batch, dtype, device, mesh),
         )
     raise ValueError(f"unknown family: {fam}")
 

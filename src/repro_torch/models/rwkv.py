@@ -17,8 +17,9 @@ sets ``rwkv_chunk`` and the sequence is longer than a chunk and divides into
 chunks, chunk-parallel with the reference's algebra (:func:`_wkv_chunked`).
 With ``cfg.remat`` each layer is recomputed in the backward pass under
 autograd (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``;
-that changes no value. One device, so the reference's sharding constraints
-have nothing to do and are left out.
+that changes no value. Every function takes the reference's ``constrain``
+hook (default: the identity); as in the reference, only the forward pass
+calls it.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from .layers import _mm, chunked_ce_loss, layer_norm
+from .layers import (_einsum, _mm, cache_zeros, chunked_ce_loss,
+                     identity_constrain, layer_norm)
 from .transformer import _layer
 
 __all__ = ["rwkv_layer_table", "rwkv_param_table", "rwkv_forward",
@@ -134,7 +136,7 @@ def _wkv_scan(r, k, v, w, u, H, N, state0=None):
     ys = []
     for t in range(S):
         kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]    # (B, H, N, N)
-        ys.append(torch.einsum("bhn,bhnm->bhm", rh[:, t],
+        ys.append(_einsum("bhn,bhnm->bhm", rh[:, t],
                                state + uh[None, :, :, None] * kv))
         state = wh[:, t, :, :, None] * state + kv
     return torch.stack(ys, dim=1).reshape(B, S, D), state
@@ -186,7 +188,7 @@ def _wkv_chunked(r, k, v, w, u, H, N, chunk, state0=None):
     scores = scores.permute(0, 1, 4, 2, 3)                  # (B,nc,H,t,s)
     scores = torch.where(tri, scores, torch.zeros_like(scores))
     diag = (rh * uh * kh).sum(-1)                           # (B,nc,t,H)
-    y_intra = torch.einsum("bghts,bgshm->bgthm", scores, vh) \
+    y_intra = _einsum("bghts,bgshm->bgthm", scores, vh) \
         + diag[..., None] * vh
 
     # inter-chunk: a loop over chunk states
@@ -195,9 +197,9 @@ def _wkv_chunked(r, k, v, w, u, H, N, chunk, state0=None):
     r_decayed = rh * torch.exp(la_prev).float()             # r_t * A_{t-1}
     y_inter = []
     for g in range(nc):
-        y_inter.append(torch.einsum("bthn,bhnm->bthm", r_decayed[:, g],
+        y_inter.append(_einsum("bthn,bhnm->bthm", r_decayed[:, g],
                                     state))
-        state = A_end[:, g, :, :, None] * state + torch.einsum(
+        state = A_end[:, g, :, :, None] * state + _einsum(
             "bshn,bshm->bhnm", kd[:, g], vh[:, g])
     y = y_intra + torch.stack(y_inter, dim=1)
     return y.reshape(B, S, D), state
@@ -250,15 +252,19 @@ def _shift(x, last=None):
 # --------------------------------------------------------------------------
 # forward / loss / serving
 # --------------------------------------------------------------------------
-def _block(h, lp, cfg, last_tm=None, last_cm=None, state0=None):
+_ACT = (("batch",), None, "embed")
+
+
+def _block(h, lp, cfg, last_tm=None, last_cm=None, state0=None,
+           constrain=identity_constrain):
     """One layer: (new h, wkv state, last time-mix input, last channel-mix
     input). ``last_*`` and ``state0`` carry a decode cache's entries."""
     hn = layer_norm(h, 1.0 + lp["ln1"], lp["ln1_b"])
     out, state = _time_mix(hn, _shift(hn, last_tm), lp["tm"], cfg, state0)
     x_tm = hn[:, -1, :]
-    h = h + out
+    h = h + constrain(out, _ACT)
     hn = layer_norm(h, 1.0 + lp["ln2"], lp["ln2_b"])
-    h = h + _channel_mix(hn, _shift(hn, last_cm), lp["cm"])
+    h = h + constrain(_channel_mix(hn, _shift(hn, last_cm), lp["cm"]), _ACT)
     return h, state, x_tm, hn[:, -1, :]
 
 
@@ -267,17 +273,17 @@ def _embed(params, tokens, cfg):
     return layer_norm(x, 1.0 + params["ln0"], params["ln0_b"])
 
 
-def _layers(params, x, cfg):
+def _layers(params, x, cfg, constrain=identity_constrain):
     """All layers over a whole sequence; (h, stacked states, x_tm, x_cm)."""
     remat = cfg.remat and torch.is_grad_enabled()
     states, xtms, xcms = [], [], []
     for l in range(cfg.num_layers):
         lp = _layer(params["layers"], l)
+        args = (x, lp, cfg, None, None, None, constrain)
         if remat:
-            x, st, xtm, xcm = checkpoint(_block, x, lp, cfg,
-                                         use_reentrant=False)
+            x, st, xtm, xcm = checkpoint(_block, *args, use_reentrant=False)
         else:
-            x, st, xtm, xcm = _block(x, lp, cfg)
+            x, st, xtm, xcm = _block(*args)
         states.append(st)
         xtms.append(xtm)
         xcms.append(xcm)
@@ -288,34 +294,37 @@ def _final_norm(params, x):
     return layer_norm(x, 1.0 + params["final_norm"], params["final_norm_b"])
 
 
-def rwkv_forward(params, tokens, cfg):
+def rwkv_forward(params, tokens, cfg, constrain=identity_constrain):
     """Final hidden states (B, S, D) of ``tokens`` (B, S)."""
-    x, _, _, _ = _layers(params, _embed(params, tokens, cfg), cfg)
+    x = constrain(_embed(params, tokens, cfg), _ACT)
+    x, _, _, _ = _layers(params, x, cfg, constrain)
     return _final_norm(params, x)
 
 
-def rwkv_loss(params, batch, cfg):
-    x = rwkv_forward(params, batch["tokens"], cfg)
+def rwkv_loss(params, batch, cfg, constrain=identity_constrain):
+    x = rwkv_forward(params, batch["tokens"], cfg, constrain)
     return chunked_ce_loss(x, params["head"].T.to(cfg.dtype_act),
                            batch["labels"], chunk=cfg.loss_chunk)
 
 
-def init_rwkv_cache(cfg, batch, dtype, device=None) -> RWKVCache:
-    """An empty cache on ``device`` (``None``: the GPU)."""
+def init_rwkv_cache(cfg, batch, dtype, device=None, mesh=None
+                    ) -> RWKVCache:
+    """An empty cache on ``device`` (``None``: the GPU), or on ``mesh`` in
+    the prefill's layout."""
     dev = resolve_device(device)
     H = cfg.d_model // cfg.rwkv_head_size
     N = cfg.rwkv_head_size
     L, D = cfg.num_layers, cfg.d_model
     return RWKVCache(
-        state=torch.zeros((L, batch, H, N, N), dtype=torch.float32,
-                          device=dev),
-        x_tm=torch.zeros((L, batch, D), dtype=dtype, device=dev),
-        x_cm=torch.zeros((L, batch, D), dtype=dtype, device=dev),
+        state=cache_zeros((L, batch, H, N, N), torch.float32, dev, mesh),
+        x_tm=cache_zeros((L, batch, D), dtype, dev, mesh),
+        x_cm=cache_zeros((L, batch, D), dtype, dev, mesh),
         length=torch.zeros((), dtype=torch.int32, device=dev),
     )
 
 
-def rwkv_decode_step(params, cache: RWKVCache, tokens, cfg):
+def rwkv_decode_step(params, cache: RWKVCache, tokens, cfg,
+                     constrain=identity_constrain):
     """One step. tokens: (B, 1) -> (logits (B, V), new cache)."""
     x = _embed(params, tokens, cfg)                         # (B, 1, D)
     states, xtms, xcms = [], [], []
@@ -327,19 +336,19 @@ def rwkv_decode_step(params, cache: RWKVCache, tokens, cfg):
         xtms.append(xtm)
         xcms.append(xcm)
     x = _final_norm(params, x)
-    logits = torch.einsum("bsd,dv->bsv", x, params["head"].to(x.dtype))
+    logits = _einsum("bsd,dv->bsv", x, params["head"].to(x.dtype))
     new_cache = RWKVCache(state=torch.stack(states), x_tm=torch.stack(xtms),
                           x_cm=torch.stack(xcms), length=cache.length + 1)
     return logits[:, 0], new_cache
 
 
-def rwkv_prefill(params, batch, cfg):
+def rwkv_prefill(params, batch, cfg, constrain=identity_constrain):
     """Prompt pass returning (last position's logits (B, V), cache with the
     final states and ``length = S``)."""
     tokens = batch["tokens"]
     x, states, xtms, xcms = _layers(params, _embed(params, tokens, cfg), cfg)
     x = _final_norm(params, x)
-    logits = torch.einsum("bd,dv->bv", x[:, -1], params["head"].to(x.dtype))
+    logits = _einsum("bd,dv->bv", x[:, -1], params["head"].to(x.dtype))
     cache = RWKVCache(state=torch.stack(states), x_tm=torch.stack(xtms),
                       x_cm=torch.stack(xcms),
                       length=torch.tensor(tokens.shape[1], dtype=torch.int32,

@@ -23,8 +23,13 @@ the start clamped to the last position as XLA's ``dynamic_update_slice``
 clamps it, and attends over the whole cache with the tail masked. A decode
 step returns a new cache and leaves its argument as it was.
 
-One device: the reference's sharding constraints (``constrain``) and its
-expert-parallel MoE paths (``get_active_mesh``) have nothing to do here.
+On a mesh (``train.trainer.make_serve_steps(..., mesh=...)``) the
+parameters are ``DTensor`` s and every function takes the reference's
+``constrain(tensor, logical_axes)`` hook, called at the reference's sites
+(default: the identity). The cache is created in the prefill's layout and
+written on each rank's block (``layers.write_layer``); the MoE takes its
+expert-parallel path when the active mesh splits the experts
+(:func:`_ffn`).
 """
 from __future__ import annotations
 
@@ -34,15 +39,26 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from .layers import (Cache, _mm, apply_rope, attention, chunked_ce_loss,
-                     decode_attention, mlp, mlp_params, rms_norm, rope)
-from .moe import moe_ffn, moe_param_table
+from ..distributed.sharding import get_active_mesh, mesh_shape
+from .layers import (Cache, _einsum, _mm, apply_rope, attention, cache_zeros,
+                     chunked_ce_loss, decode_attention, identity_constrain,
+                     mesh_of, mlp, mlp_params, rms_norm, rope, write_at,
+                     write_layer, write_prefix)
+from .moe import (moe_ffn, moe_ffn_sharded, moe_ffn_sharded_decode,
+                  moe_param_table)
 
 __all__ = ["decoder_param_table", "decoder_layer_table", "build_params",
            "table_logical", "decoder_forward", "decoder_loss",
            "decoder_prefill", "decoder_decode_step", "init_decoder_cache"]
 
 _NORM_SUFFIXES = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+
+
+def zero_init(name: str) -> bool:
+    """Whether :func:`build_params` makes the leaf ``name`` zero (no draw):
+    norm scales by suffix, ``*/b*`` and ``b*`` entries."""
+    return name.endswith(_NORM_SUFFIXES) or "/b" in name \
+        or name.startswith("b")
 
 
 # --------------------------------------------------------------------------
@@ -97,7 +113,7 @@ def decoder_param_table(cfg):
 
 
 def build_params(generator: torch.Generator, table: dict,
-                 dtype: torch.dtype = torch.float32) -> dict:
+                 dtype: torch.dtype = torch.float32, place=None) -> dict:
     """Materialise a parameter tree from a table on ``generator``'s device.
 
     The reference's rules by name: norm scales (by suffix), ``*/b*`` and
@@ -106,19 +122,24 @@ def build_params(generator: torch.Generator, table: dict,
     ``generator`` in sorted-name order, then cast to ``dtype``. The values
     cannot equal the reference's (the PRNGs differ): carry its parameters
     across with :mod:`repro_torch.convert` where equal values are needed.
+
+    ``place(name, tensor)``, when given, replaces each leaf right after its
+    draw (``sharding.param_placer``: its block on a mesh), so the full
+    leaves are never all held at once; the draws are the same.
     """
     params: dict[str, Any] = {}
     dev = generator.device
     for name in sorted(table):
         shape, _, fan = table[name]
-        if name.endswith(_NORM_SUFFIXES) or "/b" in name \
-                or name.startswith("b"):
+        if zero_init(name):
             arr = torch.zeros(shape, dtype=dtype, device=dev)
         else:
             std = 0.02 if fan is None else fan ** -0.5
             # one float32 draw alive at a time, scaled in place
             arr = torch.randn(shape, generator=generator, dtype=torch.float32,
                               device=dev).mul_(std).to(dtype)
+        if place is not None:
+            arr = place(name, arr)
         _assign(params, name, arr)
     return params
 
@@ -172,9 +193,19 @@ def _project_qkv(x, p, cfg):
     return q, k, v
 
 
-def _ffn(x, p, cfg):
+def _ffn(x, p, cfg, constrain=identity_constrain):
     if cfg.moe:
-        out = moe_ffn(x, p["moe"], cfg, cfg.num_moe_groups)
+        mesh = get_active_mesh()
+        tp = 1 if mesh is None else mesh_shape(mesh).get("model", 1)
+        if tp > 1 and cfg.num_experts % tp == 0:
+            if x.shape[0] * x.shape[1] <= 4096:
+                # decode-sized batches: resident weights, gathered tokens
+                out = moe_ffn_sharded_decode(x, p["moe"], cfg, mesh)
+            else:
+                # expert parallel: tokens over data, experts over model
+                out = moe_ffn_sharded(x, p["moe"], cfg, mesh)
+        else:
+            out = moe_ffn(x, p["moe"], cfg, cfg.num_moe_groups, constrain)
         if cfg.moe_dense_residual:
             out = out + mlp(x, p["residual_mlp"], cfg.mlp_act)
         return out
@@ -196,31 +227,38 @@ def _qkv_rope(x, p, cfg, cos, sin):
     return q, k, v
 
 
-def _decoder_layer(x, p, cfg, cos, sin, layer_window):
-    """One block over a whole sequence: (new x, its K, its V)."""
+_ACT = (("batch",), "seq", "embed")
+
+
+def _decoder_layer(x, p, cfg, cos, sin, layer_window,
+                   constrain=identity_constrain, constrain_q=False):
+    """One block over a whole sequence: (new x, its K, its V). The
+    reference's forward constrains q, its prefill does not."""
     q, k, v = _qkv_rope(x, p, cfg, cos, sin)
+    if constrain_q:
+        q = constrain(q, (("batch",), None, "heads", None))
     a = attention(q, k, v, causal=True, window=layer_window,
                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    x = x + _attn_out(a, p)
+    x = x + constrain(_attn_out(a, p), _ACT)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(h, p, cfg), k, v
+    return x + constrain(_ffn(h, p, cfg, constrain), _ACT), k, v
 
 
-def _run_layers(params, x, cfg, cos, sin, cache=None):
+def _run_layers(params, x, cfg, cos, sin, cache=None,
+                constrain=identity_constrain):
     """Every block in order; with ``cache``, each block's K / V are written
     at its positions [0, S)."""
     remat = cfg.remat and torch.is_grad_enabled()
-    S = x.shape[1]
     for l in range(cfg.num_layers):
         args = (x, _layer(params["layers"], l), cfg, cos, sin,
-                _window(cfg, l))
+                _window(cfg, l), constrain, cache is None)
         if remat:
             x, k, v = checkpoint(_decoder_layer, *args, use_reentrant=False)
         else:
             x, k, v = _decoder_layer(*args)
         if cache is not None:
-            cache.k[l, :, :S] = k
-            cache.v[l, :, :S] = v
+            write_layer(cache.k, l, k, write_prefix, along=1)
+            write_layer(cache.v, l, v, write_prefix, along=1)
     return x
 
 
@@ -233,9 +271,12 @@ def _embed(params, tokens, cfg, prefix_embeds=None):
     return x
 
 
-def _logits(params, x, cfg):
-    """Tied output head (the embedding), with the optional logit cap."""
-    logits = torch.einsum("...d,vd->...v", x, params["embed"].to(x.dtype))
+def _logits(params, x, cfg, constrain=None):
+    """Tied output head (the embedding), with the optional logit cap; the
+    decode step's logits (B, 1, V) are constrained."""
+    logits = _einsum("...d,vd->...v", x, params["embed"].to(x.dtype))
+    if constrain is not None:
+        logits = constrain(logits, (("batch",), None, "vocab"))
     if cfg.final_logit_cap is not None:
         logits = cfg.final_logit_cap * torch.tanh(logits
                                                   / cfg.final_logit_cap)
@@ -245,53 +286,57 @@ def _logits(params, x, cfg):
 # --------------------------------------------------------------------------
 # forward / loss / serve
 # --------------------------------------------------------------------------
-def decoder_forward(params, tokens, cfg, *, prefix_embeds=None):
+def decoder_forward(params, tokens, cfg, *, prefix_embeds=None,
+                    constrain=identity_constrain):
     """tokens: (B, S_text) int; prefix_embeds: (B, P, D) or None.
 
     Returns the final hidden states (B, P + S_text, D).
     """
-    x = _embed(params, tokens, cfg, prefix_embeds)
+    x = constrain(_embed(params, tokens, cfg, prefix_embeds), _ACT)
     S = x.shape[1]
     cos, sin = rope(torch.arange(S, device=x.device), cfg.head_dim,
                     cfg.rope_theta)
-    x = _run_layers(params, x, cfg, cos, sin)
+    x = _run_layers(params, x, cfg, cos, sin, constrain=constrain)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def decoder_loss(params, batch, cfg):
+def decoder_loss(params, batch, cfg, constrain=identity_constrain):
     prefix = batch.get("prefix_embeds")
-    x = decoder_forward(params, batch["tokens"], cfg, prefix_embeds=prefix)
+    x = decoder_forward(params, batch["tokens"], cfg, prefix_embeds=prefix,
+                        constrain=constrain)
     P = 0 if prefix is None else prefix.shape[1]
     return chunked_ce_loss(x[:, P:, :], params["embed"].to(cfg.dtype_act),
                            batch["labels"], chunk=cfg.loss_chunk,
                            logit_cap=cfg.final_logit_cap)
 
 
-def init_decoder_cache(cfg, batch, max_len, dtype, device=None) -> Cache:
+def init_decoder_cache(cfg, batch, max_len, dtype, device=None,
+                       mesh=None) -> Cache:
     """An empty cache of ``max_len`` positions on ``device`` (``None``: the
-    GPU)."""
+    GPU), or on ``mesh`` in the prefill's layout."""
     dev = resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return Cache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                 v=torch.zeros(shape, dtype=dtype, device=dev),
+    return Cache(k=cache_zeros(shape, dtype, dev, mesh),
+                 v=cache_zeros(shape, dtype, dev, mesh),
                  length=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def _decode_layer(x, lp, cache_k, cache_v, at, length, cfg, cos, sin,
-                  layer_window):
-    """One block for one new position: K / V written into ``cache_k`` /
-    ``cache_v`` (one layer's (B, T, Hkv, Dh)) at index ``at``."""
+def _decode_layer(x, lp, cache_k, cache_v, l, at, length, cfg, cos, sin,
+                  layer_window, constrain=identity_constrain):
+    """One block for one new position: K / V written into layer ``l`` of
+    ``cache_k`` / ``cache_v`` (L, B, T, Hkv, Dh) at index ``at``."""
     q, k, v = _qkv_rope(x, lp, cfg, cos, sin)
-    cache_k.index_copy_(1, at, k.to(cache_k.dtype))
-    cache_v.index_copy_(1, at, v.to(cache_v.dtype))
-    a = decode_attention(q, cache_k, cache_v, length + 1,
+    write_layer(cache_k, l, k, write_at(at), along=1)
+    write_layer(cache_v, l, v, write_at(at), along=1)
+    a = decode_attention(q, cache_k[l], cache_v[l], length + 1,
                          window=layer_window)
     x = x + _attn_out(a, lp)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(h, lp, cfg)
+    return x + _ffn(h, lp, cfg, constrain)
 
 
-def decoder_decode_step(params, cache: Cache, tokens, cfg):
+def decoder_decode_step(params, cache: Cache, tokens, cfg,
+                        constrain=identity_constrain):
     """One greedy decode step. tokens: (B, 1) -> (logits (B, V), new cache).
 
     The new K / V go to position ``cache.length``, clamped to the cache's
@@ -306,25 +351,28 @@ def decoder_decode_step(params, cache: Cache, tokens, cfg):
     at = torch.clamp(pos, 0, T - 1).long().reshape(1)
     new_k, new_v = cache.k.clone(), cache.v.clone()
     for l in range(cfg.num_layers):
-        x = _decode_layer(x, _layer(params["layers"], l), new_k[l],
-                          new_v[l], at, pos, cfg, cos, sin, _window(cfg, l))
+        x = _decode_layer(x, _layer(params["layers"], l), new_k, new_v, l,
+                          at, pos, cfg, cos, sin, _window(cfg, l), constrain)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, x, cfg)
+    logits = _logits(params, x, cfg, constrain)
     return logits[:, 0], Cache(k=new_k, v=new_v, length=cache.length + 1)
 
 
-def decoder_prefill(params, batch, cfg, max_len):
+def decoder_prefill(params, batch, cfg, max_len,
+                    constrain=identity_constrain):
     """Process a full prompt (and the VLM's prefix), return (last position's
     logits (B, V), a cache of ``max_len`` positions holding its K / V)."""
-    x = _embed(params, batch["tokens"], cfg, batch.get("prefix_embeds"))
+    x = constrain(_embed(params, batch["tokens"], cfg,
+                         batch.get("prefix_embeds")), _ACT)
     B, S = x.shape[:2]
     if S > max_len:
         raise ValueError(f"a prompt of {S} positions does not fit a cache "
                          f"of max_len {max_len}")
     cos, sin = rope(torch.arange(S, device=x.device), cfg.head_dim,
                     cfg.rope_theta)
-    cache = init_decoder_cache(cfg, B, max_len, cfg.dtype_act, x.device)
-    x = _run_layers(params, x, cfg, cos, sin, cache)
+    cache = init_decoder_cache(cfg, B, max_len, cfg.dtype_act, x.device,
+                               mesh_of(x))
+    x = _run_layers(params, x, cfg, cos, sin, cache, constrain)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, x[:, -1, :], cfg)
     return logits, cache._replace(

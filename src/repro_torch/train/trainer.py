@@ -11,10 +11,11 @@ i + 2 accum, ...`` of every batch entry (the reference's reshape to
 ``donate=True`` the step updates the state's tensors in place
 (:func:`repro_torch.train.optimizers.apply_update_`), as the reference's
 donated train state does; the caller must not use the state it passed in
-again. The reference's mesh, shardings and gradient compression have
-nothing to do on one device and are left out (``distributed/sharding.py``
-waits for ROADMAP queue 1 item 14). :func:`make_serve_steps` gives a zoo model's
-prefill and decode step on one device.
+again. The train step runs on one device; its mesh, shardings and gradient
+compression wait for the sharded training slice (ROADMAP queue 1).
+:func:`make_serve_steps` gives a zoo model's prefill and decode step on one
+device, or on a ``DeviceMesh`` with the parameters and caches placed by the
+logical-axis rules (``distributed/sharding.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from .._device import resolve_device
+from ..distributed.sharding import (NamedSharding, batch_shardings,
+                                    cache_spec, make_constrain,
+                                    param_shardings, set_active_mesh,
+                                    shard_tensor, table_shapes)
 from .optimizers import (OptConfig, apply_update, apply_update_,
                          init_opt_state, tree_leaves, tree_map)
 
@@ -112,26 +117,105 @@ def make_train_step(model, opt_cfg: OptConfig | None = None,
     return TrainSetup(step_fn=train_step, init_state=init_state, device=dev)
 
 
-def make_serve_steps(model, max_len: int = 2048, device=None) -> dict:
+def make_serve_steps(model, max_len: int = 2048, device=None, mesh=None,
+                     rules=None) -> dict:
     """The prefill and decode step of a zoo ``model`` on one device
-    (``None``: the GPU).
+    (``None``: the GPU), or on ``mesh``.
 
     ``prefill(params, batch) -> (logits, cache)`` and ``decode_step(params,
     cache, tokens) -> (logits, cache)`` move their token inputs to the
     device and run without autograd; the parameters must already live
-    there. On one card the reference's parameter and cache shardings, its
-    ``constrain`` hook and its donated caches have nothing to do: a decode
-    step returns a new cache and the caller drops the old one.
+    there. A decode step returns a new cache and leaves its argument as it
+    was (the reference donates its cache instead).
+
+    With a ``DeviceMesh`` (:func:`repro_torch.launch.mesh.make_debug_mesh`)
+    the dict also holds the reference's ``param_shardings`` (a
+    :class:`~repro_torch.distributed.sharding.NamedSharding` tree by
+    ``rules``, default ``SERVE_RULES``), ``cache_shardings(batch, prefer)``
+    and ``constrain``, and the steps take parameters placed by
+    ``param_shardings`` (``sharding.shard_params``) and plain or placed
+    inputs: the batch goes over the data-parallel axes, the model runs on
+    ``DTensor`` s under ``implicit_replication`` (the plain tensors it makes
+    itself, positions and masks, count as replicated), and both steps return
+    the cache in the ``cache_shardings(batch, "width")`` layout the prefill
+    emits. The logits are ``DTensor`` s. Each step makes its mesh the active
+    one (``sharding.set_active_mesh``: the MoE's expert-parallel switch),
+    and a one-device step clears it.
     """
     dev = resolve_device(device)
+    if mesh is not None:
+        return _mesh_serve_steps(model, max_len, dev, mesh, rules)
 
     @torch.no_grad()
     def prefill(params, batch: dict):
+        set_active_mesh(None)
         batch = {k: v.to(dev) for k, v in batch.items()}
         return model.prefill(params, batch, max_len)
 
     @torch.no_grad()
     def decode_step(params, cache, tokens: torch.Tensor):
+        set_active_mesh(None)
         return model.decode_step(params, cache, tokens.to(dev))
 
     return {"prefill": prefill, "decode_step": decode_step, "device": dev}
+
+
+def _place(t, sharding: NamedSharding):
+    """``t`` laid out by ``sharding``: a ``DTensor`` redistributed, a plain
+    tensor (the same on every rank) cut to this rank's block."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        return t.redistribute(sharding.mesh, sharding.placements)
+    return shard_tensor(t, sharding.mesh, sharding.spec)
+
+
+def _mesh_serve_steps(model, max_len: int, dev, mesh, rules) -> dict:
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ..distributed.sharding import SERVE_RULES
+
+    rules = rules if rules is not None else SERVE_RULES
+    constrain = make_constrain(mesh)
+    p_sh = param_shardings(model.logical, mesh, rules,
+                           table_shapes(model.param_table))
+
+    def cache_shardings(batch: int, prefer: str = "time"):
+        """prefer="time": the T axis over 'model' (decode's steady state);
+        "width": the layout the prefill emits (heads / width over
+        'model')."""
+        shapes = model.init_cache(batch, max_len, device="meta")
+        return type(shapes)(*(NamedSharding(mesh, cache_spec(
+            leaf.shape, leaf.dtype, mesh, prefer)) for leaf in shapes))
+
+    def place_cache(cache):
+        layout = cache_shardings(cache[0].shape[1], "width")
+        return type(cache)(*(_place(leaf, sh) if leaf.ndim >= 2
+                             else leaf for leaf, sh in zip(cache, layout)))
+
+    def place_batch(batch: dict) -> dict:
+        batch = {k: v if hasattr(v, "device_mesh") else v.to(dev)
+                 for k, v in batch.items()}
+        sh = batch_shardings(batch, mesh)
+        return {k: _place(v, sh[k]) for k, v in batch.items()}
+
+    @torch.no_grad()
+    def prefill(params, batch: dict):
+        set_active_mesh(mesh)
+        with implicit_replication():
+            logits, cache = model.prefill(params, place_batch(batch), max_len,
+                                          constrain=constrain)
+            return logits, place_cache(cache)
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens: torch.Tensor):
+        set_active_mesh(mesh)
+        with implicit_replication():
+            tokens = place_batch({"tokens": tokens})["tokens"]
+            logits, cache = model.decode_step(params, cache, tokens,
+                                              constrain=constrain)
+            return logits, place_cache(cache)
+
+    return {"param_shardings": p_sh, "cache_shardings": cache_shardings,
+            "prefill": prefill, "decode_step": decode_step,
+            "constrain": constrain, "device": dev}

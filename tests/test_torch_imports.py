@@ -71,7 +71,8 @@ def test_port_has_the_modules_of_this_slice():
                 "models/rwkv", "models/registry", "models/moe",
                 "models/griffin", "models/encdec",
                 "launch/__init__",
-                "launch/train", "launch/serve",
+                "launch/train", "launch/serve", "launch/mesh",
+                "distributed/sharding",
                 *(f"configs/{arch}" for arch in ARCH_IDS)):
         assert f"src/repro_torch/{mod}.py" in have
     for src in KERNEL_SOURCES:

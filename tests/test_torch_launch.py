@@ -267,9 +267,70 @@ def test_train_loss_decreases():
 
 @pytest.mark.parametrize("mod", [train_mod, serve_mod])
 def test_multi_card_mesh_is_refused(mod):
-    with pytest.raises(NotImplementedError, match="sharding.py"):
-        mod.main(["--arch", "rwkv6_1b6", "--smoke", "--mesh", "multi",
-                  "--device", CPU])
+    """The trainer refuses a mesh until the sharded training slice; the
+    server's multi-node mesh over a world of one names the ranks it needs."""
+    argv = ["--arch", "rwkv6_1b6", "--smoke", "--mesh", "multi", "--device",
+            CPU]
+    if mod is train_mod:
+        with pytest.raises(NotImplementedError, match="sharded training"):
+            mod.main(argv)
+    else:
+        with pytest.raises(ValueError, match="multiple of 16 ranks"):
+            mod.main(argv)
+
+
+def test_distributed_serving_example_on_four_gloo_ranks():
+    """examples/torch_distributed_serving.py --device cpu: four gloo ranks
+    serve the reference example's sizes on a (2, 2) mesh and print its
+    lines."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_distributed_serving.py"),
+         "--device", CPU], capture_output=True, text=True, timeout=240,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "mesh={'data': 2, 'model': 2} served batch=8" in proc.stdout
+    assert "generated=24 tokens/request" in proc.stdout
+    assert "OK: batched serving on the mesh." in proc.stdout
+
+
+SERVE_RANK = """
+import os, sys
+import numpy as np
+from repro_torch.launch import serve
+res = serve.main(sys.argv[2:])
+np.save(sys.argv[1], res.tokens)
+"""
+
+
+@pytest.mark.parametrize("arch", ["stablelm_12b", "qwen3_moe_235b"])
+def test_serve_on_a_debug_mesh_of_four_gloo_ranks(tmp_path, arch):
+    """``launch.serve --mesh debug --smoke --device cpu`` in four processes
+    that ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK`` and a ``file://``
+    rendezvous name: a (2, 2) mesh, the parameters drawn leaf by leaf and
+    placed, the MoE on its expert-parallel path; every rank's greedy tokens
+    equal the one-device serve's."""
+    argv = ["--arch", arch, "--smoke", "--batch", "4", "--prompt-len", "8",
+            "--gen", "6", "--mesh", "debug", "--device", CPU]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", WORLD_SIZE="4",
+               DIST_INIT_METHOD=f"file://{tmp_path / 'rendezvous'}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SERVE_RANK, str(tmp_path / f"rank{r}.npy"),
+         *argv], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(4)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err[-4000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    want = serve_mod.serve_lm(get_smoke_config(arch), 4, 8, 6, 0, CPU).tokens
+    for r in range(4):
+        np.testing.assert_array_equal(np.load(tmp_path / f"rank{r}.npy"),
+                                      want)
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma_2b", "whisper_tiny"])
