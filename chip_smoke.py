@@ -139,6 +139,12 @@ sharded (a (1, 1) mesh: stablelm_12b, recurrentgemma_2b, rwkv6_1b6,
 whisper_tiny whole and qwen3_moe_235b at 4 layers served on the mesh and on
 one device; float32 at 2-3 layers; the smoke configs; the MoE functions at
 8 x 128 and 8 x 1 tokens; the plan at (1, 4), (1, 8), (2, 8)),
+sharded_train (a (1, 1) mesh: rwkv6_1b6, recurrentgemma_2b, whisper_tiny
+whole, stablelm_12b at 4 layers (AdamW, and Adafactor with grad_accum 2)
+and qwen3_moe_235b at 1 layer trained 4 steps at 8 x 64 on the mesh and on
+one device; a whisper_tiny restart across a world of one and one device;
+int8 compression; the pipeline with one stage; the plan of the train state
+at (w/8, 8) and (2, w/16, 8) for w = 8 ... 64),
 distributed (n=8192, m=64 float32 serving; n=2000, m=52 float64
 fit), gram
 (n=8192 and n=2000, d=7), routes_used (every bucket the tuner resolved).
@@ -245,12 +251,16 @@ from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.train import OptConfig, make_train_step  # noqa: E402
 from repro_torch.train.trainer import make_serve_steps  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
-    SERVE_RULES, cache_spec, full_value, logical_to_pspec, mesh_shape,
-    param_bytes_per_rank, param_placer, set_active_mesh, shard_params,
-    spec_bytes)
+    FSDP_RULES, SERVE_RULES, cache_spec, full_value, logical_to_pspec,
+    mesh_shape, param_bytes_per_rank, param_placer, rules_for,
+    set_active_mesh, shard_params, spec_bytes, state_shardings, table_shapes)
+from repro_torch.train.compression import (  # noqa: E402
+    dequantize_leaf, make_compressed_allreduce, quantize_leaf)
+from repro_torch.train.pipeline import pipelined_forward  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import table_logical  # noqa: E402
-from repro_torch.train.optimizers import tree_leaves, tree_map  # noqa: E402
+from repro_torch.train.optimizers import (init_opt_state,  # noqa: E402
+                                          tree_leaves, tree_map)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
 import torch_automl_early_stopping as automl_example  # noqa: E402
@@ -4844,6 +4854,438 @@ def phase_sharded(backend: str = "nccl") -> dict:
     return out
 
 
+# The sharded_train phase: the train step on a (data 1, model 1) mesh in an
+# NCCL world of one rank against the one-device step from the same seed, at
+# published width in bf16 with remat, donated, 4 steps at 8 x 64, lr 3e-5
+# (the decoder phase's rate). Depth is cut only where one card cannot hold
+# the state: stablelm_12b at 4 layers, qwen3_moe_235b at 1.
+# (arch, layers kept or None for whole, optimizer, grad_accum)
+SHARDED_TRAIN = (("rwkv6_1b6", None, "adamw", 1),
+                 ("recurrentgemma_2b", None, "adamw", 1),
+                 ("whisper_tiny", None, "adamw", 1),
+                 ("stablelm_12b", 4, "adamw", 1),
+                 ("qwen3_moe_235b", 1, "adamw", 1),
+                 ("stablelm_12b", 4, "adafactor", 2))
+SHARDED_TRAIN_STEPS = 4
+SHARDED_TRAIN_SHAPE = (8, 64)            # batch, seq
+SHARDED_TRAIN_LOSS_TOL = 1e-6            # relative, if not bit for bit
+# The restart rows: whisper_tiny whole through launch/train.py, 6 steps at
+# 8 x 64, a checkpoint every 2: a world of one preempted at 2, one device
+# resuming and preempted at 4, a world of one resuming to the end.
+SHARDED_RESTART_ARCH = "whisper_tiny"
+SHARDED_RESTART_ARGS = ["--arch", SHARDED_RESTART_ARCH, "--steps", "6",
+                        "--batch", "8", "--seq", "64", "--lr", "3e-5",
+                        "--ckpt-every", "2", "--log-every", "100"]
+SHARDED_RESTART_DIR = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke" / "sharded_train_ckpt"
+# The pipeline row: stablelm_12b's 4-layer bf16 stack as one stage over a
+# 'pod' of one, 4 microbatches of 2 x 64.
+SHARDED_PIPE = ("stablelm_12b", 4, 4)    # arch, layers, microbatches
+# Plan rows (no allocation): the train state per rank under rules_for at
+# (world / 8, 8) and the multi-pod (2, world / 16, 8).
+SHARDED_TRAIN_PLAN = ("stablelm_12b", "qwen2_72b", "qwen3_moe_235b",
+                      "arctic_480b")
+SHARDED_TRAIN_WORLDS = (8, 16, 32, 64)
+
+
+def lm_batch(cfg, step: int, batch: int, seq: int) -> dict:
+    """launch/train.py's batch at ``step``: the token stream, zero float32
+    frames or patch embeddings where the family takes them."""
+    tokens, labels = TokenPipeline(cfg.vocab_size, batch, seq).batch_at(step)
+    out = {"tokens": torch.from_numpy(tokens).to(DEV),
+           "labels": torch.from_numpy(labels).to(DEV)}
+    if cfg.family in ("audio", "encdec"):
+        out["frames"] = torch.zeros((batch, cfg.enc_frames, cfg.d_model),
+                                    device=DEV)
+    if cfg.family == "vlm":
+        out["prefix_embeds"] = torch.zeros(
+            (batch, cfg.num_patch_tokens, cfg.d_model), device=DEV)
+    return out
+
+
+def train_run(setup, batches) -> tuple:
+    """``setup``'s state from SEED through ``batches``, each step timed on
+    the host clock around work ending in a synchronize: (state, losses,
+    grad norms, ms per step)."""
+    state = setup.init_state(SEED)
+    losses, norms, times = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = setup.step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
+    return state, [float(x) for x in losses], [float(x) for x in norms], \
+        times
+
+
+def state_leaves(state) -> dict:
+    """Every tensor of a train state by its checkpoint key."""
+    from repro_torch.checkpoint.manager import _flatten
+    return {k: v for k, v in _flatten(state).items()
+            if isinstance(v, torch.Tensor)}
+
+
+class PinnedPool:
+    """One page-locked host buffer that holds a train state's leaves, row
+    after row (the card copies to and from page-locked memory at ~55 GB/s,
+    to and from pageable memory at 2-6 GB/s; locking costs ~1 s per 4 GB,
+    so it is done once). ``store`` copies a dict of device tensors into it
+    and returns host views of them."""
+
+    def __init__(self, nbytes: int):
+        t0 = time.perf_counter()
+        self.buf = torch.empty(nbytes, dtype=torch.uint8,
+                               pin_memory=DEV.type == "cuda")
+        self.seconds = time.perf_counter() - t0
+
+    def store(self, leaves: dict) -> dict:
+        out, at = {}, 0
+        for k, v in leaves.items():
+            n = v.numel() * v.element_size()
+            at = -(-at // 16) * 16
+            host = self.buf[at:at + n].view(v.dtype).view(v.shape)
+            host.copy_(v, non_blocking=True)
+            out[k] = host
+            at += n
+        torch.cuda.synchronize()
+        return out
+
+
+def train_state_nbytes(cfg, opt_name: str) -> int:
+    """Bytes of a train state's parameters and moments (AdamW's two float32
+    moments a parameter; Adafactor's factored ones counted as AdamW's, an
+    upper bound), with each leaf's 16-byte alignment."""
+    table = build_model(cfg).param_table
+    size = torch.finfo(cfg.dtype_param).bits // 8
+    return sum(math.prod(shape) * (size + 8) + 48
+               for shape, _, _ in table.values())
+
+
+def sharded_train_row(mesh, smi: str, arch: str, layers, opt_name: str,
+                      accum: int, pool: PinnedPool) -> dict:
+    """The one-device donated step from SEED, its final state copied to the
+    host (``pool``) and freed, then the mesh step from SEED on the same
+    batches: both losses and grad norms, ms per step, peaks, and every
+    parameter and moment of the two final states compared bit for bit (the
+    largest gap of each leaf that is not)."""
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    model = build_model(cfg)
+    opt = OptConfig(name=opt_name, peak_lr=3e-5, warmup_steps=2,
+                    decay_steps=SHARDED_TRAIN_STEPS)
+    batch, seq = SHARDED_TRAIN_SHAPE
+    batches = [lm_batch(cfg, i, batch, seq)
+               for i in range(SHARDED_TRAIN_STEPS)]
+    row = {"arch": arch, "card": smi, "layers": cfg.num_layers,
+           "published_layers": get_config(arch).num_layers,
+           "params": count_params(cfg), "dtype": str(cfg.dtype_param),
+           "remat": cfg.remat, "optimizer": f"{opt_name} (donated)",
+           "grad_accum": accum, "batch": batch, "seq": seq,
+           "steps": SHARDED_TRAIN_STEPS, "peak_lr": opt.peak_lr}
+    host = None
+    for name, kw in (("one_device", {}), ("mesh", {"mesh": mesh})):
+        start = start_memory()
+        setup = make_train_step(model, opt, accum, DEV, donate=True, **kw)
+        state, losses, norms, times = train_run(setup, batches)
+        row[name] = {"losses": losses, "grad_norms": norms,
+                     "first_step_ms": times[0],
+                     "ms_per_step": statistics.mean(times[1:]),
+                     "allocated_at_start_bytes": start,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if host is None:
+            t0 = time.perf_counter()
+            host = pool.store(state_leaves(state))
+            row["host_copy_seconds"] = time.perf_counter() - t0
+            del state, setup
+            continue
+        gaps = {}
+        for k, v in state_leaves(state).items():
+            got = full_value(v).detach()
+            want = host[k].to(DEV, non_blocking=True)
+            if not torch.equal(got, want):
+                gaps[k] = float((got.float() - want.float()).abs().max())
+        row["leaves"] = len(host)
+        row["leaves_bit_for_bit"] = len(host) - len(gaps)
+        row["gaps"] = gaps
+        del state, setup, host
+    one, on = row["one_device"], row["mesh"]
+    row["losses_bit_for_bit"] = one["losses"] == on["losses"]
+    row["grad_norms_bit_for_bit"] = one["grad_norms"] == on["grad_norms"]
+    row["ms_ratio"] = on["ms_per_step"] / one["ms_per_step"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on["losses"],
+                                                  one["losses"]))
+    row["max_loss_gap_relative"] = rel
+    check(all(np.isfinite(one["losses"] + on["losses"])),
+          f"sharded_train {arch}: losses {one['losses']} {on['losses']}")
+    check(rel <= SHARDED_TRAIN_LOSS_TOL,
+          f"sharded_train {arch}: mesh losses {on['losses']} against one "
+          f"device {one['losses']}")
+    check(not row["gaps"] and row["losses_bit_for_bit"],
+          f"sharded_train {arch}: not bit for bit: {row['gaps']}")
+    return row
+
+
+def sharded_restart_chain() -> list[dict]:
+    """whisper_tiny whole through ``python -m repro_torch.launch.train``,
+    three processes in turn: an NCCL world of one (--mesh debug) preempted
+    at step 2 (exit 42), one device (no group) resuming at 2 and preempted
+    at 4, a world of one resuming at 4 to the end. Each writes its losses
+    (``--metrics-out``); the runs are checked by
+    :func:`sharded_restart_rows`."""
+    shutil.rmtree(SHARDED_RESTART_DIR, ignore_errors=True)
+    SHARDED_RESTART_DIR.mkdir(parents=True)
+    ckpt = SHARDED_RESTART_DIR / "ckpt"
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = str(root / "src")
+    group = dict(env, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    runs = []
+    for i, (extra, run_env, want_rc) in enumerate((
+            (["--mesh", "debug", "--simulate-preempt", "2"], group, 42),
+            (["--simulate-preempt", "4"], env, 42),
+            (["--mesh", "debug"], group, 0))):
+        metrics = SHARDED_RESTART_DIR / f"run{i}.json"
+        run_env = dict(run_env, DIST_INIT_METHOD=(
+            f"file://{SHARDED_RESTART_DIR / f'rendezvous{i}'}"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *SHARDED_RESTART_ARGS, "--ckpt-dir", str(ckpt),
+             "--metrics-out", str(metrics), *extra],
+            capture_output=True, text=True, env=run_env, cwd=root,
+            timeout=300)
+        run = {"args": extra, "group": "WORLD_SIZE" in run_env,
+               "returncode": proc.returncode, "want_returncode": want_rc,
+               "seconds": time.perf_counter() - t0,
+               "stdout": [line for line in proc.stdout.splitlines()
+                          if line.startswith(("restored", "SIMULATED",
+                                              "final loss"))],
+               "stderr_tail": proc.stderr[-2000:]
+               if proc.returncode != want_rc else ""}
+        if metrics.exists():
+            run.update(json.loads(metrics.read_text()))
+        runs.append(run)
+        if proc.returncode != want_rc:
+            break
+    return runs
+
+
+def sharded_restart_rows(smi: str, runs: list[dict]) -> dict:
+    """The restart chain's runs (:func:`sharded_restart_chain`) checked:
+    each exit code and its printed lines, then its last run's losses and
+    final checkpoint against an uninterrupted one-device run in this
+    process, bit for bit."""
+    for i, run in enumerate(runs):
+        check(run["returncode"] == run["want_returncode"],
+              f"sharded_train restart {i}: exit {run['returncode']}, wanted "
+              f"{run['want_returncode']}: {run['stderr_tail']}")
+    check(len(runs) == 3, f"sharded_train restart: {runs}")
+    for run, want in zip(runs, (
+            ["SIMULATED PREEMPTION at step 2"],
+            ["restored checkpoint at step 2", "SIMULATED PREEMPTION at step 4"],
+            ["restored checkpoint at step 4", "final loss"])):
+        check(all(any(w in line for line in run["stdout"]) for w in want),
+              f"sharded_train restart: {want} not printed: {run}")
+    whole, _ = quiet(lm_train.main, SHARDED_RESTART_ARGS)
+    last = runs[-1]
+    final = CheckpointManager(str(SHARDED_RESTART_DIR / "ckpt")).restore(
+        whole.state)
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        state_leaves(final).values(), state_leaves(whole.state).values()))
+    out = {"arch": SHARDED_RESTART_ARCH, "card": smi, "runs": runs,
+           "uninterrupted_losses": whole.losses,
+           "resumed_at": last.get("start_step"),
+           "final_losses_bit_for_bit":
+               last.get("losses") == whole.losses[4:],
+           "final_state_bit_for_bit": same_state}
+    check(last.get("start_step") == 4 and out["final_losses_bit_for_bit"]
+          and same_state,
+          f"sharded_train restart: {out}")
+    del whole, final
+    shutil.rmtree(SHARDED_RESTART_DIR, ignore_errors=True)
+    return out
+
+
+def sharded_compression_row(mesh_pod) -> dict:
+    """int8 quantisation of rwkv6_1b6's bf16 gradients at the train row's
+    first batch (one-device step's gradient): every leaf's error within its
+    scale, and the all-reduce over a 'pod' of one equal to
+    dequantize(quantize) bit for bit."""
+    cfg = get_config("rwkv6_1b6")
+    model = build_model(cfg)
+    setup = make_train_step(model, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    loss, grads = setup.grad_fn(params, lm_batch(cfg, 0,
+                                                 *SHARDED_TRAIN_SHAPE))
+    del params
+    errors = tree_map(lambda g: torch.zeros(g.shape, device=DEV), grads)
+    worst, same, nbytes = 0.0, True, 0
+    reduced, new_err = make_compressed_allreduce(mesh_pod)(grads, errors)
+    for g, e, r, ne in zip(tree_leaves(grads), tree_leaves(errors),
+                           tree_leaves(reduced), tree_leaves(new_err)):
+        q, scale, err = quantize_leaf(g, e)
+        worst = max(worst, float((err.abs().max() / scale)))
+        same &= torch.equal(dequantize_leaf(q, scale), r) and \
+            torch.equal(err, ne)
+        nbytes += q.numel()
+    row = {"arch": "rwkv6_1b6", "leaves": len(tree_leaves(grads)),
+           "grad_dtype": str(tree_leaves(grads)[0].dtype),
+           "int8_payload_bytes": nbytes, "loss": float(loss),
+           "max_error_over_scale": worst,
+           "allreduce_equals_dequantize_quantize": same,
+           "pod_ranks": mesh_shape(mesh_pod)["pod"],
+           "note": "a 'pod' of one rank runs no collective: no data moves"}
+    check(worst <= 1.0 and same, f"sharded_train compression: {row}")
+    return row
+
+
+def sharded_pipeline_row(mesh_pod) -> dict:
+    """stablelm_12b's first layers in bf16 as one stage over a 'pod' of
+    one: ``pipelined_forward`` (M microbatches) against the stack run on
+    the same microbatches in order, bit for bit, and its gap to the stack
+    run on the whole batch at once. S >= 2 stages run only on the CPU
+    (gloo), since one card holds one rank."""
+    arch, layers, M = SHARDED_PIPE
+    cfg = get_config(arch).replace(num_layers=layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    batch, seq = SHARDED_TRAIN_SHAPE
+    x = torch.randn((batch, seq, cfg.d_model),
+                    generator=torch.Generator(device=DEV).manual_seed(SEED),
+                    device=DEV).to(cfg.dtype_act)
+    cos, sin = rope(torch.arange(seq, device=DEV), cfg.head_dim,
+                    cfg.rope_theta)
+
+    def stack(sp, h):
+        for l in range(layers):
+            h, _, _ = transformer._decoder_layer(
+                h, transformer._layer(sp, l), cfg, cos, sin,
+                transformer._window(cfg, l))
+        return h
+    stages = tree_map(lambda a: a[None], params["layers"])
+    with torch.no_grad():
+        got = pipelined_forward(mesh_pod, stack, M)(stages, x)
+        each = torch.cat([stack(params["layers"], xm)
+                          for xm in x.chunk(M)])
+        whole = stack(params["layers"], x)
+    row = {"arch": arch, "layers": layers, "stages": 1,
+           "microbatches": M, "batch": batch, "seq": seq,
+           "dtype": str(cfg.dtype_act),
+           "bit_for_bit_with_the_stack_by_microbatch": torch.equal(got,
+                                                                   each),
+           "max_abs_gap_to_the_whole_batch": float(
+               (got.float() - whole.float()).abs().max()),
+           "note": "S >= 2 runs only on the CPU over gloo (one card, one "
+                   "rank)"}
+    check(row["bit_for_bit_with_the_stack_by_microbatch"]
+          and torch.isfinite(got.float()).all(),
+          f"sharded_train pipeline: {row}")
+    return row
+
+
+def train_state_bytes(model, mesh, opt: OptConfig, rules) -> dict:
+    """Bytes one rank holds of the train state (no allocation): parameters
+    and gradients in the parameter dtype, moments in ``opt``'s, each leaf
+    by its sharding."""
+    sh = state_shardings(model, mesh, rules, opt)
+    shapes = table_shapes(model.param_table)
+    psize = torch.finfo(model.cfg.dtype_param).bits // 8
+    msize = torch.finfo(opt.moments_dtype).bits // 8
+    p = sum(spec_bytes(tuple(s), n.spec, mesh, psize)
+            for s, n in zip(tree_leaves(shapes), tree_leaves(sh.params)))
+    o_shapes = init_opt_state(tree_map(
+        lambda s: torch.empty(s, device="meta"), shapes), opt)
+    m = sum(spec_bytes(tuple(o.shape), n.spec, mesh, msize)
+            for o, n in zip(tree_leaves(o_shapes),
+                            tree_leaves(sh.opt_state)))
+    return {"params_gb": p / 1e9, "grads_gb": p / 1e9, "moments_gb": m / 1e9,
+            "total_gb": (2 * p + m) / 1e9}
+
+
+def sharded_train_plan_rows() -> list[dict]:
+    """Per big config: the train state per rank under ``rules_for`` at
+    (world / 8, 8) and (2, world / 16, 8), AdamW with float32 moments and
+    Adafactor with bf16 moments, and the smallest mesh whose state fits one
+    card (activations not counted). Nothing is allocated."""
+    rows = []
+    for arch in SHARDED_TRAIN_PLAN:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        rules = rules_for(cfg)
+        row = {"arch": arch, "params": count_params(cfg),
+               "rules": "FSDP_RULES" if rules is FSDP_RULES else "TP_RULES",
+               "meshes": {}, "smallest_fitting_mesh": {},
+               "activations": "not counted"}
+        for opt in (OptConfig(name="adamw"),
+                    OptConfig(name="adafactor",
+                              moments_dtype=torch.bfloat16)):
+            key = f"{opt.name} {str(opt.moments_dtype).split('.')[-1]}"
+            fits = None
+            for world in SHARDED_TRAIN_WORLDS:
+                shapes = [{"data": world // 8, "model": 8}]
+                if world >= 16:
+                    shapes.append({"pod": 2, "data": world // 16,
+                                   "model": 8})
+                for shape in shapes:
+                    mesh = types.SimpleNamespace(shape=shape)
+                    b = train_state_bytes(model, mesh, opt, rules)
+                    name = "x".join(str(v) for v in shape.values())
+                    row["meshes"].setdefault(name, {})[key] = b
+                    if fits is None and b["total_gb"] * 1e9 <= CARD_BYTES:
+                        fits = name
+            row["smallest_fitting_mesh"][key] = fits
+        rows.append(row)
+    return rows
+
+
+def phase_sharded_train(backend: str = "nccl") -> dict:
+    """The train step on a (data 1, model 1) DeviceMesh inside a process
+    group of one rank, each row against the one-device step from the same
+    seed; a preempt and restart across a world of one and one device; int8
+    compression of real gradients; the pipeline over a 'pod' of one; the
+    per-rank plan of the train state of the big configs."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    out = {"phase": "sharded_train", "card": smi,
+           "allocated_at_start_bytes": start_memory()}
+    # The restart chain's three processes (~30 s each, mostly start-up on
+    # the host) run beside the train rows; their GPU work is two whisper_tiny
+    # steps each.
+    chain = ThreadPoolExecutor(1)
+    chain_runs = chain.submit(sharded_restart_chain)
+    pool = PinnedPool(max(train_state_nbytes(
+        get_config(a).replace(**({} if n is None else {"num_layers": n})), o)
+        for a, n, o, _ in SHARDED_TRAIN))
+    out["pinned_host_bytes"] = pool.buf.numel()
+    out["pinned_alloc_seconds"] = pool.seconds
+    rendezvous = init_process_group(backend)
+    try:
+        mesh = make_debug_mesh(data=1, model=1)
+        out["mesh"] = {"shape": mesh_shape(mesh),
+                       "device_type": mesh.device_type,
+                       "backend": dist.get_backend()}
+        out["train"] = [timed_row(sharded_train_row, mesh, smi, *row, pool)
+                        for row in SHARDED_TRAIN]
+        del pool
+        pod = make_debug_mesh(data=1, model=1, pod=1)
+        out["compression"] = timed_row(sharded_compression_row, pod)
+        out["pipeline"] = timed_row(sharded_pipeline_row, pod)
+    finally:
+        set_active_mesh(None)
+        close_process_group(rendezvous)
+        runs = chain_runs.result()
+        chain.shutdown()
+    out["restart"] = timed_row(sharded_restart_rows, smi, runs)
+    out["plan"] = sharded_train_plan_rows()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def build_all() -> dict:
     """Compile every kernel source at once (one nvcc process each)."""
     t0 = time.perf_counter()
@@ -5125,6 +5567,17 @@ def main() -> None:
     # the reference's sharded steps are plain jnp under XLA, no kernel.
     with unescalated("sharded"):
         emit(phase_sharded())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Main path 4h, training on a device mesh: the train step over DTensor
+    # placements in an NCCL world of one rank against the one-device step,
+    # a preempt and restart across a world of one and one device, int8
+    # gradient compression and the pipeline over a 'pod' of one, the plan of
+    # the train state per rank. Plain PyTorch: the reference's train path is
+    # plain jnp under XLA, no kernel.
+    with unescalated("sharded_train"):
+        emit(phase_sharded_train())
     gc.collect()
     torch.cuda.empty_cache()
 

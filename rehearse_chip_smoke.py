@@ -19,6 +19,7 @@
     python3 rehearse_chip_smoke.py griffin
     python3 rehearse_chip_smoke.py encdec
     python3 rehearse_chip_smoke.py sharded
+    python3 rehearse_chip_smoke.py sharded_train
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -122,7 +123,7 @@ def main() -> None:
                                       "solvers", "exact", "automl",
                                       "service", "amortize", "curvepred",
                                       "zoo", "decoder", "griffin",
-                                      "encdec", "sharded"))
+                                      "encdec", "sharded", "sharded_train"))
     ap.add_argument("--n", type=int, default=300,
                     help="configurations of the fit, warm and automl "
                          "phases (m=52, d=7; the automl phase's Hyperband "
@@ -287,6 +288,32 @@ def main() -> None:
         cs.nvidia_smi_line = lambda: "CPU rehearsal, no card"
         with cs.unescalated("sharded"):
             print(json.dumps(cs.phase_sharded("gloo")))
+    elif args.phase == "sharded_train":
+        # The published widths do not fit the CPU: each smoke config with
+        # the published config's numerics (bf16, remat, the chunked WKV)
+        # trained on a (1, 1) mesh in a gloo world of one at 2 x 16, the
+        # restart rows through launch/train.py --smoke --device cpu (gloo),
+        # the pipeline over 2 microbatches; the plan rows as on the card
+        # (nothing allocated).
+        plan_config = cs.get_config
+
+        def smoke(arch):
+            return cs.get_smoke_config(arch).replace(
+                dtype_act=torch.bfloat16, dtype_param=torch.bfloat16,
+                remat=True, rwkv_chunk=plan_config(arch).rwkv_chunk)
+        cs.get_config = smoke
+        cs.sharded_train_plan_rows = functools.partial(
+            _with_config, plan_config, cs.sharded_train_plan_rows)
+        cs.SHARDED_TRAIN_SHAPE = (2, 16)
+        cs.SHARDED_PIPE = (cs.SHARDED_PIPE[0], cs.SHARDED_PIPE[1], 2)
+        cs.SHARDED_RESTART_ARGS = ["--arch", cs.SHARDED_RESTART_ARCH,
+                                   "--smoke", "--steps", "6", "--batch", "2",
+                                   "--seq", "16", "--lr", "3e-5",
+                                   "--ckpt-every", "2", "--log-every", "100",
+                                   "--device", "cpu"]
+        cs.nvidia_smi_line = lambda: "CPU rehearsal, no card"
+        with cs.unescalated("sharded_train"):
+            print(json.dumps(cs.phase_sharded_train("gloo")))
     elif args.phase == "exact":
         with cs.unescalated("exact"):
             print(json.dumps(cs.phase_exact()))

@@ -24,6 +24,17 @@ from ``|V2``), then casts to the template leaf's dtype, so a bfloat16 leaf
 comes back bit for bit.
 
 An optional background thread makes saves asynchronous; ``wait()`` joins it.
+
+Checkpoints do not depend on the mesh, as the reference's. A state of
+``DTensor`` s (a manager made with ``mesh=``) is saved by every rank at
+once: each leaf's whole value is gathered on the calling thread, leaf by
+leaf in the keys' order (the same on every rank), before the writer thread
+starts, and rank 0 alone writes the files the one-device path writes. The
+writer never runs a collective; ``wait()`` joins it on rank 0 and then
+holds every rank at a barrier until the write is done. ``restore(...,
+shardings=)`` places each leaf by its ``NamedSharding`` (each rank keeps
+its block of the whole saved value), so a checkpoint written on one mesh
+restores on another, on one device, or the other way round.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["CheckpointManager"]
 
@@ -128,19 +140,37 @@ def _from_host(arr: np.ndarray) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = True,
+                 mesh=None):
+        """``mesh``: the ``DeviceMesh`` of the states saved (every rank of
+        its group makes a manager and calls each method at the same
+        point); ``None`` for one process."""
         self.directory = directory
         self.keep = keep
         self.async_save = async_save
+        self.mesh = mesh
         self._thread: threading.Thread | None = None
         os.makedirs(directory, exist_ok=True)
+
+    def _writes(self) -> bool:
+        """Whether this process writes: rank 0 of a mesh's group, or the
+        only process."""
+        return self.mesh is None or dist.get_rank() == 0
 
     # -- write --------------------------------------------------------------
     def save(self, step: int, state: Any, extra: dict | None = None):
         """Copy every tensor leaf of ``state`` to the host now, then write
-        (on the background thread when ``async_save``)."""
-        host = {k: _to_host(v) for k, v in _flatten(state).items()}
+        (on the background thread when ``async_save``). On a mesh every
+        rank gathers each leaf's whole value here, and rank 0 writes."""
+        host = {}
+        for k, v in _flatten(state).items():
+            if hasattr(v, "full_tensor"):       # a collective: every rank
+                v = v.full_tensor()
+            if self._writes():
+                host[k] = _to_host(v)
         self.wait()
+        if not self._writes():
+            return
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host, extra or {}), daemon=True)
@@ -163,9 +193,12 @@ class CheckpointManager:
         self._gc()
 
     def wait(self):
+        """Until the last write is done (on a mesh, on every rank)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None:
+            dist.barrier()
 
     def _gc(self):
         steps = self.all_steps()
@@ -189,12 +222,18 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, target: Any, step: int | None = None,
-                device=None) -> Any:
+                device=None, shardings: Any = None) -> Any:
         """Restore into the structure of ``target``.
 
         Every tensor leaf of ``target`` is replaced by the saved array of its
         key, cast to the leaf's dtype and placed on ``device`` (default: the
-        leaf's own device); a numpy leaf comes back as a numpy array.
+        leaf's own device, a ``DTensor``'s the device of its block); a numpy
+        leaf comes back as a numpy array. ``shardings``: a tree of the same
+        structure (``TrainSetup.state_shardings``) whose
+        :class:`~repro_torch.distributed.sharding.NamedSharding` leaves
+        place their leaves as ``DTensor`` s (this rank's block of the saved
+        value); a ``None`` sharding, or no ``shardings``, leaves its leaf a
+        plain tensor.
         """
         self.wait()
         step = step if step is not None else self.latest_step()
@@ -210,11 +249,39 @@ class CheckpointManager:
         def leaf(key, tgt):
             arr = host[key]
             if isinstance(tgt, torch.Tensor):
-                return _from_host(arr).to(
+                local = tgt.to_local() if hasattr(tgt, "device_mesh") else tgt
+                value = _from_host(arr).to(
                     dtype=tgt.dtype,
-                    device=tgt.device if device is None else device)
+                    device=local.device if device is None else device)
+                return _place(value, _at(shardings, key))
             if hasattr(tgt, "dtype"):
                 return arr.astype(tgt.dtype)
             return arr
 
         return _rebuild(target, leaf)
+
+
+def _at(tree: Any, key: str) -> Any:
+    """The node of ``tree`` at the path ``key`` (``None`` past a ``None``
+    node or for no tree)."""
+    node = tree
+    for part in key.split(_SEP) if key else []:
+        if node is None:
+            return None
+        if part.startswith("."):
+            node = getattr(node, part[1:])
+        elif isinstance(node, dict):
+            node = node[part] if part in node else node[int(part)]
+        else:
+            node = node[int(part)]
+    return node
+
+
+def _place(value: torch.Tensor, sharding) -> torch.Tensor:
+    """``value`` (the whole saved leaf) laid out by ``sharding``, or plain
+    when it is ``None``."""
+    from ..distributed.sharding import shard_tensor
+
+    if sharding is None:
+        return value
+    return shard_tensor(value, sharding.mesh, sharding.spec)

@@ -44,7 +44,9 @@ __all__ = ["TP_RULES", "FSDP_RULES", "ZERO_RULES", "SERVE_RULES", "ACT_RULES",
            "SERVE_DECODE_RULES", "SP_ACT_RULES", "NamedSharding",
            "mesh_shape", "spec_placements", "shard_tensor", "shard_params",
            "table_shapes", "spec_bytes", "param_bytes_per_rank",
-           "cache_spec", "to_local", "param_placer", "full_value"]
+           "cache_spec", "to_local", "param_placer", "full_value",
+           "opt_logical", "state_shardings", "placed_zeros",
+           "sum_to_replicas"]
 
 # Mesh context for the layers with an explicit-collective path (the MoE's
 # expert parallelism). Set by the serve steps; None on one device.
@@ -377,8 +379,11 @@ def shard_tensor(t: torch.Tensor, mesh, spec: tuple):
     local = t
     for i, pl in enumerate(placements):
         if isinstance(pl, Shard):
-            local = local.chunk(mesh.size(i), dim=pl.dim)[
-                mesh.get_local_rank(i)]
+            # DTensor's split: torch.chunk, ranks past the last chunk empty
+            parts = local.chunk(mesh.size(i), dim=pl.dim)
+            r = mesh.get_local_rank(i)
+            local = parts[r] if r < len(parts) else local.narrow(pl.dim,
+                                                                 0, 0)
     # a block smaller than the tensor is copied, so the full tensor can go;
     # a whole one (every axis of one rank) shares its storage
     if local.numel() != t.numel():
@@ -423,3 +428,88 @@ def param_bytes_per_rank(table: dict, rules, mesh, itemsize: int) -> int:
     return sum(spec_bytes(shape, logical_to_pspec(logical, rules, mesh,
                                                   shape), mesh, itemsize)
                for shape, logical, _ in table.values())
+
+
+def opt_logical(logical, opt_cfg) -> dict:
+    """The optimizer moments' logical axes (the reference's
+    ``_state_logical``): AdamW's ``m`` and ``v`` take the parameter's;
+    Adafactor's row moment ``vr`` drops the last axis, its column moment
+    ``vc`` the second-last."""
+    if opt_cfg.name == "adamw":
+        return {"m": logical, "v": logical}
+
+    def tmap(fn, tree):
+        if isinstance(tree, dict):
+            return {k: tmap(fn, v) for k, v in tree.items()}
+        return fn(tree)
+
+    def row(lg):
+        return lg[:-1]
+
+    def col(lg):
+        return (*lg[:-2], lg[-1]) if len(lg) >= 2 else lg
+    return {"vr": tmap(row, logical), "vc": tmap(col, logical)}
+
+
+def state_shardings(model, mesh, rules=None, opt_cfg=None):
+    """The train state's layout on ``mesh``: a ``TrainState`` of
+    :class:`NamedSharding` trees, the parameters by ``rules`` (default
+    :func:`rules_for`), the moments by :func:`opt_logical` on their own
+    shapes. The step is ``None``: a plain tensor every rank holds alike
+    (the reference's replicated ``P()``)."""
+    from ..train.optimizers import OptConfig, init_opt_state, tree_map
+    from ..train.trainer import TrainState
+
+    opt_cfg = opt_cfg or OptConfig()
+    rules = rules if rules is not None else rules_for(model.cfg)
+    shapes = table_shapes(model.param_table)
+    p_sh = param_shardings(model.logical, mesh, rules, shapes)
+    o_shapes = init_opt_state(tree_map(
+        lambda s: torch.empty(s, device="meta"), shapes), opt_cfg)
+    o_logical = opt_logical(model.logical, opt_cfg)
+    o_sh = _tree_map2(lambda lg, s: NamedSharding(
+        mesh, logical_to_pspec(lg, rules, mesh, _shape(s))), o_logical,
+        o_shapes)
+    return TrainState(params=p_sh, opt_state=o_sh, step=None)
+
+
+def placed_zeros(shape, dtype: torch.dtype, sharding: NamedSharding,
+                 device) -> torch.Tensor:
+    """A zero ``DTensor`` of ``shape`` laid out by ``sharding``, made as
+    this rank's block on ``device`` (nothing of the full size is
+    allocated)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    placements = sharding.placements
+    local_shape, _ = compute_local_shape_and_global_offset(
+        shape, sharding.mesh, placements)
+    full = torch.empty(shape, device="meta")
+    return DTensor.from_local(
+        torch.zeros(local_shape, dtype=dtype, device=device), sharding.mesh,
+        placements, run_check=False, shape=full.shape, stride=full.stride())
+
+
+class _SumToReplicas(torch.autograd.Function):
+    """The sum of each rank's share over ``groups``, which every rank of
+    them then uses alike: each rank's upstream gradient is already the
+    whole gradient of its share, so the backward passes it through."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        x = x.clone()
+        for group in groups:
+            torch.distributed.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_to_replicas(x: torch.Tensor, groups) -> torch.Tensor:
+    """The sum of ``x`` over each process group of ``groups`` in turn (the
+    reference's ``psum`` whose result the ranks use alike), differentiable
+    with the gradient passed through."""
+    return _SumToReplicas.apply(x, tuple(groups))

@@ -1,5 +1,5 @@
 """Training driver: config -> restore-or-init -> step loop, on one device
-(counterpart of ``repro.launch.train``).
+or a device mesh (counterpart of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_1b6 \
         --smoke --steps 20 --ckpt-dir /tmp/ckpt --ckpt-every 10
@@ -7,25 +7,44 @@
 Fault tolerance: atomic keep-K checkpoints (async), deterministic data keyed
 by step (a run resumed at step k trains on exactly the batches an
 uninterrupted run would have), and ``--simulate-preempt N`` kills the
-process at step N to exercise the restart. ``--mesh debug`` and
-``--mesh single`` both mean one device here; a multi-card mesh waits for
-the sharded training slice (``make_train_step`` on a mesh, ROADMAP queue 1).
-The step updates the state in place (``make_train_step(donate=True)``), as
-the reference's launcher donates its state: the loop never reads a state it
-has passed on, and a checkpoint copies the state to the host before the next
-step. The step's loss stays on the device inside the loop and is read once at
-the end (and at each log line). A VLM config gets zero float32 patch embeddings
-as its prefix, and the encoder-decoder zero float32 frames, as the
-reference's launcher gives them.
+process at step N to exercise the restart. The step updates the state in
+place (``make_train_step(donate=True)``), as the reference's launcher
+donates its state: the loop never reads a state it has passed on, and a
+checkpoint copies the state to the host before the next step. The step's
+loss stays on the device inside the loop and is read once at the end (and
+at each log line). A VLM config gets zero float32 patch embeddings as its
+prefix, and the encoder-decoder zero float32 frames, as the reference's
+launcher gives them.
+
+``--mesh`` picks the device mesh (``launch/mesh.py``) over the process
+group the environment names (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK`` and
+``--dist-init``, default ``$DIST_INIT_METHOD``): NCCL with each rank on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``::
+
+    for r in 0 1 2 3; do WORLD_SIZE=4 RANK=$r LOCAL_RANK=$r \
+        DIST_INIT_METHOD=file:///tmp/rdv PYTHONPATH=src \
+        python -m repro_torch.launch.train --arch stablelm_12b --smoke \
+        --mesh debug --device cpu --steps 8 & done; wait
+
+``debug`` is (world / 2, 2) over ("data", "model"), or (world, 1) for an
+odd world; ``single`` / ``multi`` are the production meshes, which name
+the ranks they need when the world does not fit. Without a group
+``debug`` runs on one device. On a mesh the state is placed by
+``rules_for`` (``make_train_step(mesh=...)``), the step cuts the batch by
+its ``batch_shardings``, and a checkpoint holds every leaf's whole value
+(written by rank 0), so a run resumes on any mesh or on one device. Only
+rank 0 prints, since every rank has the same losses.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..checkpoint import CheckpointManager
@@ -34,6 +53,8 @@ from ..data import TokenPipeline
 from ..models import build_model
 from ..train.optimizers import OptConfig
 from ..train.trainer import TrainState, make_train_step
+from .mesh import make_mesh_from_args
+from .serve import init_process_group_from_env
 
 __all__ = ["TrainResult", "main"]
 
@@ -43,7 +64,7 @@ class TrainResult(NamedTuple):
     start_step: int         # the step the run started (or resumed) at
     first_step_ms: float    # the first step of this run, set-up included
     ms_per_step: float      # the mean of the later steps (nan with one step)
-    state: TrainState       # the final state, on the device
+    state: TrainState       # the final state, on the device (or the mesh)
 
 
 def _sync(dev: torch.device) -> None:
@@ -71,30 +92,48 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
+    ap.add_argument("--dist-init", default=os.environ.get("DIST_INIT_METHOD"),
+                    help="init method of the process group that WORLD_SIZE "
+                         "names (e.g. file:///tmp/rdv)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write this run's start step and every loss, in "
+                         "full precision, as JSON (rank 0)")
     args = ap.parse_args(argv)
-    if args.mesh == "multi":
-        raise NotImplementedError(
-            "--mesh multi needs the sharded training slice (make_train_step "
-            "on a mesh, ROADMAP queue 1), which is not ported to repro_torch "
-            "yet; launch.serve serves on a mesh")
+
+    owned = not dist.is_initialized()
+    device = init_process_group_from_env(args.device, args.dist_init)
+    try:
+        return _train(args, device)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, device) -> TrainResult:
+    mesh = make_mesh_from_args(args)
+    lead = mesh is None or dist.get_rank() == 0
+
+    def say(*a, **k):
+        if lead:
+            print(*a, **k)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
-    dev = resolve_device(args.device)
+    dev = resolve_device(device)
     opt = OptConfig(name=args.optimizer, peak_lr=args.lr,
                     warmup_steps=max(2, args.steps // 20),
                     decay_steps=args.steps)
     setup = make_train_step(model, opt_cfg=opt, grad_accum=args.grad_accum,
-                            device=dev, donate=True)
+                            device=dev, donate=True, mesh=mesh)
 
-    ckpt = CheckpointManager(args.ckpt_dir, keep=args.keep) \
+    ckpt = CheckpointManager(args.ckpt_dir, keep=args.keep, mesh=mesh) \
         if args.ckpt_dir else None
     start_step = 0
     state = setup.init_state(0)
     if ckpt and ckpt.latest_step() is not None:
-        state = ckpt.restore(state)
+        state = ckpt.restore(state, shardings=setup.state_shardings)
         start_step = int(state.step)
-        print(f"restored checkpoint at step {start_step}", flush=True)
+        say(f"restored checkpoint at step {start_step}", flush=True)
 
     pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq)
     losses = []
@@ -123,13 +162,13 @@ def main(argv=None) -> TrainResult:
             first_step_ms = (t_first - t_start) * 1e3
         if (step + 1) % args.log_every == 0:
             dt = (time.perf_counter() - t0) / args.log_every
-            print(f"step {step+1:5d} loss {float(losses[-1]):.4f} "
-                  f"({dt*1e3:.0f} ms/step)", flush=True)
+            say(f"step {step+1:5d} loss {float(losses[-1]):.4f} "
+                f"({dt*1e3:.0f} ms/step)", flush=True)
             t0 = time.perf_counter()
         if ckpt and (step + 1) % args.ckpt_every == 0:
             ckpt.save(step + 1, state)
         if args.simulate_preempt == step + 1:
-            print(f"SIMULATED PREEMPTION at step {step+1}", flush=True)
+            say(f"SIMULATED PREEMPTION at step {step+1}", flush=True)
             if ckpt:
                 ckpt.wait()
             os._exit(42)
@@ -142,7 +181,10 @@ def main(argv=None) -> TrainResult:
         ckpt.wait()
     losses = [float(x) for x in losses]
     if losses:
-        print(f"final loss: {losses[-1]:.4f} (first: {losses[0]:.4f})")
+        say(f"final loss: {losses[-1]:.4f} (first: {losses[0]:.4f})")
+    if args.metrics_out and lead:
+        with open(args.metrics_out, "w") as f:
+            json.dump({"start_step": start_step, "losses": losses}, f)
     return TrainResult(losses=losses, start_step=start_step,
                        first_step_ms=first_step_ms, ms_per_step=ms_per_step,
                        state=state)

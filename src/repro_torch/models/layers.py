@@ -281,11 +281,71 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=None):
 # --------------------------------------------------------------------------
 # loss
 # --------------------------------------------------------------------------
+def _vocab_parallel_nll(logits, lc):
+    """Per-token NLL (and validity) of ``logits``, a ``DTensor`` laid out
+    over the mesh, as ``DTensor`` s of the (B, S) token layout.
+
+    Each rank works on its block of the logits. Where the vocab axis is
+    split, a rank gathers the gold logit only for labels inside its block
+    ``[lo, hi)`` (the others give zero), and the gold logits and the sums
+    of exps (shifted by the max over the vocab ranks) are summed over the
+    vocab groups: every vocab rank then holds the same NLL. Where it is not
+    split, a rank runs the one-device ops on its block."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from ..distributed.sharding import sum_to_replicas
+
+    mesh = logits.device_mesh
+    if any(isinstance(p, Partial) for p in logits.placements):
+        logits = logits.redistribute(mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in logits.placements])
+    placements = logits.placements
+    vocab_dims = [i for i, p in enumerate(placements)
+                  if isinstance(p, Shard) and p.dim == 2]
+    tok = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+           for p in placements]
+    if not isinstance(lc, DTensor):
+        lc = DTensor.from_local(lc, mesh, [Replicate()] * mesh.ndim,
+                                run_check=False)
+    lc = lc.redistribute(mesh, tok).to_local()
+    local = logits.to_local()
+    ids = torch.clamp_min(lc, 0).long()[..., None]
+    if not vocab_dims:
+        lse = torch.logsumexp(local, dim=-1)
+        gold = torch.gather(local, -1, ids)[..., 0]
+    else:
+        _, offset = compute_local_shape_and_global_offset(
+            logits.shape, mesh, placements)
+        lo = offset[2]
+        inside = (ids >= lo) & (ids < lo + local.shape[2])
+        gold = torch.gather(local, -1, torch.where(inside, ids - lo, 0))
+        gold = torch.where(inside, gold, 0.0)[..., 0]
+        groups = [mesh.get_group(i) for i in vocab_dims]
+        top = local.detach().amax(dim=-1)
+        for group in groups:
+            torch.distributed.all_reduce(
+                top, op=torch.distributed.ReduceOp.MAX, group=group)
+        sumexp = torch.sum(torch.exp(local - top[..., None]), dim=-1)
+        lse = top + torch.log(sum_to_replicas(sumexp, groups))
+        gold = sum_to_replicas(gold, groups)
+    valid = (lc >= 0).float()
+    wrap = lambda t: DTensor.from_local(t, mesh, tok, run_check=False)
+    return wrap((lse - gold) * valid), wrap(valid)
+
+
 def _ce_chunk(xc, embed, lc, logit_cap):
-    """Summed NLL and valid-label count of one sequence chunk."""
+    """Summed NLL and valid-label count of one sequence chunk (a
+    ``DTensor`` chunk's through :func:`_vocab_parallel_nll`)."""
     logits = _einsum("bsd,vd->bsv", xc, embed).float()
     if logit_cap is not None:
         logits = logit_cap * torch.tanh(logits / logit_cap)
+    if hasattr(logits, "device_mesh") and not all(
+            p.is_replicate() for p in logits.placements):
+        nll, valid = _vocab_parallel_nll(logits, lc)
+        return torch.sum(nll), torch.sum(valid)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         torch.clamp_min(lc, 0).long()[..., None])[..., 0]

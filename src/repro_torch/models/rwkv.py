@@ -171,8 +171,8 @@ def _wkv_chunked(r, k, v, w, u, H, N, chunk, state0=None):
     rh = r.reshape(sh).float()
     kh = k.reshape(sh).float()
     vh = v.reshape(sh).float()
-    la = torch.cumsum(torch.log(torch.clamp_min(w.reshape(sh).float(),
-                                                1e-30)).double(), dim=2)
+    la = _cumsum(torch.log(torch.clamp_min(w.reshape(sh).float(),
+                                           1e-30)).double(), dim=2)
     uh = u.reshape(H, N).float()
     state = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
              if state0 is None else state0)
@@ -203,6 +203,22 @@ def _wkv_chunked(r, k, v, w, u, H, N, chunk, state0=None):
             "bshn,bshm->bhnm", kd[:, g], vh[:, g])
     y = y_intra + torch.stack(y_inter, dim=1)
     return y.reshape(B, S, D), state
+
+
+def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum``; of a ``DTensor`` whose ``dim`` no rank splits, the
+    cumsum of each rank's block (the same values: PyTorch 2.11's DTensor
+    has no sharding rule for the ``flip`` of cumsum's backward)."""
+    placements = getattr(x, "placements", None)
+    if placements is None or any(p.is_shard(dim % x.ndim)
+                                 for p in placements):
+        return torch.cumsum(x, dim=dim)
+    from torch.distributed.tensor import DTensor
+
+    local = torch.cumsum(x.to_local(), dim=dim)
+    return DTensor.from_local(local, x.device_mesh, placements,
+                              run_check=False, shape=x.shape,
+                              stride=local.stride())
 
 
 def _time_mix(x, x_prev, p, cfg, state0=None):

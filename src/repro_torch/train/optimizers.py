@@ -71,15 +71,97 @@ def cosine_lr(cfg: OptConfig, step) -> torch.Tensor:
     return cfg.peak_lr * torch.where(step < cfg.warmup_steps, warm, decayed)
 
 
+def _split(t) -> dict:
+    """Tensor dimension -> the process groups of the mesh dimensions that
+    split it, for a ``DTensor`` (a dimension of one rank splits nothing);
+    ``{}`` for a plain tensor."""
+    placements = getattr(t, "placements", None)
+    if placements is None:
+        return {}
+    mesh = t.device_mesh
+    out: dict = {}
+    for i, p in enumerate(placements):
+        if p.is_shard() and mesh.size(i) > 1:
+            out.setdefault(p.dim, []).append(mesh.get_group(i))
+    return out
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a ``DTensor`` (its storage, outside autograd);
+    a plain tensor itself."""
+    if not hasattr(t, "device_mesh"):
+        return t
+    with torch.no_grad():
+        return t.to_local()
+
+
+def _wrap(local: torch.Tensor, like) -> torch.Tensor:
+    """``local`` as the block of a ``DTensor`` laid out as ``like`` (of
+    ``shape``, default ``like``'s); a plain ``local`` when ``like`` is
+    plain."""
+    if not hasattr(like, "device_mesh"):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def _placed_as(t: torch.Tensor, placements) -> torch.Tensor:
+    """A ``DTensor`` redistributed to ``placements`` (a pending sum is
+    reduced: reduce-scatter onto a shard, all-reduce onto a replica)."""
+    if tuple(t.placements) == tuple(placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
+
+
+def align_grads(grads, params):
+    """Each ``DTensor`` gradient in its parameter's placements (autograd may
+    return a ``Partial`` sum, or another layout); plain leaves pass."""
+    return tree_map(lambda g, p: _placed_as(g, p.placements)
+                    if hasattr(p, "device_mesh") else g, grads, params)
+
+
+def _all_reduce(x: torch.Tensor, groups, op=None) -> torch.Tensor:
+    for group in groups:
+        torch.distributed.all_reduce(
+            x, op=op or torch.distributed.ReduceOp.SUM, group=group)
+    return x
+
+
+def _summed_over_shards(values: list, leaves: list) -> list:
+    """Each 0-d ``values[i]``, this rank's share of a sum over the elements
+    of ``leaves[i]``, summed over the mesh dimensions that split that leaf:
+    every element counts once, a replicated leaf's once, not once a rank.
+    One all-reduce per group of leaves split alike."""
+    by: dict = {}
+    for i, leaf in enumerate(leaves):
+        groups = [g for gs in _split(leaf).values() for g in gs]
+        if groups:
+            by.setdefault(tuple(groups), []).append(i)
+    values = list(values)
+    for groups, idx in by.items():
+        total = _all_reduce(torch.stack([values[i] for i in idx]), groups)
+        for j, i in enumerate(idx):
+            values[i] = total[j]
+    return values
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+    """The L2 norm of every element of the tree: a ``DTensor`` leaf (in
+    ``Shard`` / ``Replicate`` placements) counts each element once, its
+    blocks' squares summed over the mesh dimensions that split it."""
+    leaves = tree_leaves(tree)
+    sq = _summed_over_shards([torch.sum(torch.square(_local(leaf).float()))
+                              for leaf in leaves], leaves)
+    return torch.sqrt(sum(sq))
 
 
 def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+    return tree_map(lambda g: _wrap((_local(g).float() * scale).to(g.dtype),
+                                    g), tree), norm
 
 
 def _is_factored(shape, cfg: OptConfig) -> bool:
@@ -87,8 +169,21 @@ def _is_factored(shape, cfg: OptConfig) -> bool:
         and shape[-2] >= cfg.factored_min_dim
 
 
-def init_opt_state(params, cfg: OptConfig) -> dict:
+def init_opt_state(params, cfg: OptConfig, shardings=None) -> dict:
+    """Zero moments for ``params``; with ``shardings`` (the
+    :class:`~repro_torch.distributed.sharding.NamedSharding` tree of the
+    moments, ``state_shardings(...).opt_state``) each is made as its block
+    on this rank."""
     md = cfg.moments_dtype
+    if shardings is not None:
+        from ..distributed.sharding import placed_zeros
+        shapes = init_opt_state(tree_map(
+            lambda p: torch.empty(p.shape, device="meta"), params), cfg)
+        device = tree_leaves(params)[0].device
+        if hasattr(tree_leaves(params)[0], "device_mesh"):
+            device = tree_leaves(params)[0].to_local().device
+        return tree_map(lambda s, sh: placed_zeros(s.shape, md, sh, device),
+                        shapes, shardings)
     if cfg.name == "adamw":
         def zeros(p):
             return torch.zeros(p.shape, dtype=md, device=p.device)
@@ -122,15 +217,35 @@ def _adamw_leaf(p, g, m, v, lr, step, cfg: OptConfig, decay=None):
     return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
 
 
-def _adafactor_leaf(p, g, vr, vc, lr, step, cfg: OptConfig):
+def _mean(x: torch.Tensor, dim: int, groups, n: int) -> torch.Tensor:
+    """``torch.mean`` over ``dim`` of a block whose dimension is split
+    over ``groups`` (``n`` elements in all); with no groups, the mean."""
+    if not groups:
+        return torch.mean(x, dim=dim)
+    return _all_reduce(torch.sum(x, dim=dim), groups) / n
+
+
+def _adafactor_leaf(p, g, vr, vc, lr, step, cfg: OptConfig, shape=None,
+                    split=None):
+    """One Adafactor step of a leaf of ``shape`` (default: ``p``'s): on a
+    mesh, ``p``, ``g`` and the moments are this rank's blocks, aligned (see
+    :func:`_moment_placements`), and ``split`` (:func:`_split`) names the
+    groups each mean over a split dimension sums over."""
+    shape = tuple(p.shape if shape is None else shape)
+    split = split or {}
+    nd = len(shape)
     g32 = g.float()
     decay = 1.0 - torch.pow(step, -0.8)
-    if _is_factored(p.shape, cfg):
-        r = decay * vr.float() + (1 - decay) * torch.mean(g32 * g32, dim=-1)
-        c = decay * vc.float() + (1 - decay) * torch.mean(g32 * g32, dim=-2)
+    if _is_factored(shape, cfg):
+        last, second = split.get(nd - 1, []), split.get(nd - 2, [])
+        r = decay * vr.float() + (1 - decay) * _mean(g32 * g32, -1, last,
+                                                     shape[-1])
+        c = decay * vc.float() + (1 - decay) * _mean(g32 * g32, -2, second,
+                                                     shape[-2])
         rc = r[..., None] * c[..., None, :]
         denom = torch.sqrt(rc / torch.clamp_min(
-            torch.mean(r, dim=-1)[..., None, None], 1e-30)) + cfg.eps
+            _mean(r, -1, second, shape[-2])[..., None, None], 1e-30)) \
+            + cfg.eps
         upd = g32 / denom
         new_vr, new_vc = r.to(vr.dtype), c.to(vc.dtype)
     else:
@@ -138,7 +253,12 @@ def _adafactor_leaf(p, g, vr, vc, lr, step, cfg: OptConfig):
         upd = g32 / (torch.sqrt(v) + cfg.eps)
         new_vr, new_vc = v.to(vr.dtype), vc
     # update clipping (the Adafactor RMS-1 rule)
-    rms = torch.sqrt(torch.mean(upd * upd) + 1e-30)
+    groups = [gr for gs in split.values() for gr in gs]
+    if groups:
+        ms = _all_reduce(torch.sum(upd * upd), groups) / math.prod(shape)
+    else:
+        ms = torch.mean(upd * upd)
+    rms = torch.sqrt(ms + 1e-30)
     upd = upd / torch.clamp_min(rms, 1.0)
     if p.ndim >= 2:
         upd = upd + cfg.weight_decay * p.float()
@@ -146,20 +266,64 @@ def _adafactor_leaf(p, g, vr, vc, lr, step, cfg: OptConfig):
     return newp.to(p.dtype), new_vr, new_vc
 
 
+def _moment_placements(p, cfg: OptConfig, a, b) -> tuple:
+    """The placements of the moments ``a``, ``b`` that line their blocks up
+    with ``p``'s: AdamW's and an unfactored second moment are ``p``'s; a
+    factored row moment (``p`` without its last dimension) is ``p``'s with
+    that dimension's splits replicated, the column moment (``p`` without its
+    second-last) likewise. An unused column moment keeps its own."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = tuple(p.placements)
+    if cfg.name == "adamw":
+        return pl, pl
+    if not _is_factored(p.shape, cfg):
+        return pl, tuple(b.placements)
+    nd = p.ndim
+
+    def drop(d):
+        return tuple(Replicate() if q.is_shard() and q.dim == d
+                     else Shard(q.dim - 1) if q.is_shard() and q.dim > d
+                     else q for q in pl)
+    return drop(nd - 1), drop(nd - 2)
+
+
+_LEAF = {"adamw": (lambda p, g, a, b, lr, stepf, cfg, shape, split:
+                   _adamw_leaf(p, g, a, b, lr, stepf, cfg,
+                               decay=len(shape) >= 2)),
+         "adafactor": _adafactor_leaf}
+_KEYS = {"adamw": ("m", "v"), "adafactor": ("vr", "vc")}
+
+
+def _step_leaf(p, g, a, b, lr, stepf, cfg: OptConfig):
+    """One step of a leaf and its two moments: on one device the leaf
+    function itself; for ``DTensor`` s the leaf function on this rank's
+    blocks, the moments redistributed to line up with ``p`` and back."""
+    if not hasattr(p, "device_mesh"):
+        return _LEAF[cfg.name](p, g, a, b, lr, stepf, cfg, p.shape, {})
+    la, lb = _moment_placements(p, cfg, a, b)
+    a_al, b_al = _placed_as(a, la), _placed_as(b, lb)
+    new_p, new_a, new_b = _LEAF[cfg.name](
+        _local(p), _local(_placed_as(g, p.placements)), _local(a_al),
+        _local(b_al), lr, stepf, cfg, p.shape, _split(p))
+    return (_wrap(new_p, p), _placed_as(_wrap(new_a, a_al), a.placements),
+            _placed_as(_wrap(new_b, b_al), b.placements))
+
+
 def apply_update(params, grads, opt_state: dict, step, cfg: OptConfig):
     """One optimizer step at ``step`` (0-based, a Python int or an integer
-    tensor); returns (new_params, new_opt_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    tensor); returns (new_params, new_opt_state, metrics). ``DTensor``
+    leaves are stepped on this rank's blocks (their gradients first put in
+    their parameters' placements)."""
+    keys = _KEYS.get(cfg.name)
+    if keys is None:
+        raise ValueError(cfg.name)
+    grads, gnorm = clip_by_global_norm(align_grads(grads, params),
+                                       cfg.clip_norm)
     step = torch.as_tensor(step, device=gnorm.device)
     lr = cosine_lr(cfg, step)
     stepf = step.to(torch.float32) + 1.0
-    if cfg.name == "adamw":
-        leaf, keys = _adamw_leaf, ("m", "v")
-    elif cfg.name == "adafactor":
-        leaf, keys = _adafactor_leaf, ("vr", "vc")
-    else:
-        raise ValueError(cfg.name)
-    out = tree_map(lambda p, g, a, b: leaf(p, g, a, b, lr, stepf, cfg),
+    out = tree_map(lambda p, g, a, b: _step_leaf(p, g, a, b, lr, stepf, cfg),
                    params, grads, opt_state[keys[0]], opt_state[keys[1]])
     newp, new_a, new_b = (_pick(out, i) for i in range(3))
     return newp, {keys[0]: new_a, keys[1]: new_b}, {"lr": lr,
@@ -182,25 +346,30 @@ def apply_update_(params, grads, opt_state: dict, step, cfg: OptConfig):
     leaf is made; the global norm sums the chunks' squares, so it may differ
     from :func:`global_norm`'s in the last bits. Adafactor's factored
     moments need whole leaves: each leaf is updated at once and copied back.
+    A ``DTensor`` leaf is updated in its block on this rank (the norm's
+    squares summed over the mesh dimensions that split it).
     """
-    grads = tree_map(torch.Tensor.contiguous, grads)
-    sq = [torch.sum(torch.square(c.float()))
-          for g in tree_leaves(grads) for c in _chunks(g)]
+    keys = _KEYS.get(cfg.name)
+    if keys is None:
+        raise ValueError(cfg.name)
+    grads = tree_map(torch.Tensor.contiguous, align_grads(grads, params))
+    g_leaves = tree_leaves(grads)
+    parts = [(c, g) for g in g_leaves for c in _chunks(_local(g))]
+    sq = _summed_over_shards([torch.sum(torch.square(c.float()))
+                              for c, _ in parts], [g for _, g in parts])
     gnorm = torch.sqrt(sum(sq))
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                         max=1.0)
     step = torch.as_tensor(step, device=gnorm.device)
     lr = cosine_lr(cfg, step)
     stepf = step.to(torch.float32) + 1.0
-    keys = {"adamw": ("m", "v"), "adafactor": ("vr", "vc")}.get(cfg.name)
-    if keys is None:
-        raise ValueError(cfg.name)
-    leaves = zip(tree_leaves(params), tree_leaves(grads),
+    leaves = zip(tree_leaves(params), g_leaves,
                  tree_leaves(opt_state[keys[0]]),
                  tree_leaves(opt_state[keys[1]]))
     for p, g, a, b in leaves:
         if cfg.name == "adamw":
-            parts = zip(_chunks(p), _chunks(g), _chunks(a), _chunks(b))
+            parts = zip(_chunks(_local(p)), _chunks(_local(g)),
+                        _chunks(_local(a)), _chunks(_local(b)))
             for pc, gc, ac, bc in parts:
                 gc = (gc.float() * scale).to(gc.dtype)
                 new = _adamw_leaf(pc, gc, ac, bc, lr, stepf, cfg,
@@ -208,10 +377,11 @@ def apply_update_(params, grads, opt_state: dict, step, cfg: OptConfig):
                 for old, value in zip((pc, ac, bc), new):
                     old.copy_(value)
         else:
-            g = (g.float() * scale).to(g.dtype)
-            new = _adafactor_leaf(p, g, a, b, lr, stepf, cfg)
+            gl = _local(g)
+            g = _wrap((gl.float() * scale).to(gl.dtype), g)
+            new = _step_leaf(p, g, a, b, lr, stepf, cfg)
             for old, value in zip((p, a, b), new):
-                old.copy_(value)
+                _local(old).copy_(_local(value))
     return {"lr": lr, "grad_norm": gnorm}
 
 

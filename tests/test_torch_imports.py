@@ -65,7 +65,8 @@ def test_port_has_the_modules_of_this_slice():
                 "models/transformer", "baselines/__init__",
                 "baselines/curve_transformer", "baselines/pretrain",
                 "baselines/evaluate", "train/__init__", "train/optimizers",
-                "train/trainer", "amortize/__init__", "amortize/encoder",
+                "train/trainer", "train/pipeline", "train/compression",
+                "amortize/__init__", "amortize/encoder",
                 "amortize/train", "amortize/make_fixture",
                 "configs/__init__", "configs/base", "data/tokens",
                 "models/rwkv", "models/registry", "models/moe",

@@ -267,16 +267,125 @@ def test_train_loss_decreases():
 
 @pytest.mark.parametrize("mod", [train_mod, serve_mod])
 def test_multi_card_mesh_is_refused(mod):
-    """The trainer refuses a mesh until the sharded training slice; the
-    server's multi-node mesh over a world of one names the ranks it needs."""
+    """The trainer's and the server's multi-node mesh over a world of one
+    (no process group) name the ranks they need."""
     argv = ["--arch", "rwkv6_1b6", "--smoke", "--mesh", "multi", "--device",
             CPU]
-    if mod is train_mod:
-        with pytest.raises(NotImplementedError, match="sharded training"):
-            mod.main(argv)
-    else:
-        with pytest.raises(ValueError, match="multiple of 16 ranks"):
-            mod.main(argv)
+    with pytest.raises(ValueError, match="multiple of 16 ranks"):
+        mod.main(argv)
+
+
+CKPT_ARGS = ["--arch", "stablelm_12b", "--smoke", "--steps", "8", "--batch",
+             "4", "--seq", "16", "--ckpt-every", "2", "--log-every", "100",
+             "--device", CPU]
+
+LAUNCH_RANK = """
+import os
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+out, init, resume_dir, whole_dir = sys.argv[1:5]
+argv = sys.argv[5:]
+dist.init_process_group("gloo", init_method="file://" + init,
+                        rank=int(os.environ["RANK"]), world_size=4)
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.manager import _flatten
+from repro_torch.configs import get_smoke_config
+from repro_torch.distributed.sharding import full_value
+from repro_torch.launch import train
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import build_model
+from repro_torch.train import make_train_step
+
+res = {}
+# the one-process run's step-4 checkpoint restored onto the (2, 2) mesh
+mesh = make_debug_mesh(data=2, model=2)
+setup = make_train_step(build_model(get_smoke_config("stablelm_12b")),
+                        device="cpu", mesh=mesh)
+back = CheckpointManager(resume_dir, mesh=mesh).restore(
+    setup.init_state(0), step=4, shardings=setup.state_shardings)
+for k, v in _flatten(back).items():
+    res["at4/" + k] = full_value(v).numpy()
+    res["at4_dtensor/" + k] = np.array(hasattr(v, "device_mesh"))
+resumed = train.main(argv + ["--ckpt-dir", resume_dir])
+res["resumed"] = np.array(resumed.losses)
+res["resumed_start"] = np.array(resumed.start_step)
+whole = train.main(argv + ["--ckpt-dir", whole_dir])
+res["whole"] = np.array(whole.losses)
+for k, v in _flatten(whole.state).items():
+    res["final/" + k] = full_value(v).numpy()
+try:
+    train.main(argv + ["--mesh", "multi"])
+    res["multi"] = np.array("")
+except ValueError as err:
+    res["multi"] = np.array(str(err))
+np.savez(out, **res)
+dist.destroy_process_group()
+"""
+
+
+def test_checkpoint_restart_and_elastic_restore(tmp_path):
+    """The reference's test_checkpoint_restart_and_elastic_restore on the
+    port: stablelm_12b smoke, 8 steps at batch 4, seq 16, a checkpoint
+    every 2, preempted at step 4 in one process (exit 42); resumed on four
+    gloo ranks ((2, 2) mesh) it prints "restored checkpoint at step 4" and
+    "final loss" (rank 0 alone), and its losses equal an uninterrupted
+    four-rank run's within 1e-6. The step-4 checkpoint one process wrote
+    restores onto the mesh as ``DTensor`` s holding its values bit for bit,
+    the step-8 checkpoint four ranks wrote restores in one process bit for
+    bit, and ``--mesh multi`` on four ranks names the 16 it needs."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    resume, whole = tmp_path / "resume", tmp_path / "whole"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *CKPT_ARGS,
+         "--ckpt-dir", str(resume), "--simulate-preempt", "4"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=240)
+    assert proc.returncode == 42, proc.stderr[-2000:]
+    assert "SIMULATED PREEMPTION at step 4" in proc.stdout
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", LAUNCH_RANK, str(tmp_path / f"rank{r}.npz"),
+         str(tmp_path / "rendezvous"), str(resume), str(whole), *CKPT_ARGS],
+        env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(4)]
+    try:
+        outs = []
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-4000:]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert "restored checkpoint at step 4" in outs[0], outs[0]
+    assert "final loss" in outs[0]
+    assert all("final loss" not in o and "restored" not in o
+               for o in outs[1:])
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
+    r0 = ranks[0]
+    assert int(r0["resumed_start"]) == 4 and len(r0["resumed"]) == 4
+    np.testing.assert_allclose(r0["resumed"], r0["whole"][4:],
+                               rtol=RESUME_TOL)
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["whole"], r0["whole"])
+    with np.load(resume / "step_0000000004" / "state.npz") as z:
+        saved = {k: z[k] for k in z.files}
+    keys = [k[len("at4/"):] for k in r0 if k.startswith("at4/")]
+    assert set(keys) == set(saved)
+    for k in keys:
+        np.testing.assert_array_equal(r0["at4/" + k], saved[k], err_msg=k)
+        assert bool(r0["at4_dtensor/" + k]) == (k != ".step"), k
+    model = build_model(get_smoke_config("stablelm_12b"))
+    template = make_train_step(model, device=CPU).init_state(0)
+    back = CheckpointManager(str(whole)).restore(template)
+    assert int(back.step) == 8
+    for k, v in _flatten(back).items():
+        assert not hasattr(v, "device_mesh")
+        np.testing.assert_array_equal(v.numpy(), r0["final/" + k],
+                                      err_msg=k)
+    assert "multiple of 16 ranks" in str(r0["multi"])
 
 
 def test_distributed_serving_example_on_four_gloo_ranks():

@@ -214,3 +214,46 @@ def test_table_shapes_nests_as_the_parameters():
     assert got["layers"]["mlp"]["wi_0"].spec == (None, None,
                                                  ("model", "data"))
     assert got["embed"].spec == ("model", None)
+
+
+@pytest.mark.parametrize("opt", ["adamw", "adafactor"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_state_shardings_equal_the_reference(arch, opt):
+    """The moments' logical axes (``opt_logical``) equal the reference's
+    ``_state_logical``, and ``state_shardings`` gives every parameter and
+    moment the reference's spec (its rule on the moment's own shape, from
+    ``jax.eval_shape`` of its ``init_opt_state``) at every mesh shape,
+    under ``rules_for``; the step is left to every rank (``None``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.train import optimizers as ref_opt
+    from repro.train.trainer import _state_logical
+    from repro_torch.train.optimizers import OptConfig, tree_leaves
+
+    model = build_model(get_config(arch))
+    rmodel = ref_models.build_model(ref_configs.get_config(arch))
+    cfg, rcfg = OptConfig(name=opt), ref_opt.OptConfig(name=opt)
+    _, ref_logical = _state_logical(rmodel, rcfg)
+    assert sh.opt_logical(model.logical, cfg) == jax.tree_util.tree_map(
+        tuple, ref_logical, is_leaf=sh._is_logical)
+    p_shapes = jax.tree_util.tree_map(
+        lambda s: jax.ShapeDtypeStruct(tuple(s), jnp.float32),
+        sh.table_shapes(model.param_table),
+        is_leaf=lambda x: isinstance(x, torch.Size))
+    o_shapes = jax.eval_shape(lambda: ref_opt.init_opt_state(p_shapes, rcfg))
+    is_lg = sh._is_logical
+    rules = sh.rules_for(model.cfg)
+    for shape in MESHES:
+        mesh = _mesh(shape)
+        got = sh.state_shardings(model, mesh, rules, cfg)
+        assert got.step is None
+        want = [tuple(ref_sh.logical_to_pspec(lg, rules, mesh, s.shape))
+                for lg, s in zip(
+                    jax.tree_util.tree_leaves(ref_logical, is_leaf=is_lg),
+                    jax.tree_util.tree_leaves(o_shapes))]
+        assert [n.spec for n in tree_leaves(got.opt_state)] == want, shape
+        assert [n.spec for n in tree_leaves(got.params)] == [
+            sh.logical_to_pspec(lg, rules, mesh, tuple(s))
+            for lg, s in zip(tree_leaves(model.logical),
+                             tree_leaves(sh.table_shapes(
+                                 model.param_table)))]
