@@ -167,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -239,7 +240,8 @@ from repro_torch.baselines import (CurveTransformerConfig,  # noqa: E402
                                    PretrainConfig, head_to_head, pretrain)
 from repro_torch.baselines import forward as curve_forward  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, get_config,  # noqa: E402
+                                 get_smoke_config)
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import build_model, count_params  # noqa: E402
@@ -251,16 +253,18 @@ from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.train import OptConfig, make_train_step  # noqa: E402
 from repro_torch.train.trainer import make_serve_steps  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
-    FSDP_RULES, SERVE_RULES, cache_spec, full_value, logical_to_pspec,
+    SERVE_RULES, block_ranges, full_value, keyed_block, logical_to_pspec,
     mesh_shape, param_bytes_per_rank, param_placer, rules_for,
-    set_active_mesh, shard_params, spec_bytes, state_shardings, table_shapes)
+    set_active_mesh, shard_params, slab_seed, slabs)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.train.compression import (  # noqa: E402
     dequantize_leaf, make_compressed_allreduce, quantize_leaf)
 from repro_torch.train.pipeline import pipelined_forward  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import table_logical  # noqa: E402
-from repro_torch.train.optimizers import (init_opt_state,  # noqa: E402
-                                          tree_leaves, tree_map)
+from repro_torch.train.optimizers import (tree_leaves,  # noqa: E402
+                                          tree_map)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
 import torch_automl_early_stopping as automl_example  # noqa: E402
@@ -4763,64 +4767,25 @@ def sharded_moe_rows(mesh) -> list[dict]:
     return rows
 
 
-def init_peak_per_rank(table: dict, rules, mesh, dtype) -> int:
-    """The leaf-by-leaf placed init's peak on one rank (no allocation):
-    the blocks placed so far, then a leaf's float32 draw, its cast and its
-    block (a norm or bias leaf is made in ``dtype`` directly)."""
-    size = torch.finfo(dtype).bits // 8
-    placed = peak = 0
-    for name in sorted(table):
-        shape, logical, fan = table[name]
-        n = math.prod(shape)
-        block = spec_bytes(shape, logical_to_pspec(logical, rules, mesh,
-                                                   shape), mesh, size)
-        drawn = n * size + (0 if transformer.zero_init(name) else n * 4)
-        peak = max(peak, placed + drawn + block)
-        placed += block
-    return peak
-
-
 def sharded_plan_rows() -> list[dict]:
-    """Per big config and mesh (data, model): the bf16 parameter bytes per
-    rank under SERVE_RULES (held to the resolver's table), the KV cache
-    bytes per rank at 8 x 2048 under both cache layouts, the leaf-by-leaf
-    init's peak per rank, and the smallest mesh whose parameters and cache
-    fit one card. Nothing is allocated."""
-    rows = []
-    batch, positions = SHARDED_PLAN_CACHE
-    for arch, want in SHARDED_PLAN.items():
-        cfg = get_config(arch)
-        model = build_model(cfg)
-        size = torch.finfo(cfg.dtype_param).bits // 8
-        whole = sum(math.prod(s) for s, _, _ in model.param_table.values())
-        row = {"arch": arch, "whole_gb": whole * size / 1e9, "meshes": {}}
+    """Per big config and mesh (data, model), from ``launch/dryrun.py``'s
+    plan arithmetic (nothing allocated): the bf16 parameter bytes per rank
+    under SERVE_RULES (held to the resolver's table), the KV cache bytes per
+    rank at 8 x 2048 under both cache layouts, the keyed init's peak per
+    rank beside the leaf-by-leaf init's it replaced, and the smallest mesh
+    that fits one card."""
+    rows = dryrun.serve_plan_rows(SHARDED_PLAN, SHARDED_PLAN_MESHES,
+                                  SHARDED_PLAN_CACHE, CARD_BYTES)
+    for row in rows:
+        want = SHARDED_PLAN[row["arch"]]
         check(round(row["whole_gb"], 1) == want["whole"],
-              f"sharded plan {arch}: whole {row['whole_gb']}")
-        cache = model.init_cache(batch, positions, device="meta")
-        fits = None
+              f"sharded plan {row['arch']}: whole {row['whole_gb']}")
         for shape in SHARDED_PLAN_MESHES:
-            mesh = types.SimpleNamespace(
-                shape={"data": shape[0], "model": shape[1]})
-            p = param_bytes_per_rank(model.param_table, SERVE_RULES, mesh,
-                                     size)
-            kv = {prefer: sum(spec_bytes(
-                leaf.shape, cache_spec(leaf.shape, leaf.dtype, mesh, prefer),
-                mesh, leaf.element_size()) for leaf in cache)
-                for prefer in ("width", "time")}
-            entry = {"param_gb": p / 1e9, "kv_cache_gb": {
-                         k: v / 1e9 for k, v in kv.items()},
-                     "init_peak_gb": init_peak_per_rank(
-                         model.param_table, SERVE_RULES, mesh,
-                         cfg.dtype_param) / 1e9,
-                     "fits_card": p + max(kv.values()) <= CARD_BYTES}
+            entry = row["meshes"]["x".join(map(str, shape))]
             check(round(entry["param_gb"], 1) == want[shape],
-                  f"sharded plan {arch} at {shape}: {entry['param_gb']} GB "
-                  f"per rank, the resolver's table says {want[shape]}")
-            if fits is None and entry["fits_card"]:
-                fits = list(shape)
-            row["meshes"]["x".join(map(str, shape))] = entry
-        row["smallest_fitting_mesh"] = fits
-        rows.append(row)
+                  f"sharded plan {row['arch']} at {shape}: "
+                  f"{entry['param_gb']} GB per rank, the resolver's table "
+                  f"says {want[shape]}")
     return rows
 
 
@@ -5188,59 +5153,14 @@ def sharded_pipeline_row(mesh_pod) -> dict:
     return row
 
 
-def train_state_bytes(model, mesh, opt: OptConfig, rules) -> dict:
-    """Bytes one rank holds of the train state (no allocation): parameters
-    and gradients in the parameter dtype, moments in ``opt``'s, each leaf
-    by its sharding."""
-    sh = state_shardings(model, mesh, rules, opt)
-    shapes = table_shapes(model.param_table)
-    psize = torch.finfo(model.cfg.dtype_param).bits // 8
-    msize = torch.finfo(opt.moments_dtype).bits // 8
-    p = sum(spec_bytes(tuple(s), n.spec, mesh, psize)
-            for s, n in zip(tree_leaves(shapes), tree_leaves(sh.params)))
-    o_shapes = init_opt_state(tree_map(
-        lambda s: torch.empty(s, device="meta"), shapes), opt)
-    m = sum(spec_bytes(tuple(o.shape), n.spec, mesh, msize)
-            for o, n in zip(tree_leaves(o_shapes),
-                            tree_leaves(sh.opt_state)))
-    return {"params_gb": p / 1e9, "grads_gb": p / 1e9, "moments_gb": m / 1e9,
-            "total_gb": (2 * p + m) / 1e9}
-
-
 def sharded_train_plan_rows() -> list[dict]:
-    """Per big config: the train state per rank under ``rules_for`` at
+    """Per big config, from ``launch/dryrun.py``'s plan arithmetic
+    (nothing allocated): the train state per rank under ``rules_for`` at
     (world / 8, 8) and (2, world / 16, 8), AdamW with float32 moments and
-    Adafactor with bf16 moments, and the smallest mesh whose state fits one
-    card (activations not counted). Nothing is allocated."""
-    rows = []
-    for arch in SHARDED_TRAIN_PLAN:
-        cfg = get_config(arch)
-        model = build_model(cfg)
-        rules = rules_for(cfg)
-        row = {"arch": arch, "params": count_params(cfg),
-               "rules": "FSDP_RULES" if rules is FSDP_RULES else "TP_RULES",
-               "meshes": {}, "smallest_fitting_mesh": {},
-               "activations": "not counted"}
-        for opt in (OptConfig(name="adamw"),
-                    OptConfig(name="adafactor",
-                              moments_dtype=torch.bfloat16)):
-            key = f"{opt.name} {str(opt.moments_dtype).split('.')[-1]}"
-            fits = None
-            for world in SHARDED_TRAIN_WORLDS:
-                shapes = [{"data": world // 8, "model": 8}]
-                if world >= 16:
-                    shapes.append({"pod": 2, "data": world // 16,
-                                   "model": 8})
-                for shape in shapes:
-                    mesh = types.SimpleNamespace(shape=shape)
-                    b = train_state_bytes(model, mesh, opt, rules)
-                    name = "x".join(str(v) for v in shape.values())
-                    row["meshes"].setdefault(name, {})[key] = b
-                    if fits is None and b["total_gb"] * 1e9 <= CARD_BYTES:
-                        fits = name
-            row["smallest_fitting_mesh"][key] = fits
-        rows.append(row)
-    return rows
+    Adafactor with bf16 moments, the keyed init's peak per rank, and the
+    smallest mesh whose state fits one card (activations not counted)."""
+    return dryrun.train_plan_rows(SHARDED_TRAIN_PLAN, SHARDED_TRAIN_WORLDS,
+                                  CARD_BYTES)
 
 
 def phase_sharded_train(backend: str = "nccl") -> dict:
@@ -5282,6 +5202,336 @@ def phase_sharded_train(backend: str = "nccl") -> dict:
         chain.shutdown()
     out["restart"] = timed_row(sharded_restart_rows, smi, runs)
     out["plan"] = sharded_train_plan_rows()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# The plan phase: the keyed init and the dry run (launch/dryrun.py) on the
+# card. stablelm_12b whole in bf16: its one-device init against the blocks
+# of the 4 ranks of a (1, 4) SERVE_RULES mesh, drawn by the block function,
+# bit for bit, each rank's peak beside its blocks plus one slab. The three
+# big configs at their fitting serve meshes: rank 0's and the largest
+# rank's blocks drawn on the card, the peak within PLAN_INIT_TOL of the
+# dry run's rule and under one card, two leaves slab by slab against direct
+# draws. Then the dry run in a fake group of one against the peaks the
+# sharded and sharded_train rows measured (within PLAN_DRY_TOL where the
+# measured peak reaches PLAN_DRY_FROM), and one multi-rank cell per big
+# config at its mesh in a fake group: a decode step at PLAN_CELL (batch,
+# cache positions) and its roofline row at the H100's spec-sheet peaks.
+PLAN_WHOLE = ("stablelm_12b", (1, 4))
+PLAN_BIG = {"qwen2_72b": (1, 4), "qwen3_moe_235b": (1, 8),
+            "arctic_480b": (2, 8)}
+PLAN_INIT_TOL = 0.05
+PLAN_DRY_TOL = 0.20
+PLAN_DRY_FROM = 10e9
+PLAN_CELL = (8, 2048)
+
+
+def plan_mesh(shape) -> types.SimpleNamespace:
+    """A (data, model) mesh's sizes, for the block function and the plan
+    arithmetic (no process group)."""
+    return types.SimpleNamespace(shape={"data": shape[0], "model": shape[1]})
+
+
+def keyed_blocks(model, rules, mesh, coords) -> dict:
+    """Every leaf's block of the rank at ``coords``, drawn on the card by
+    ``sharding.keyed_block`` from SEED in ``build_params``' order."""
+    sizes = mesh_shape(mesh)
+    out = {}
+    for name in sorted(model.param_table):
+        shape, logical, fan = model.param_table[name]
+        out[name] = keyed_block(
+            SEED, name, shape, transformer.init_std(name, fan),
+            logical_to_pspec(logical, rules, mesh, shape), sizes, coords,
+            model.cfg.dtype_param, DEV)
+    torch.cuda.synchronize()
+    return out
+
+
+def leaf_of(params: dict, name: str) -> torch.Tensor:
+    for part in name.split("/"):
+        params = params[part]
+    return params
+
+
+def block_of(model, rules, mesh, coords, name):
+    """(ranges, spec) of the block of leaf ``name`` at ``coords``."""
+    shape, logical, _ = model.param_table[name]
+    spec = logical_to_pspec(logical, rules, mesh, shape)
+    return block_ranges(shape, spec, mesh_shape(mesh), coords)
+
+
+def slabs_equal_direct(block, model, rules, mesh, coords, name) -> int:
+    """The block of leaf ``name`` against a direct draw of each slab it
+    meets (a generator seeded by ``slab_seed``, scaled, cast and cut), one
+    slab at a time: the number of slabs, all equal or it fails."""
+    shape, _, fan = model.param_table[name]
+    std = transformer.init_std(name, fan)
+    ranges = block_of(model, rules, mesh, coords, name)
+    gen = torch.Generator(device=DEV)
+    count = 0
+    for lead, (r0, r1) in slabs(shape, ranges):
+        gen.manual_seed(slab_seed(SEED, name, lead, r0))
+        if len(shape) < 2:
+            want = torch.randn(shape, generator=gen, device=DEV).mul_(std)
+            want = want[tuple(slice(lo, hi) for lo, hi in ranges)]
+            got = block
+        else:
+            want = torch.randn((r1 - r0, shape[-1]), generator=gen,
+                               device=DEV).mul_(std)
+            (lo, hi), (c0, c1) = ranges[-2:]
+            a, b = max(r0, lo), min(r1, hi)
+            want = want[a - r0:b - r0, c0:c1]
+            at = tuple(i - rl for i, (rl, _) in zip(lead, ranges))
+            got = block[at + (slice(a - lo, b - lo),)]
+        check(torch.equal(got, want.to(block.dtype)),
+              f"plan: {name} slab {lead} {r0} at {coords} differs from "
+              f"its direct draw")
+        count += 1
+    return count
+
+
+def plan_whole_rows(smi: str) -> dict:
+    """stablelm_12b whole in bf16: the one-device keyed init, then each
+    rank's blocks of a (1, 4) SERVE_RULES mesh against its leaves."""
+    arch, shape = PLAN_WHOLE
+    model = build_model(get_config(arch))
+    table, dtype = model.param_table, model.cfg.dtype_param
+    size = torch.finfo(dtype).bits // 8
+    mesh = plan_mesh(shape)
+    start = start_memory()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    torch.cuda.synchronize()
+    out = {"arch": arch, "card": smi, "mesh": list(shape),
+           "one_device": {"seconds": time.perf_counter() - t0,
+                          "peak_bytes": torch.cuda.max_memory_allocated()
+                          - start,
+                          "param_bytes": param_bytes_per_rank(
+                              table, SERVE_RULES, plan_mesh((1, 1)), size)},
+           "ranks": []}
+    for r, coords in enumerate(dryrun.rank_coords(mesh)):
+        base = start_memory()
+        t0 = time.perf_counter()
+        blocks = keyed_blocks(model, SERVE_RULES, mesh, coords)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        equal = all(torch.equal(blocks[name], leaf_of(params, name)[tuple(
+            slice(lo, hi) for lo, hi in block_of(model, SERVE_RULES, mesh,
+                                                 coords, name))])
+            for name in table)
+        rule = dryrun.init_peak_per_rank(table, SERVE_RULES, mesh, dtype,
+                                         coords)
+        out["ranks"].append({
+            "rank": r, "coords": coords, "seconds": seconds,
+            "peak_bytes": peak,
+            "block_bytes": param_bytes_per_rank(table, SERVE_RULES, mesh,
+                                                size),
+            "blocks_plus_one_slab_bytes": rule, "peak_over_rule": peak / rule,
+            "bit_for_bit_with_one_device": equal})
+        del blocks
+        check(equal, f"plan: {arch} rank {r}'s blocks differ from the "
+              f"one-device init")
+    del params
+    return out
+
+
+def plan_big_rows(smi: str) -> list[dict]:
+    """The three big configs at their fitting serve meshes: rank 0's and
+    the largest rank's blocks (by the dry run's rule, the last of equals)
+    drawn on the card, their peak against the rule and one card, two
+    leaves (the embedding and the largest) slab by slab."""
+    rows = []
+    for arch, shape in PLAN_BIG.items():
+        model = build_model(get_config(arch))
+        table, dtype = model.param_table, model.cfg.dtype_param
+        size = torch.finfo(dtype).bits // 8
+        mesh = plan_mesh(shape)
+        coords_all = dryrun.rank_coords(mesh)
+        rules = [dryrun.init_peak_per_rank(table, SERVE_RULES, mesh, dtype,
+                                           c) for c in coords_all]
+        largest = max(range(len(rules)), key=lambda r: (rules[r], r))
+        big = max((n for n in table if transformer.init_std(
+            n, table[n][2]) > 0), key=lambda n: math.prod(table[n][0]))
+        row = {"arch": arch, "card": smi, "mesh": list(shape),
+               "leafwise_init_peak_bytes":
+                   dryrun.leafwise_init_peak_per_rank(table, SERVE_RULES,
+                                                      mesh, dtype),
+               "ranks": []}
+        for r in sorted({0, largest}):
+            coords = coords_all[r]
+            base = start_memory()
+            t0 = time.perf_counter()
+            blocks = keyed_blocks(model, SERVE_RULES, mesh, coords)
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            checked = {n: slabs_equal_direct(blocks[n], model, SERVE_RULES,
+                                             mesh, coords, n)
+                       for n in ("embed", big)}
+            entry = {"rank": r, "coords": coords, "seconds": seconds,
+                     "peak_bytes": peak,
+                     "init_peak_bytes_per_rank": rules[r],
+                     "peak_over_rule": peak / rules[r],
+                     "block_bytes": param_bytes_per_rank(
+                         table, SERVE_RULES, mesh, size),
+                     "slabs_checked": checked}
+            row["ranks"].append(entry)
+            del blocks
+            check(peak <= CARD_BYTES
+                  and abs(peak / rules[r] - 1) <= PLAN_INIT_TOL,
+                  f"plan: {arch} rank {r}: init peak {peak} against the "
+                  f"rule's {rules[r]} (tol {PLAN_INIT_TOL}), card "
+                  f"{CARD_BYTES}")
+        rows.append(row)
+    return rows
+
+
+def _ratio(predicted, measured):
+    return predicted / measured if measured else None
+
+
+def plan_against_measured(sharded: dict | None,
+                          sharded_train: dict | None) -> dict:
+    """The dry run in a fake group of one on a (1, 1) mesh, at each row of
+    the sharded and sharded_train phases: the predicted per-rank peaks (the
+    keyed init's; the serve's: the larger of the init's, the prefill's and
+    a decode step's; the train step's, donated, from the placed state)
+    beside what the card measured, with their ratio."""
+    serve_rows = (sharded or {}).get("serve", [])
+    train_rows = (sharded_train or {}).get("train", [])
+    out = {"serve": [], "train": []}
+    with dryrun.fake_world(1):
+        mesh = make_debug_mesh(1, 1, device_type=DEV.type)
+        for i, (arch, layers, batch, prompt, gen) in enumerate(SHARDED_SERVE):
+            cfg = get_config(arch)
+            if layers is not None:
+                cfg = cfg.replace(num_layers=layers)
+            table = build_model(cfg).param_table
+            max_len = prompt + gen + (cfg.num_patch_tokens or 0)
+            init = dryrun.init_peak_per_rank(table, SERVE_RULES, mesh,
+                                             cfg.dtype_param)
+            pre, dec = (dryrun.plan_layers(cfg, lambda c, kind=kind:
+                                           dryrun.plan_serve(
+                                               c, batch, prompt, mesh, kind,
+                                               SERVE_RULES, max_len),
+                                           whole=True)[0]
+                        for kind in ("prefill", "decode"))
+            serve = max(init, pre["memory_analysis"]["peak_bytes_per_device"],
+                        dec["memory_analysis"]["peak_bytes_per_device"])
+            got = serve_rows[i] if i < len(serve_rows) else {}
+            out["serve"].append({
+                "arch": arch, "layers": cfg.num_layers,
+                "init": {"predicted": init,
+                         "measured": got.get("init_peak_bytes"),
+                         "ratio": _ratio(init, got.get("init_peak_bytes"))},
+                "serve": {"predicted": serve,
+                          "measured": got.get("serve_peak_bytes"),
+                          "ratio": _ratio(serve,
+                                          got.get("serve_peak_bytes"))}})
+        for i, (arch, layers, opt_name, accum) in enumerate(SHARDED_TRAIN):
+            cfg = get_config(arch)
+            if layers is not None:
+                cfg = cfg.replace(num_layers=layers)
+            opt = OptConfig(name=opt_name)
+            batch, seq = SHARDED_TRAIN_SHAPE
+            art = dryrun.plan_layers(cfg, lambda c: dryrun.plan_train(
+                c, batch, seq, mesh, opt, accum), whole=True)[0]
+            step = art["memory_analysis"]["peak_bytes_per_device"]
+            got = train_rows[i]["mesh"] if i < len(train_rows) else {}
+            measured = got.get("peak_memory_bytes")
+            if measured is not None:
+                measured -= got["allocated_at_start_bytes"]
+            out["train"].append({
+                "arch": arch, "layers": cfg.num_layers,
+                "optimizer": opt_name, "grad_accum": accum,
+                "step": {"predicted": step, "measured": measured,
+                         "ratio": _ratio(step, measured)},
+                "flops_per_step": art["cost_analysis"]["flops_per_device"]})
+    for part in ("serve", "train"):
+        for row in out[part]:
+            for key in ("init", "serve", "step"):
+                cell = row.get(key)
+                if cell and cell["measured"] and \
+                        cell["measured"] >= PLAN_DRY_FROM:
+                    check(abs(cell["ratio"] - 1) <= PLAN_DRY_TOL,
+                          f"plan: the dry run's {key} peak of {row['arch']} "
+                          f"against the card's: {cell}")
+    return out
+
+
+def plan_cells() -> list[dict]:
+    """One multi-rank cell per big config at its mesh, in a fake group of
+    that many ranks: a decode step at PLAN_CELL under SERVE_RULES (the
+    plan's rules), its artifact and its roofline row."""
+    rows = []
+    batch, positions = PLAN_CELL
+    shape = types.SimpleNamespace(name=f"decode_{batch}x{positions}",
+                                  seq_len=positions, global_batch=batch,
+                                  kind="decode")
+    for arch, (data, model) in PLAN_BIG.items():
+        with dryrun.fake_world(data * model):
+            mesh = make_debug_mesh(data, model, device_type=DEV.type)
+            t0 = time.perf_counter()
+            art = dryrun.plan_cell(arch, shape, mesh, f"{data}x{model}",
+                                   rules=SERVE_RULES)
+        art["seconds"] = time.perf_counter() - t0
+        terms = roofline.roofline_terms(art)
+        rows.append({"artifact": art, "roofline": terms})
+        check(art["cost_analysis"]["flops_per_device"] > 0
+              and art["memory_analysis"]["argument_bytes_per_device"] > 0,
+              f"plan: the {arch} cell counted nothing: {art}")
+    return rows
+
+
+def plan_coverage() -> list[dict]:
+    """What this PyTorch's DTensor dispatches on a (2, 2) mesh: the dry
+    run of every family's smoke config (prefill, decode and train of 4 x
+    16 tokens) in a fake group of 4, each cell's outcome and, where it
+    stops, the error and the port's frames. Not a check: it records which
+    mesh paths beyond one rank the card's PyTorch runs."""
+    rows = []
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        patches = cfg.num_patch_tokens or 0
+        for kind in ("prefill", "decode", "train"):
+            row = {"arch": arch, "kind": kind}
+            try:
+                with dryrun.fake_world(4):
+                    mesh = make_debug_mesh(2, 2, device_type=DEV.type)
+                    if kind == "train":
+                        dryrun.plan_train(cfg, 4, 16 + patches, mesh,
+                                          OptConfig())
+                    else:
+                        dryrun.plan_serve(cfg, 4, 16 + patches, mesh, kind,
+                                          SERVE_RULES, 32 + patches)
+                row["dispatched"] = True
+            except RuntimeError as err:
+                frames = [f for f in traceback.extract_tb(err.__traceback__)
+                          if "repro_torch" in f.filename]
+                row.update(dispatched=False,
+                           error=str(err).splitlines()[0][:200],
+                           at=[f"{Path(f.filename).name}:{f.lineno}"
+                               for f in frames[-3:]])
+            rows.append(row)
+    return rows
+
+
+def phase_plan(sharded: dict | None = None,
+               sharded_train: dict | None = None) -> dict:
+    """The keyed init on the card and the dry run against it (the comment
+    above PLAN_WHOLE)."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    out = {"phase": "plan", "card": smi,
+           "allocated_at_start_bytes": start_memory()}
+    out["whole"] = timed_row(plan_whole_rows, smi)
+    gc.collect()
+    out["big"] = timed_row(plan_big_rows, smi)
+    gc.collect()
+    out["dry_run_world_of_one"] = timed_row(plan_against_measured, sharded,
+                                            sharded_train)
+    out["cells"] = timed_row(plan_cells)
+    out["coverage_2x2"] = timed_row(plan_coverage)
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -5566,7 +5816,8 @@ def main() -> None:
     # per-rank plan of the configs that need several cards. Plain PyTorch:
     # the reference's sharded steps are plain jnp under XLA, no kernel.
     with unescalated("sharded"):
-        emit(phase_sharded())
+        sharded_out = phase_sharded()
+    emit(sharded_out)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5577,7 +5828,18 @@ def main() -> None:
     # the train state per rank. Plain PyTorch: the reference's train path is
     # plain jnp under XLA, no kernel.
     with unescalated("sharded_train"):
-        emit(phase_sharded_train())
+        sharded_train_out = phase_sharded_train()
+    emit(sharded_train_out)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Main path 4i, the plan: the keyed init of the configs that need
+    # several cards drawn a rank at a time on the card, and the dry run
+    # (launch/dryrun.py, a fake process group) against the peaks the two
+    # mesh phases measured. Plain PyTorch: no kernel.
+    with unescalated("plan"):
+        emit(phase_plan(sharded_out, sharded_train_out))
+    del sharded_out, sharded_train_out
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,8 +1,8 @@
 """Serve a small model with batched requests on a device mesh (the port's
 counterpart of ``examples/distributed_serving.py``).
 
-The serving path end to end: parameters drawn leaf by leaf and placed by
-``TP_RULES`` as ``DTensor`` s, the prefill's KV cache in its sharded
+The serving path end to end: each rank draws its blocks of the parameters
+by ``TP_RULES`` as ``DTensor`` s, the prefill's KV cache in its sharded
 layout, then batched greedy decode. On the CPU four gloo ranks, each a
 process of this script, serve on a (data 2, model 2) mesh::
 

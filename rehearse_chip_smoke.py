@@ -20,6 +20,7 @@
     python3 rehearse_chip_smoke.py encdec
     python3 rehearse_chip_smoke.py sharded
     python3 rehearse_chip_smoke.py sharded_train
+    python3 rehearse_chip_smoke.py plan
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -123,7 +124,8 @@ def main() -> None:
                                       "solvers", "exact", "automl",
                                       "service", "amortize", "curvepred",
                                       "zoo", "decoder", "griffin",
-                                      "encdec", "sharded", "sharded_train"))
+                                      "encdec", "sharded", "sharded_train",
+                                      "plan"))
     ap.add_argument("--n", type=int, default=300,
                     help="configurations of the fit, warm and automl "
                          "phases (m=52, d=7; the automl phase's Hyperband "
@@ -314,6 +316,33 @@ def main() -> None:
         cs.nvidia_smi_line = lambda: "CPU rehearsal, no card"
         with cs.unescalated("sharded_train"):
             print(json.dumps(cs.phase_sharded_train("gloo")))
+    elif args.phase == "plan":
+        # The published widths do not fit the CPU: the keyed init of each
+        # smoke config with the published numerics (bf16) on the CPU, at
+        # the card's meshes; the dry run at a world of one at the smoke
+        # widths (no measured rows: ratios None); the multi-rank cells at
+        # published width (meta tensors: nothing allocated).
+        def smoke(arch):
+            return cs.get_smoke_config(arch).replace(
+                dtype_act=torch.bfloat16, dtype_param=torch.bfloat16,
+                remat=True)
+        cs.get_config = smoke
+        cs.nvidia_smi_line = lambda: "CPU rehearsal, no card"
+        # the blocks' peak: live bytes counted op by op (the dry run's
+        # counter) in place of the card's allocator
+        from repro_torch.launch.dryrun import StepCounter
+        blocks, peak = cs.keyed_blocks, [0]
+
+        def counted_blocks(*a):
+            counter = StepCounter()
+            with counter:
+                out = blocks(*a)
+            peak[0] = counter.peak
+            return out
+        cs.keyed_blocks = counted_blocks
+        torch.cuda.max_memory_allocated = lambda *a, **k: peak[0]
+        with cs.unescalated("plan"):
+            print(json.dumps(cs.phase_plan()))
     elif args.phase == "exact":
         with cs.unescalated("exact"):
             print(json.dumps(cs.phase_exact()))

@@ -32,6 +32,8 @@ expert-parallel path; ``None`` (one device) keeps the grouped einsum path.
 """
 from __future__ import annotations
 
+import hashlib
+import itertools
 import math
 from typing import Any, Mapping, NamedTuple
 
@@ -46,7 +48,9 @@ __all__ = ["TP_RULES", "FSDP_RULES", "ZERO_RULES", "SERVE_RULES", "ACT_RULES",
            "table_shapes", "spec_bytes", "param_bytes_per_rank",
            "cache_spec", "to_local", "param_placer", "full_value",
            "opt_logical", "state_shardings", "placed_zeros",
-           "sum_to_replicas"]
+           "sum_to_replicas", "keyed_block", "block_ranges", "slab_rows",
+           "drawn_slab_bytes", "SLAB_BYTES", "slabs", "slab_seed",
+           "contiguous_stride"]
 
 # Mesh context for the layers with an explicit-collective path (the MoE's
 # expert parallelism). Set by the serve steps; None on one device.
@@ -402,15 +406,148 @@ def shard_params(params, mesh, rules, logical):
 
 
 def param_placer(table: dict, mesh, rules):
-    """A ``place(name, tensor)`` for ``build_params`` (``model.init(...,
-    place=...)``): each leaf of ``table`` placed by ``rules`` right after
-    its draw. A rank then holds its blocks plus one full leaf at a time
-    (its float32 draw and its cast to the parameter dtype)."""
-    def place(name, t):
-        _, logical, _ = table[name]
-        return shard_tensor(t, mesh,
-                            logical_to_pspec(logical, rules, mesh, t.shape))
+    """A ``place(name, seed, std, dtype, device)`` for ``build_params``
+    (``model.init(..., place=...)``): this rank's block of the leaf
+    ``name`` of ``table``, laid out by ``rules``, drawn by
+    :func:`keyed_block` and wrapped in a ``DTensor``. The values are those
+    of the keyed stream (its own stream, not the reference's), the same on
+    every mesh as on one device; a rank holds its blocks plus one slab
+    (:data:`SLAB_BYTES` of float32) at a time, never a whole leaf."""
+    from torch.distributed.tensor import DTensor
+
+    sizes = mesh_shape(mesh)
+    coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+    def place(name, seed, std, dtype, device):
+        shape, logical, _ = table[name]
+        spec = logical_to_pspec(logical, rules, mesh, shape)
+        local = keyed_block(seed, name, shape, std, spec, sizes, coords,
+                            dtype, device)
+        return DTensor.from_local(local, mesh, spec_placements(spec, mesh),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
     return place
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (nothing made)."""
+    stride, n = [], 1
+    for d in reversed(tuple(shape)):
+        stride.append(n)
+        n *= d
+    return tuple(reversed(stride))
+
+
+# -- the keyed, mesh-independent init ----------------------------------------
+SLAB_BYTES = 64 * 2 ** 20       # float32 bytes of one slab, at most
+
+
+def slab_rows(shape) -> int:
+    """Rows of the second-to-last axis in one slab of a leaf of ``shape``:
+    as many as :data:`SLAB_BYTES` of float32 hold, at least one. A leaf of
+    rank below 2 is one slab."""
+    if len(shape) < 2:
+        return 1
+    return max(1, min(shape[-2], SLAB_BYTES // (4 * max(1, shape[-1]))))
+
+
+def block_ranges(shape, spec: tuple, sizes: Mapping[str, int],
+                 coords: Mapping[str, int]) -> list[tuple[int, int]]:
+    """The ``[lo, hi)`` of each dimension of the block that the rank at
+    ``coords`` holds of a tensor of ``shape`` laid out by ``spec``, split
+    as DTensor splits it: over the mesh axes in mesh order (``sizes``'
+    order), each by ``torch.chunk`` (ranks past the last chunk empty)."""
+    ranges = [(0, n) for n in shape]
+    where = {a: d for d, entry in enumerate(spec) for a in _entry_axes(entry)}
+    for axis, k in sizes.items():
+        if axis not in where or k == 1:
+            continue
+        d = where[axis]
+        lo, hi = ranges[d]
+        n = hi - lo
+        step = -(-n // k)
+        c = coords[axis]
+        ranges[d] = (lo + min(c * step, n), lo + min(c * step + step, n))
+    return ranges
+
+
+def slabs(shape, ranges):
+    """(lead index, row range) of every slab of a leaf of ``shape`` that
+    meets the block ``ranges``: one index of each leading axis times
+    :func:`slab_rows` rows of the second-to-last axis (a leaf of rank below
+    2 is one slab, lead ``()``, rows ``(0, 1)``)."""
+    if len(shape) < 2:
+        if all(hi > lo for lo, hi in ranges):
+            yield (), (0, 1)
+        return
+    if any(hi <= lo for lo, hi in ranges):
+        return
+    rows = slab_rows(shape)
+    r_lo, r_hi = ranges[-2]
+    leads = [range(lo, hi) for lo, hi in ranges[:-2]]
+    for lead in itertools.product(*leads):
+        for j in range(r_lo // rows, -(-r_hi // rows)):
+            yield lead, (j * rows, min(j * rows + rows, shape[-2]))
+
+
+def slab_seed(seed: int, name: str, lead: tuple, row0: int) -> int:
+    key = f"{seed}/{name}/{','.join(map(str, lead))}/{row0}".encode()
+    return int.from_bytes(hashlib.sha256(key).digest()[:8], "little") \
+        & (2 ** 63 - 1)
+
+
+def drawn_slab_bytes(shape, ranges) -> int:
+    """Float32 bytes of the largest slab a block of ``ranges`` draws."""
+    if len(shape) < 2:
+        return 4 * math.prod(shape) if all(hi > lo for lo, hi in ranges) \
+            else 0
+    return max((4 * (r1 - r0) * shape[-1]
+                for _, (r0, r1) in slabs(shape, ranges)), default=0)
+
+
+def keyed_block(seed: int, name: str, shape, std: float, spec: tuple,
+                sizes: Mapping[str, int], coords: Mapping[str, int],
+                dtype: torch.dtype, device) -> torch.Tensor:
+    """The block of the leaf ``name`` (of ``shape``) that the rank at
+    ``coords`` on a mesh of ``sizes`` holds under ``spec``, from the keyed
+    stream: ``std`` times a standard normal, cast to ``dtype`` (``std``
+    0: zeros, no draw).
+
+    Each value is a pure function of (``seed``, ``name``, its position in
+    the leaf): the leaf is tiled into slabs (:func:`slabs`, independent of
+    the mesh), each drawn in float32 from a generator on ``device`` seeded
+    by a SHA-256 of (``seed``, ``name``, the slab's index). The rank draws
+    every slab that meets its block, scales it, copies its part into the
+    block (the cast) and frees it: its peak is the block plus one slab.
+    An empty ``spec`` entry everywhere (``(None,) * len(shape)``, no
+    ``sizes``) gives the whole leaf, equal bit for bit to the blocks of
+    every rank on any mesh, on one device type (CPU and CUDA generators
+    differ)."""
+    ranges = block_ranges(shape, spec, sizes, coords)
+    local = tuple(hi - lo for lo, hi in ranges)
+    if std == 0:
+        return torch.zeros(local, dtype=dtype, device=device)
+    out = torch.empty(local, dtype=dtype, device=device)
+    if len(shape) < 2:
+        if out.numel():
+            gen = torch.Generator(device=device)
+            gen.manual_seed(slab_seed(seed, name, (), 0))
+            slab = torch.randn(tuple(shape), generator=gen,
+                               dtype=torch.float32, device=device).mul_(std)
+            out.copy_(slab[tuple(slice(lo, hi) for lo, hi in ranges)])
+        return out
+    gen = torch.Generator(device=device)
+    (r_lo, r_hi), (c_lo, c_hi) = ranges[-2:]
+    for lead, (r0, r1) in slabs(shape, ranges):
+        gen.manual_seed(slab_seed(seed, name, lead, r0))
+        slab = torch.randn((r1 - r0, shape[-1]), generator=gen,
+                           dtype=torch.float32, device=device).mul_(std)
+        a, b = max(r0, r_lo), min(r1, r_hi)
+        at = tuple(i - lo for i, (lo, _) in zip(lead, ranges))
+        out[at + (slice(a - r_lo, b - r_lo),)].copy_(
+            slab[a - r0:b - r0, c_lo:c_hi])
+        del slab
+    return out
 
 
 def spec_bytes(shape, spec: tuple, mesh, itemsize: int) -> int:
@@ -485,10 +622,10 @@ def placed_zeros(shape, dtype: torch.dtype, sharding: NamedSharding,
     placements = sharding.placements
     local_shape, _ = compute_local_shape_and_global_offset(
         shape, sharding.mesh, placements)
-    full = torch.empty(shape, device="meta")
     return DTensor.from_local(
         torch.zeros(local_shape, dtype=dtype, device=device), sharding.mesh,
-        placements, run_check=False, shape=full.shape, stride=full.stride())
+        placements, run_check=False, shape=torch.Size(shape),
+        stride=contiguous_stride(shape))
 
 
 class _SumToReplicas(torch.autograd.Function):

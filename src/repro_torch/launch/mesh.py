@@ -21,9 +21,10 @@ __all__ = ["make_production_mesh", "make_debug_mesh", "make_mesh_from_args"]
 NODE_CARDS = 8          # cards joined by NVLink in one node: the model axis
 
 
-def _make_mesh(shape: tuple, axes: tuple):
+def _make_mesh(shape: tuple, axes: tuple, device_type: str | None = None):
     """A ``DeviceMesh`` over the whole group: ``cuda`` under NCCL, ``cpu``
-    under gloo."""
+    under gloo, or ``device_type`` where given (a fake group's, in the dry
+    run)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not (dist.is_available() and dist.is_initialized()):
@@ -33,12 +34,14 @@ def _make_mesh(shape: tuple, axes: tuple):
     if world != math.prod(shape):
         raise ValueError(f"a {dict(zip(axes, shape))} mesh needs "
                          f"{math.prod(shape)} ranks; the group has {world}")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None):
     """(world / 8, 8) over ("data", "model"), or with ``multi_pod`` (2,
     world / 16, 8) over ("pod", "data", "model"). A world these shapes do
     not fit raises, naming the ranks it needs."""
@@ -50,15 +53,18 @@ def make_production_mesh(*, multi_pod: bool = False):
                          f"of {step} ranks; the group has {world}")
     if multi_pod:
         return _make_mesh((2, world // step, NODE_CARDS),
-                          ("pod", "data", "model"))
-    return _make_mesh((world // NODE_CARDS, NODE_CARDS), ("data", "model"))
+                          ("pod", "data", "model"), device_type)
+    return _make_mesh((world // NODE_CARDS, NODE_CARDS), ("data", "model"),
+                      device_type)
 
 
-def make_debug_mesh(data: int = 2, model: int = 2, pod: int | None = None):
+def make_debug_mesh(data: int = 2, model: int = 2, pod: int | None = None,
+                    device_type: str | None = None):
     """A small mesh with the reference's axis names over the whole group."""
     if pod is None:
-        return _make_mesh((data, model), ("data", "model"))
-    return _make_mesh((pod, data, model), ("pod", "data", "model"))
+        return _make_mesh((data, model), ("data", "model"), device_type)
+    return _make_mesh((pod, data, model), ("pod", "data", "model"),
+                      device_type)
 
 
 def make_mesh_from_args(args):

@@ -28,8 +28,8 @@ no network). NCCL on the card (each rank on ``cuda:LOCAL_RANK``), gloo with
 
 ``debug`` is (world / 2, 2) over ("data", "model") (one device without a
 group), ``single`` / ``multi`` the production meshes, which name the ranks
-they need when the world does not fit. On a mesh the parameters are drawn
-leaf by leaf and placed by ``SERVE_RULES``, and the steps run on
+they need when the world does not fit. On a mesh each rank draws its
+blocks of the keyed stream by ``SERVE_RULES``, and the steps run on
 ``DTensor`` s (``train.trainer.make_serve_steps``); the tokens equal the
 one-device serve's.
 
@@ -209,9 +209,10 @@ def init_process_group_from_env(device=None, init_method=None):
 def serve_lm(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
              device=None, mesh=None) -> ServeResult:
     """Batched prefill + greedy decode of ``cfg`` from parameters drawn at
-    ``seed``, on ``device`` (``None``: the GPU), timed. On ``mesh`` the
-    parameters are drawn leaf by leaf and placed by ``SERVE_RULES`` (the
-    same draws as on one device), and the steps run on the mesh."""
+    ``seed``, on ``device`` (``None``: the GPU), timed. On ``mesh`` each
+    rank draws its blocks of the parameters by ``SERVE_RULES`` (the same
+    values as on one device, ``build_params``' keyed stream), and the steps
+    run on the mesh."""
     model = build_model(cfg)
     dev = resolve_device(device)
     # Only VLM configs carry patch tokens; they count toward the cache.

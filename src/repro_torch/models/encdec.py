@@ -36,9 +36,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .layers import (_einsum, _mm, attention, cache_zeros, chunked_ce_loss,
-                     decode_attention, identity_constrain, layer_norm,
-                     mesh_of, mlp, mlp_params, write_all, write_at,
-                     write_layer, write_prefix)
+                     decode_attention, flatten_heads, identity_constrain,
+                     layer_norm, mesh_of, mlp, mlp_params, split_heads,
+                     write_all, write_at, write_layer, write_prefix)
 from .transformer import _layer
 
 __all__ = ["encdec_layer_table", "encdec_param_table", "encode",
@@ -126,7 +126,7 @@ def _ln(x, lp, name):
 
 
 def _heads(x, B, H, Dh):
-    return x.reshape(B, -1, H, Dh)
+    return split_heads(x, H, Dh)
 
 
 def _q(x, p, cfg):
@@ -145,8 +145,7 @@ def _kv(src, p, cfg):
 
 
 def _out(a, p):
-    B, S = a.shape[:2]
-    return _mm("bsh,hd->bsd", a.reshape(B, S, -1), p["wo"]) + p["bo"]
+    return _mm("bsh,hd->bsd", flatten_heads(a), p["wo"]) + p["bo"]
 
 
 def _mha(x, kv_src, p, cfg, causal):

@@ -44,9 +44,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .layers import (_einsum, _gelu, _mm, apply_rope, attention, cache_zeros,
-                     chunked_ce_loss, identity_constrain, mesh_of, mlp,
-                     mlp_params, rms_norm, rope, write_all, write_at,
-                     write_layer)
+                     chunked_ce_loss, identity_constrain, merge_heads,
+                     mesh_of, mlp, mlp_params, rms_norm, rope, unflattenable,
+                     write_all, write_at, write_layer)
 from .transformer import _attn_out, _layer, _logits, _project_qkv
 
 __all__ = ["griffin_layer_table", "griffin_param_table", "griffin_forward",
@@ -289,7 +289,7 @@ def _windowed_decode_attention(q, kbuf, vbuf, posbuf, cur_pos, window):
     B, W, Hkv, Dh = kbuf.shape
     Hq = q.shape[2]
     G = Hq // Hkv
-    qg = q.reshape(B, 1, Hkv, G, Dh)
+    qg = unflattenable(q, 2, Hkv).reshape(B, 1, Hkv, G, Dh)
     s = _einsum("bqhgd,bkhd->bhgqk", qg, kbuf).float()
     s = s / math.sqrt(Dh)
     valid = (posbuf <= cur_pos) & (posbuf > cur_pos - window)
@@ -297,7 +297,7 @@ def _windowed_decode_attention(q, kbuf, vbuf, posbuf, cur_pos, window):
                     torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     out = _einsum("bhgqk,bkhd->bqhgd", p.to(vbuf.dtype), vbuf)
-    return out.reshape(B, 1, Hq, Dh)
+    return merge_heads(out, Hkv)
 
 
 def griffin_decode_step(params, cache: GriffinCache, tokens, cfg,

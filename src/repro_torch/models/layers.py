@@ -55,9 +55,153 @@ def _even(t: torch.Tensor) -> torch.Tensor:
     return t if even == list(placements) else t.redistribute(mesh, even)
 
 
+def unflattenable(t: torch.Tensor, dim: int, outer: int) -> torch.Tensor:
+    """``t``, ready for a view that splits dimension ``dim`` into (``outer``,
+    rest): a ``DTensor`` whose ``dim`` is split over more ranks than
+    ``outer`` divides (4 KV heads over 8) has that split replicated first.
+    DTensor cannot unflatten a dimension whose blocks do not hold whole
+    rows of the view, where XLA reshards within a row."""
+    placements = getattr(t, "placements", None)
+    if placements is None:
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, dim = t.device_mesh, dim % t.ndim
+    ranks = math.prod(mesh.size(i) for i, p in enumerate(placements)
+                      if isinstance(p, Shard) and p.dim == dim)
+    if outer % ranks == 0:
+        return t
+    return t.redistribute(mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == dim else p
+        for p in placements])
+
+
+class _UnflattenableGrad(torch.autograd.Function):
+    """The identity; its backward makes the gradient :func:`unflattenable`
+    along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, t, dim, outer):
+        ctx.dim, ctx.outer = dim, outer
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflattenable(g, ctx.dim, ctx.outer), None, None
+
+
+def flattenable(t: torch.Tensor, first: int, last: int) -> torch.Tensor:
+    """``t``, ready for a view that flattens dimensions ``first`` ..
+    ``last``: a ``DTensor`` split on one of them after the first has that
+    split replicated. PyTorch 2.11's DTensor refuses such a flatten (2.13
+    makes a strided shard of it)."""
+    placements = getattr(t, "placements", None)
+    if placements is None:
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    inner = range(first % t.ndim + 1, last % t.ndim + 1)
+    keep = [Replicate() if isinstance(p, Shard) and p.dim in inner else p
+            for p in placements]
+    return t if keep == list(placements) else t.redistribute(t.device_mesh,
+                                                             keep)
+
+
+def _merged(t: torch.Tensor, first: int, last: int,
+            shape: tuple) -> torch.Tensor:
+    """``t`` with dimensions ``first`` .. ``last`` flattened (to
+    ``shape``), :func:`flattenable` first; on a ``DTensor`` its gradient
+    is made :func:`unflattenable` for the backward's view back."""
+    t = flattenable(t, first, last)
+    out = t.reshape(shape)
+    if getattr(out, "placements", None) is None:
+        return out
+    return _UnflattenableGrad.apply(out, first, t.shape[first])
+
+
+def merge_heads(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """``t`` (B, S, groups, G, Dh) flattened to (B, S, groups * G, Dh)
+    (:func:`_merged`)."""
+    B, S, _, G, Dh = t.shape
+    return _merged(t, 2, 3, (B, S, groups * G, Dh))
+
+
+def flatten_heads(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, S, H, Dh) flattened to (B, S, H * Dh) (:func:`_merged`)."""
+    B, S, H, Dh = t.shape
+    return _merged(t, 2, 3, (B, S, H * Dh))
+
+
+def split_heads(t: torch.Tensor, heads: int, dh: int) -> torch.Tensor:
+    """``t`` (..., heads * dh) viewed as (..., heads, dh)
+    (:func:`unflattenable` first)."""
+    t = unflattenable(t, -1, heads)
+    return t.reshape(*t.shape[:-1], heads, dh)
+
+
 def _einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` with :func:`_even` operands."""
-    return torch.einsum(eq, *map(_even, operands))
+    """``torch.einsum`` with :func:`_even` operands; on ``DTensor`` s that
+    only batch labels split, on each rank's blocks (:func:`_batch_local`)."""
+    operands = tuple(map(_even, operands))
+    local = _batch_local(eq, operands)
+    return torch.einsum(eq, *operands) if local is None else local
+
+
+def _batch_local(eq: str, operands) -> torch.Tensor | None:
+    """The einsum of ``DTensor`` operands computed on each rank's blocks,
+    when every mesh axis that splits anything splits one batch label (a
+    label of every operand and of the output) in every operand: each
+    rank's result is then the einsum of its blocks, with no collective.
+    DTensor's own einsum flattens the batch labels into one for its
+    product, which PyTorch 2.11 refuses when a label after the first is
+    split (attention's (batch, kv heads) on a (data, model) mesh). None
+    where the rule does not apply (a plain operand, a pending sum, a
+    split contraction)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not operands or not all(isinstance(o, DTensor) for o in operands):
+        return None
+    lhs, out = eq.replace(" ", "").split("->")
+    terms = lhs.split(",")
+    mesh = operands[0].device_mesh
+    if "." in lhs or any(o.device_mesh != mesh for o in operands):
+        return None
+    placements = []
+    for m in range(mesh.ndim):
+        labels = set()
+        for term, o in zip(terms, operands):
+            p = o.placements[m]
+            if not (isinstance(p, Shard) or p.is_replicate()):
+                return None
+            labels.add(term[p.dim] if isinstance(p, Shard) else None)
+        if labels == {None}:
+            placements.append(Replicate())
+            continue
+        label = labels.pop()
+        if labels or label is None or label not in out \
+                or any(label not in term for term in terms):
+            return None
+        placements.append(Shard(out.index(label)))
+    if all(p.is_replicate() for p in placements):
+        return None
+    # the split is even (``_even``): the global shape follows from the
+    # block's; blocks and their gradients are kept contiguous, as DTensor's
+    # views of them expect
+    local = torch.einsum(eq, *(_ContiguousGrad.apply(o.to_local())
+                               for o in operands)).contiguous()
+    return DTensor.from_local(local, mesh, placements, run_check=False)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity; its backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def _mm(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -189,7 +333,7 @@ def _plain_attention(q, k, v, causal, window, q_offset):
     B, Sq, Hq, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    qg = q.reshape(B, Sq, Hkv, G, Dh)
+    qg = unflattenable(q, 2, Hkv).reshape(B, Sq, Hkv, G, Dh)
     scores = _einsum("bqhgd,bkhd->bhgqk", qg, k).float()
     scores = scores / math.sqrt(Dh)
     qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
@@ -198,7 +342,7 @@ def _plain_attention(q, k, v, causal, window, q_offset):
     scores = torch.where(ok, scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
     out = _einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
-    return out.reshape(B, Sq, Hq, Dh)
+    return merge_heads(out, Hkv)
 
 
 def _chunked_attention(q, k, v, causal, window, q_chunk, kv_chunk):
@@ -208,9 +352,10 @@ def _chunked_attention(q, k, v, causal, window, q_chunk, kv_chunk):
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     nq, nk = Sq // q_chunk, Sk // kv_chunk
-    qs = q.reshape(B, nq, q_chunk, Hkv, G, Dh)
-    ks = k.reshape(B, nk, kv_chunk, Hkv, Dh)
-    vs = v.reshape(B, nk, kv_chunk, Hkv, Dh)
+    qs = unflattenable(unflattenable(q, 1, nq), 2, Hkv).reshape(
+        B, nq, q_chunk, Hkv, G, Dh)
+    ks = unflattenable(k, 1, nk).reshape(B, nk, kv_chunk, Hkv, Dh)
+    vs = unflattenable(v, 1, nk).reshape(B, nk, kv_chunk, Hkv, Dh)
     scale = 1.0 / math.sqrt(Dh)
     outs = []
     for qi in range(nq):
@@ -237,7 +382,7 @@ def _chunked_attention(q, k, v, causal, window, q_chunk, kv_chunk):
             m = m_new
         out = acc / torch.clamp_min(l[..., None], 1e-30)
         outs.append(_einsum("bhgqd->bqhgd", out))   # (B, cq, Hkv, G, Dh)
-    out = torch.stack(outs, dim=1).reshape(B, Sq, Hq, Dh)
+    out = merge_heads(torch.cat(outs, dim=1), Hkv)
     return out.to(q.dtype)
 
 
@@ -265,7 +410,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=None):
     B, T, Hkv, Dh = k_cache.shape
     Hq = q.shape[2]
     G = Hq // Hkv
-    qg = q.reshape(B, 1, Hkv, G, Dh)
+    qg = unflattenable(q, 2, Hkv).reshape(B, 1, Hkv, G, Dh)
     s = _einsum("bqhgd,bkhd->bhgqk", qg, k_cache).float()
     s = s / math.sqrt(Dh)
     kpos = torch.arange(T, device=q.device)
@@ -275,7 +420,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, window=None):
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     out = _einsum("bhgqk,bkhd->bqhgd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(B, 1, Hq, Dh)
+    return merge_heads(out, Hkv)
 
 
 # --------------------------------------------------------------------------
@@ -399,13 +544,17 @@ def cache_zeros(shape, dtype: torch.dtype, device, mesh=None,
                 fill=0) -> torch.Tensor:
     """A cache leaf filled with ``fill``: a plain tensor on ``device``, or on
     a mesh a ``DTensor`` in the prefill's cache layout (the reference's
-    ``cache_shardings(batch, "width")`` rule)."""
+    ``cache_shardings(batch, "width")`` rule), whose blocks live on the
+    ``meta`` device when ``device`` is ``meta`` (the dry run's)."""
     if mesh is None:
         return torch.full(shape, fill, dtype=dtype, device=device)
     from torch.distributed.tensor import full
 
-    from ..distributed.sharding import cache_spec, spec_placements
+    from ..distributed.sharding import (NamedSharding, cache_spec,
+                                        placed_zeros, spec_placements)
     spec = cache_spec(shape, dtype, mesh, prefer="width")
+    if torch.device(device).type == "meta":
+        return placed_zeros(shape, dtype, NamedSharding(mesh, spec), device)
     return full(shape, fill, dtype=dtype, device_mesh=mesh,
                 placements=spec_placements(spec, mesh))
 

@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .layers import (_einsum, _mm, cache_zeros, chunked_ce_loss,
-                     identity_constrain, layer_norm)
+                     identity_constrain, layer_norm, unflattenable)
 from .transformer import _layer
 
 __all__ = ["rwkv_layer_table", "rwkv_param_table", "rwkv_forward",
@@ -108,7 +108,7 @@ def _ddlerp(x, x_prev, p):
     xx = x_prev - x
     base = x + xx * p["mu_x"].to(x.dtype)
     lora = torch.tanh(_mm("bsd,dk->bsk", base, p["lora_a"]))
-    lora = lora.reshape(*lora.shape[:-1], 5, _LORA)
+    lora = unflattenable(lora, -1, 5).reshape(*lora.shape[:-1], 5, _LORA)
     adj = _mm("bsik,ikd->bsid", lora, p["lora_b"])
     mix = p["mu"].to(x.dtype)[None, None] + adj           # (B, S, 5, D)
     return [x + xx * mix[:, :, i, :] for i in range(5)]

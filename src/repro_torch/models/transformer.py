@@ -39,11 +39,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..distributed.sharding import get_active_mesh, mesh_shape
+from ..distributed.sharding import get_active_mesh, keyed_block, mesh_shape
 from .layers import (Cache, _einsum, _mm, apply_rope, attention, cache_zeros,
-                     chunked_ce_loss, decode_attention, identity_constrain,
-                     mesh_of, mlp, mlp_params, rms_norm, rope, write_at,
-                     write_layer, write_prefix)
+                     chunked_ce_loss, decode_attention, flatten_heads,
+                     identity_constrain, mesh_of, mlp, mlp_params, rms_norm,
+                     rope, split_heads, write_at, write_layer, write_prefix)
 from .moe import (moe_ffn, moe_ffn_sharded, moe_ffn_sharded_decode,
                   moe_param_table)
 
@@ -59,6 +59,12 @@ def zero_init(name: str) -> bool:
     norm scales by suffix, ``*/b*`` and ``b*`` entries."""
     return name.endswith(_NORM_SUFFIXES) or "/b" in name \
         or name.startswith("b")
+
+
+def init_std(name: str, fan) -> float:
+    """The standard deviation :func:`build_params` draws the leaf ``name``
+    with: 0 for a zero leaf, ``fan ** -0.5`` with a fan-in, else 0.02."""
+    return 0.0 if zero_init(name) else 0.02 if fan is None else fan ** -0.5
 
 
 # --------------------------------------------------------------------------
@@ -118,28 +124,37 @@ def build_params(generator: torch.Generator, table: dict,
 
     The reference's rules by name: norm scales (by suffix), ``*/b*`` and
     ``b*`` entries are zero; an entry with a fan-in is ``fan ** -0.5`` times
-    a standard normal, one without ``0.02`` times it. Draws are float32 from
-    ``generator`` in sorted-name order, then cast to ``dtype``. The values
-    cannot equal the reference's (the PRNGs differ): carry its parameters
-    across with :mod:`repro_torch.convert` where equal values are needed.
+    a standard normal, one without ``0.02`` times it, drawn in float32 and
+    cast to ``dtype``.
 
-    ``place(name, tensor)``, when given, replaces each leaf right after its
-    draw (``sharding.param_placer``: its block on a mesh), so the full
-    leaves are never all held at once; the draws are the same.
+    The normals are the port's keyed stream, a stream of its own
+    (``sharding.keyed_block``): each value is a pure function of the seed,
+    the leaf's name and its position in the leaf, drawn slab by slab from
+    generators seeded by a hash of the three, so it depends on neither the
+    mesh, the rank, nor the order of the draws. The seed is
+    ``generator.initial_seed()``: draws made earlier on ``generator`` do not
+    shift the values, and ``generator`` itself is not advanced. The values
+    equal neither the reference's (the PRNGs differ; carry its parameters
+    across with :mod:`repro_torch.convert` where equal values are needed)
+    nor those of the port's earlier one-stream-per-model draw.
+
+    ``place(name, seed, std, dtype, device)``, when given, makes each leaf
+    instead (``sharding.param_placer``: this rank's block on a mesh, drawn
+    by ``keyed_block``), so a rank holds its blocks plus one slab at a time
+    and never a whole leaf; the blocks of every rank together equal the
+    one-device leaves bit for bit.
     """
-    params: dict[str, Any] = {}
+    seed = generator.initial_seed()
     dev = generator.device
+    params: dict[str, Any] = {}
     for name in sorted(table):
         shape, _, fan = table[name]
-        if zero_init(name):
-            arr = torch.zeros(shape, dtype=dtype, device=dev)
+        std = init_std(name, fan)
+        if place is None:
+            arr = keyed_block(seed, name, shape, std, (None,) * len(shape),
+                              {}, {}, dtype, dev)
         else:
-            std = 0.02 if fan is None else fan ** -0.5
-            # one float32 draw alive at a time, scaled in place
-            arr = torch.randn(shape, generator=generator, dtype=torch.float32,
-                              device=dev).mul_(std).to(dtype)
-        if place is not None:
-            arr = place(name, arr)
+            arr = place(name, seed, std, dtype, dev)
         _assign(params, name, arr)
     return params
 
@@ -184,9 +199,9 @@ def _project_qkv(x, p, cfg):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = q.reshape(B, S, Hq, Dh)
-    k = k.reshape(B, S, Hkv, Dh)
-    v = v.reshape(B, S, Hkv, Dh)
+    q = split_heads(q, Hq, Dh)
+    k = split_heads(k, Hkv, Dh)
+    v = split_heads(v, Hkv, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -213,8 +228,7 @@ def _ffn(x, p, cfg, constrain=identity_constrain):
 
 
 def _attn_out(a, p):
-    B, S = a.shape[:2]
-    return _mm("bsh,hd->bsd", a.reshape(B, S, -1), p["wo"])
+    return _mm("bsh,hd->bsd", flatten_heads(a), p["wo"])
 
 
 def _qkv_rope(x, p, cfg, cos, sin):

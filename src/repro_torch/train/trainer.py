@@ -101,10 +101,11 @@ def make_train_step(model, opt_cfg: OptConfig | None = None,
     ``mesh`` (a ``DeviceMesh`` over the process group, each rank on its
     ``device``).
 
-    ``init_state(seed)`` draws the parameters from a ``torch.Generator`` on
-    the device seeded with ``seed``; on a mesh each leaf is placed right
-    after its draw (``sharding.param_placer``: the same stream as on one
-    device) and the moments are made as each rank's blocks. ``step_fn``
+    ``init_state(seed)`` draws the parameters from the keyed stream of
+    ``seed`` (``build_params``) on the device; on a mesh each rank draws
+    only its blocks (``sharding.param_placer``: the same values as on one
+    device, never a whole leaf) and the moments are made as each rank's
+    blocks. ``step_fn``
     takes a dict of tensors on that device (on a mesh: plain tensors every
     rank holds alike, or ``DTensor`` s); with ``grad_accum > 1`` every
     entry's leading axis (on a mesh: each rank's block of it) must be
@@ -284,13 +285,18 @@ def _mesh_serve_steps(model, max_len: int, dev, mesh, rules) -> dict:
     p_sh = param_shardings(model.logical, mesh, rules,
                            table_shapes(model.param_table))
 
+    layouts: dict = {}
+
     def cache_shardings(batch: int, prefer: str = "time"):
         """prefer="time": the T axis over 'model' (decode's steady state);
         "width": the layout the prefill emits (heads / width over
-        'model')."""
-        shapes = model.init_cache(batch, max_len, device="meta")
-        return type(shapes)(*(NamedSharding(mesh, cache_spec(
-            leaf.shape, leaf.dtype, mesh, prefer)) for leaf in shapes))
+        'model'). Worked out once per (batch, prefer)."""
+        if (batch, prefer) not in layouts:
+            shapes = model.init_cache(batch, max_len, device="meta")
+            layouts[batch, prefer] = type(shapes)(*(NamedSharding(
+                mesh, cache_spec(leaf.shape, leaf.dtype, mesh, prefer))
+                for leaf in shapes))
+        return layouts[batch, prefer]
 
     def place_cache(cache):
         layout = cache_shardings(cache[0].shape[1], "width")

@@ -73,6 +73,7 @@ def test_port_has_the_modules_of_this_slice():
                 "models/griffin", "models/encdec",
                 "launch/__init__",
                 "launch/train", "launch/serve", "launch/mesh",
+                "launch/dryrun", "launch/hlo_analysis", "launch/roofline",
                 "distributed/sharding",
                 *(f"configs/{arch}" for arch in ARCH_IDS)):
         assert f"src/repro_torch/{mod}.py" in have

@@ -315,6 +315,13 @@ if job["kind"] == "families":
         one = make_train_step(model, ocfg, device=CPU)
         on = make_train_step(model, ocfg, device=CPU, mesh=mesh, donate=True)
         batch = batch_at(arch, 0)
+        s1, s2 = one.init_state(7), on.init_state(7)
+        pairs = list(zip(tree_leaves(s1.params) + tree_leaves(s1.opt_state),
+                         tree_leaves(s2.params) + tree_leaves(s2.opt_state)))
+        res[f"{arch}/init_state_equal"] = np.array(
+            [torch.equal(full(b), a) for a, b in pairs])
+        res[f"{arch}/init_state_placed"] = np.array(
+            [hasattr(b, "device_mesh") for _, b in pairs])
         l1, g1 = one.grad_fn(params, batch)
         _, m1 = one.step_fn(state_of(params, one, ocfg), batch)
         p2 = placed(params, on)
@@ -496,6 +503,18 @@ def _close(got, want, tol, what):
     scale = max(float(np.abs(want).max()), 1e-30)
     err = float(np.abs(got - want).max())
     assert got.shape == want.shape and err <= tol * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_placed_init_state_equals_one_device(runs, arch):
+    """``init_state(7)`` on the (2, 2) mesh (each rank drawing its blocks
+    of the keyed stream through ``param_placer``, the moments made as
+    blocks) against the one-device ``init_state(7)``: every parameter and
+    moment bit for bit, each a ``DTensor``, on every rank."""
+    for r in runs[_world(arch)]:
+        assert r[f"{arch}/init_state_equal"].size > 0
+        assert r[f"{arch}/init_state_equal"].all()
+        assert r[f"{arch}/init_state_placed"].all()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
