@@ -21,6 +21,7 @@
     python3 rehearse_chip_smoke.py sharded
     python3 rehearse_chip_smoke.py sharded_train
     python3 rehearse_chip_smoke.py plan
+    python3 rehearse_chip_smoke.py analysis --n 64
 
 ``chip_smoke.py`` runs only on a CUDA device. This script drives the same
 phase functions on the CPU at a small size, so their control flow, their
@@ -125,19 +126,20 @@ def main() -> None:
                                       "service", "amortize", "curvepred",
                                       "zoo", "decoder", "griffin",
                                       "encdec", "sharded", "sharded_train",
-                                      "plan"))
+                                      "plan", "analysis"))
     ap.add_argument("--n", type=int, default=300,
                     help="configurations of the fit, warm and automl "
                          "phases (m=52, d=7; the automl phase's Hyperband "
                          "pool stays 243 x 27), of the distributed and "
                          "solvers phases' serving (m=64, d=7; the solvers "
                          "phase's objective at m=52), of the amortize "
-                         "phase's freeze-thaw (m=52, d=7) and of the gram "
-                         "phase")
+                         "phase's freeze-thaw (m=52, d=7), of the gram "
+                         "phase and of the analysis phase's CG reads (m=20, "
+                         "d=7)")
     ap.add_argument("--steps", type=int, default=40,
                     help="training steps of the amortize phase's amortizer "
                          "and of the curvepred phase's transformer (the "
-                         "card runs 400 and 2000); the zoo phase's training "
+                         "card runs 400 and 1000); the zoo phase's training "
                          "steps per epoch of the example's runs are "
                          "--steps // 20 (the card runs 8)")
     args = ap.parse_args()
@@ -343,6 +345,13 @@ def main() -> None:
         torch.cuda.max_memory_allocated = lambda *a, **k: peak[0]
         with cs.unescalated("plan"):
             print(json.dumps(cs.phase_plan()))
+    elif args.phase == "analysis":
+        # the CG loop's reads at n = --n (m=20, d=7), the audits on the
+        # CPU's plain versions, the budget against the H100's data sheet
+        cs.nvidia_smi_line = lambda: "CPU rehearsal, no card"
+        cs.ANALYSIS_CG = dict(n=args.n, m=20, d=7)
+        with cs.unescalated("analysis"):
+            print(json.dumps(cs.phase_analysis()))
     elif args.phase == "exact":
         with cs.unescalated("exact"):
             print(json.dumps(cs.phase_exact()))

@@ -116,9 +116,10 @@ def sample_amortize_batch(acfg: AmortizerConfig, cfg: AmortizeTrainConfig,
         Yb = torch.as_tensor(Y[b], dtype=Xb.dtype)
         mb = torch.as_tensor(mask[b], dtype=Xb.dtype)
         Yb = torch.where(mb > 0, Yb, torch.zeros_like(Yb))
-        Xn[b] = XTransform.fit(Xb)(Xb).numpy()
-        tn[b] = TTransform.fit(tb)(tb).numpy()
-        Yn[b] = YTransform.fit(Yb, mb)(Yb).numpy()
+        # CPU tensors made from the numpy inputs: no device read
+        Xn[b] = XTransform.fit(Xb)(Xb).numpy()  # lint: disable=RT103 (CPU)
+        tn[b] = TTransform.fit(tb)(tb).numpy()  # lint: disable=RT103 (CPU)
+        Yn[b] = YTransform.fit(Yb, mb)(Yb).numpy()  # lint: disable=RT103 (CPU)
     return {"Xn": Xn, "tn": tn, "Yn": Yn, "mask": mask.astype(dt)}
 
 
@@ -147,7 +148,8 @@ def train_amortizer(acfg: AmortizerConfig | None = None,
         # every step.
         losses.append(metrics["loss"])
         if cfg.log_every and (step + 1) % cfg.log_every == 0:
-            recent = torch.stack(losses[-cfg.log_every:]).mean().item()
+            recent = torch.stack(losses[-cfg.log_every:]).mean()
+            recent = recent.item()  # lint: disable=RT103 (a log line)
             out(f"amortize step {step + 1:5d}  obj {recent:.4f}")
     losses = torch.stack(losses).cpu().numpy()
     info = {

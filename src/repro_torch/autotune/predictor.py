@@ -243,8 +243,9 @@ class RunPool:
         target = min(int(target_epochs), self.max_epochs)
         while self.epochs_done[i] < target \
                 and not (charge and self.exhausted()):
-            e = int(self.epochs_done[i])
-            self.Y[i, e] = float(self.step_fns[i]())
+            e = int(self.epochs_done[i])  # lint: disable=RT103 (numpy)
+            # one epoch of the run: its loss is the curve's next value
+            self.Y[i, e] = float(self.step_fns[i]())  # lint: disable=RT103 (a run's loss)
             self.mask[i, e] = 1.0
             self.epochs_done[i] += 1
             if charge:

@@ -249,7 +249,9 @@ def predict_task(params, cfg: CurveTransformerConfig, X, t, Y, mask):
     dev = _device_of(params)
 
     def tensor(a):
-        return torch.as_tensor(np.asarray(a), device=dev)
+        # the caller's dtype, as the reference's jnp.asarray keeps it
+        return torch.as_tensor(  # lint: disable=RT104 (the reference's)
+            np.asarray(a), device=dev)
 
     with torch.no_grad():
         mu, sigma = forward(params, tensor(X), tensor(Y), tensor(mask),

@@ -42,7 +42,7 @@ def cutoff_masks(task: CurveTask, cutoffs, seed: int) -> dict:
     anchor = int(np.random.default_rng(seed).integers(0, n))
     out = {}
     for frac in cutoffs:
-        lens = np.full(n, max(1, int(round(frac * m))), np.int64)
+        lens = np.full(n, max(1, round(frac * m)), np.int64)
         lens[anchor] = m
         out[frac] = (np.arange(m)[None, :] < lens[:, None]).astype(np.float64)
     return out
@@ -91,7 +91,7 @@ def score_predictions(mean, var, task: CurveTask, mask, valid=None) -> dict:
     mean = np.asarray(mean, np.float64)
     resid = mean - truth
     nll_cells = gaussian_nll(torch.from_numpy(mean),
-                             torch.from_numpy(np.sqrt(var)),
+                             torch.from_numpy(var).sqrt(),
                              torch.from_numpy(np.asarray(truth, np.float64))
                              ).numpy()
     final_ok = (np.ones(truth.shape[0], bool) if valid is None
@@ -158,7 +158,9 @@ def head_to_head(params, model_cfg: CurveTransformerConfig, tasks,
         eval_lkgp(tasks[0], warm_mask, gp_cfg, seed=seed, device=dev)
     for ti, task in enumerate(tasks):
         masks = cutoff_masks(task, cutoffs, seed=seed * 10_007 + ti)
-        valid = None if valid_masks is None else np.asarray(valid_masks[ti])
+        valid = None
+        if valid_masks is not None:
+            valid = np.asarray(valid_masks[ti])  # lint: disable=RT103 (numpy)
         for frac, mask in masks.items():
             if valid is not None:
                 mask = mask * valid
@@ -170,7 +172,8 @@ def head_to_head(params, model_cfg: CurveTransformerConfig, tasks,
                                                 mask),
             }
             for name, p in preds.items():
-                row = {"suite": suite, "task": ti, "cutoff": float(frac),
+                row = {"suite": suite, "task": ti,
+                       "cutoff": float(frac),  # lint: disable=RT103 (a key)
                        "model": name,
                        "fit_s": round(p["fit_s"], 4),
                        "predict_s": round(p["predict_s"], 4)}

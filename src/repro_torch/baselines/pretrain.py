@@ -108,7 +108,8 @@ def pretrain(model_cfg: CurveTransformerConfig,
         # every step.
         losses.append(metrics["loss"])
         if cfg.log_every and (step + 1) % cfg.log_every == 0:
-            recent = torch.stack(losses[-cfg.log_every:]).mean().item()
+            recent = torch.stack(losses[-cfg.log_every:]).mean()
+            recent = recent.item()  # lint: disable=RT103 (a log line)
             out(f"pretrain step {step + 1:5d}  nll {recent:.4f}  "
                 f"prefix_floor {_prefix_floor(cfg, step):.2f}")
     losses = torch.stack(losses).cpu().numpy()

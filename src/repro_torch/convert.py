@@ -145,8 +145,8 @@ def tree_from_numpy(tree: Mapping[str, Any], *,
             node.setdefault(leaf, {}).update(
                 tree_from_numpy(value, dtype=dtype, device=dev))
         else:
-            node[leaf] = torch.tensor(np.asarray(value), dtype=dtype,
-                                      device=dev)
+            host = np.asarray(value)  # lint: disable=RT103 (a host leaf)
+            node[leaf] = torch.tensor(host, dtype=dtype, device=dev)
     return out
 
 

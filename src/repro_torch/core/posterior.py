@@ -223,9 +223,9 @@ class Posterior:
         K1a, K2 = self._grams
         n = st.n
         K1d, K2d = self._draw_grams
-        F, eps = prior_residual_draws(generator, K1d, K2d, n,
-                                      self._noise.to(K1d.dtype), n_samples,
-                                      jitter=cfg.jitter, normals=normals)
+        F, eps = prior_residual_draws(generator, K1d, K2d, n, self._noise,
+                                      n_samples, jitter=cfg.jitter,
+                                      normals=normals)
         F, eps = F.to(K1a.dtype), eps.to(K1a.dtype)
         resid = st.mask * (F[:, :n, :] + eps)
         if self._alpha is None:

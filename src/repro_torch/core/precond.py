@@ -57,7 +57,7 @@ def pivoted_cholesky_latent(K1, K2, mask, rank: int,
     perm = np.arange(N)
     for k in range(rank):
         # pivot: the largest remaining diagonal
-        j = k + int(np.argmax(d[perm[k:]]))
+        j = k + int(np.argmax(d[perm[k:]]))  # lint: disable=RT103 (numpy)
         perm[[k, j]] = perm[[j, k]]
         p = perm[k]
         pivot = d[p]

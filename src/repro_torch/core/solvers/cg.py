@@ -162,7 +162,8 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
         active = (rel > tol) & ~breakdown
         # The ONE device-to-host read of the iteration: "any column active
         # and budget left" is fused into a single 0-d tensor and read once.
-        if not bool((active.any() & (it < max_iters)).item()):
+        go = (active.any() & (it < max_iters)).item()  # lint: disable=RT103 (designed)
+        if not go:
             # The recursion says done (or the budget is spent). What is
             # reported is the TRUE residual ||b - Ax|| / ||b||, not the
             # recursively updated one: on ill-conditioned systems the
@@ -176,7 +177,7 @@ def _cg_loop(A: Callable, b: torch.Tensor, tol: float, max_iters: int,
             # Columns whose true residual is still above tol take it as
             # their r and go on. One more host read, on this exit path only.
             redo = (rel_true > tol) & ~breakdown
-            worst = float(torch.where(redo, rel_true,
+            worst = float(torch.where(redo, rel_true,  # lint: disable=RT103 (exit path)
                                       torch.zeros_like(rel_true)).max())
             if worst == 0.0 or worst >= worst_before:
                 break   # all within tol, or no longer improving

@@ -95,7 +95,7 @@ def sgd_solve(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         rel = torch.sqrt(_dot(r, r)) / safe_b_norm
         active = (rel > tol) & ~breakdown
         # the one device-to-host read of the iteration
-        if not bool(active.any().item()):
+        if not active.any().item():  # lint: disable=RT103 (designed)
             break
         am = active[..., None, None]
         v = torch.where(am, momentum * v + r, v)

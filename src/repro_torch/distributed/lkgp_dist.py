@@ -187,7 +187,11 @@ def dist_cg_solve(A, b, tol: float = 0.01, max_iters: int = 10_000, x0=None,
     rs = gsum(r * r)
     floor = torch.tensor(1e-30, dtype=rs.dtype, device=rs.device)
     it = 0
-    while it < max_iters and bool((torch.sqrt(rs) / safe > tol).item()):
+    while it < max_iters:
+        # the one read an iteration
+        go = (torch.sqrt(rs) / safe > tol).item()  # lint: disable=RT103 (designed)
+        if not go:
+            break
         Ap = A(p)
         alpha = rs / torch.maximum(gsum(p * Ap), floor)
         x = x + alpha * p

@@ -187,7 +187,8 @@ def autotune_route(n: int, m: int, B: int = 1, *, precision: str = "f32",
         times, errors = {}, {}
         for route in candidate_routes(precision, limits):
             out = runner(route, *args)
-            errors[route] = float((out.to(ref.dtype) - ref).abs().max())
+            errors[route] = float(  # lint: disable=RT103 (once a route)
+                (out.to(ref.dtype) - ref).abs().max())
             del out
             if not errors[route] <= tol:
                 continue

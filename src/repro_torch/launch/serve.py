@@ -102,14 +102,16 @@ def main_curves(args):
         for name, task in tasks.items():   # reveal one more epoch per curve
             mask = masks[name]
             for i in range(mask.shape[0]):
-                k = int(mask[i].sum())
+                k = int(mask[i].sum())  # lint: disable=RT103 (numpy)
                 if k < mask.shape[1]:
                     mask[i, k] = 1.0
-            Y = np.where(mask > 0, np.asarray(task.Y_full), 0.0)
+            Y = np.where(mask > 0, np.asarray(  # lint: disable=RT103 (numpy)
+                task.Y_full), 0.0)
             svc.observe(name, "run", Y, mask)
         preds = svc.predict_many([(name, "run") for name in tasks])
         # Prediction.mean is host numpy already: no device read here.
-        best = {p.tenant: float(np.max(p.mean)) for p in preds}
+        best = {p.tenant: float(  # lint: disable=RT103 (numpy)
+            np.max(p.mean)) for p in preds}
         print(f"round {rnd}: coalesced batch={preds[0].batch_size} "
               f"best-final={max(best.values()):.4f}")
 
@@ -178,8 +180,8 @@ def main(argv=None):
     print(f"prefill: {res.prefill_ms:.1f} ms; decode: "
           f"{res.decode_ms_per_token:.1f} ms/token "
           f"({res.tokens_per_s:.0f} tok/s)")
-    for i in range(min(2, args.batch)):
-        print(f"  req {i}: {gen[i, :10].tolist()} ...")
+    for i, row in enumerate(gen[:min(2, args.batch), :10].tolist()):
+        print(f"  req {i}: {row} ...")
     return res
 
 

@@ -162,7 +162,8 @@ def _train(args, device) -> TrainResult:
             first_step_ms = (t_first - t_start) * 1e3
         if (step + 1) % args.log_every == 0:
             dt = (time.perf_counter() - t0) / args.log_every
-            say(f"step {step+1:5d} loss {float(losses[-1]):.4f} "
+            loss = float(losses[-1])  # lint: disable=RT103 (a log line)
+            say(f"step {step+1:5d} loss {loss:.4f} "
                 f"({dt*1e3:.0f} ms/step)", flush=True)
             t0 = time.perf_counter()
         if ckpt and (step + 1) % args.ckpt_every == 0:

@@ -36,9 +36,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .layers import (_einsum, _mm, attention, cache_zeros, chunked_ce_loss,
-                     decode_attention, flatten_heads, identity_constrain,
-                     layer_norm, mesh_of, mlp, mlp_params, split_heads,
-                     write_all, write_at, write_layer, write_prefix)
+                     decode_attention, embed_lookup, flatten_heads,
+                     identity_constrain, layer_norm, mesh_of, mlp,
+                     mlp_params, split_heads, write_all, write_at,
+                     write_layer, write_prefix)
 from .transformer import _layer
 
 __all__ = ["encdec_layer_table", "encdec_param_table", "encode",
@@ -195,7 +196,9 @@ def encode(params, frames, cfg, constrain=identity_constrain):
 
 
 def _embed(params, tokens, cfg, positions):
-    x = params["embed"][tokens].to(cfg.dtype_act)
+    x = embed_lookup(params["embed"], tokens, cfg.dtype_act)
+    # dec_pos's rows are never split (its logical row axis is None under
+    # every rule set), so its lookup is the block's own
     return x + params["dec_pos"][positions].to(x.dtype)[None]
 
 

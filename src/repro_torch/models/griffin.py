@@ -43,10 +43,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from .layers import (_einsum, _gelu, _mm, apply_rope, attention, cache_zeros,
-                     chunked_ce_loss, identity_constrain, merge_heads,
-                     mesh_of, mlp, mlp_params, rms_norm, rope, unflattenable,
-                     write_all, write_at, write_layer)
+from .layers import (_einsum, _even, _gelu, _mm, apply_rope, attention,
+                     cache_zeros, chunked_ce_loss, embed_lookup,
+                     identity_constrain, merge_heads, mesh_of, mlp,
+                     mlp_params, rms_norm, rope, unflattenable, write_all,
+                     write_at, write_layer)
 from .transformer import _attn_out, _layer, _logits, _project_qkv
 
 __all__ = ["griffin_layer_table", "griffin_param_table", "griffin_forward",
@@ -113,9 +114,13 @@ def griffin_param_table(cfg):
 # --------------------------------------------------------------------------
 def _rglru_gates(z, p):
     """(a, gated input), float32 (B, S, R). The biases are added in the
-    activation dtype before the cast, as the reference adds them."""
-    r = torch.sigmoid((_mm("bsr,rq->bsq", z, p["wa"]) + p["ba"]).float())
-    i = torch.sigmoid((_mm("bsr,rq->bsq", z, p["wi"]) + p["bi"]).float())
+    activation dtype before the cast, as the reference adds them; on a mesh
+    to the reduced product (``_even``: PyTorch 2.11 cannot add a split bias
+    to a pending sum)."""
+    r = torch.sigmoid((_even(_mm("bsr,rq->bsq", z, p["wa"]))
+                       + p["ba"]).float())
+    i = torch.sigmoid((_even(_mm("bsr,rq->bsq", z, p["wi"]))
+                       + p["bi"]).float())
     lam = p["lam"].float()
     log_a = -_LRU_C * r * torch.logaddexp(lam, torch.zeros_like(lam))
     a = torch.exp(log_a)
@@ -209,7 +214,8 @@ def _is_attn(cfg, li):
 # forward / loss
 # --------------------------------------------------------------------------
 def _embed(params, tokens, cfg):
-    return params["embed"][tokens].to(cfg.dtype_act) * math.sqrt(cfg.d_model)
+    return embed_lookup(params["embed"], tokens, cfg.dtype_act) \
+        * math.sqrt(cfg.d_model)
 
 
 _ACT = (("batch",), None, "embed")

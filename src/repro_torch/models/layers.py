@@ -29,7 +29,8 @@ from torch.utils.checkpoint import checkpoint
 __all__ = ["rms_norm", "layer_norm", "rope", "apply_rope", "mlp",
            "mlp_params", "attention", "decode_attention", "chunked_ce_loss",
            "Cache", "identity_constrain", "mesh_of", "cache_zeros",
-           "write_layer", "write_all", "write_prefix", "write_at"]
+           "write_layer", "write_all", "write_prefix", "write_at",
+           "embed_lookup"]
 
 
 def identity_constrain(t, logical):
@@ -166,24 +167,35 @@ def _batch_local(eq: str, operands) -> torch.Tensor | None:
     mesh = operands[0].device_mesh
     if "." in lhs or any(o.device_mesh != mesh for o in operands):
         return None
-    placements = []
+    placements, split = [], []
     for m in range(mesh.ndim):
-        labels = set()
+        labels = []
         for term, o in zip(terms, operands):
             p = o.placements[m]
             if not (isinstance(p, Shard) or p.is_replicate()):
                 return None
-            labels.add(term[p.dim] if isinstance(p, Shard) else None)
-        if labels == {None}:
+            if isinstance(p, Shard):
+                labels.append(term[p.dim])
+        if not labels:
             placements.append(Replicate())
+            split.append(None)
             continue
-        label = labels.pop()
-        if labels or label is None or label not in out \
-                or any(label not in term for term in terms):
+        label = labels[0]
+        if label not in out or any(label not in term for term in terms):
             return None
         placements.append(Shard(out.index(label)))
+        split.append(label)
     if all(p.is_replicate() for p in placements):
         return None
+    # an operand laid out otherwise on a mesh axis (an older PyTorch's
+    # strategy may leave one replicated, or split elsewhere) is moved onto
+    # the first operand's batch label: a replicated one keeps its block
+    operands = tuple(
+        o if all(p == (Shard(term.index(lb)) if lb else Replicate())
+                 for p, lb in zip(o.placements, split))
+        else o.redistribute(mesh, [Shard(term.index(lb)) if lb
+                                   else Replicate() for lb in split])
+        for term, o in zip(terms, operands))
     # the split is even (``_even``): the global shape follows from the
     # block's; blocks and their gradients are kept contiguous, as DTensor's
     # views of them expect
@@ -207,10 +219,19 @@ class _ContiguousGrad(torch.autograd.Function):
 def _mm(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum`` of an activation and a weight in their promoted dtype (JAX
     promotes mixed bfloat16 / float32 operands, ``torch.einsum`` refuses
-    them)."""
+    them). The einsum flattens the activation's own labels (batch,
+    sequence) into one: a split of the sequence (the sequence-parallel
+    layout) is replicated first (:func:`flattenable`), the all-gather at
+    the sequence-parallel boundary."""
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
+    if getattr(x, "placements", None) is not None:
+        lhs, out = eq.replace(" ", "").split("->")
+        xt, wt = lhs.split(",")
+        own = [i for i, lb in enumerate(xt) if lb in out and lb not in wt]
+        if len(own) > 1 and own == list(range(own[0], own[-1] + 1)):
+            x = flattenable(x, own[0], own[-1])
     return _einsum(eq, x, w)
 
 
@@ -481,10 +502,72 @@ def _vocab_parallel_nll(logits, lc):
     return wrap((lse - gold) * valid), wrap(valid)
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``table[tokens]`` (cast to ``dtype``), rows of a (V, D) table.
+
+    On a plain tensor, the one-device lookup. On a ``DTensor``, each rank
+    looks its tokens up in its block ``[lo, hi)`` of the rows (and of the
+    columns, where those are split): a token outside the block gives a zero
+    row, and the rows are summed over the vocab axes, so no rank gathers
+    the table. The tokens are replicated over the table's axes first (they
+    are small); the result keeps the tokens' split elsewhere and the
+    columns' split. Its backward is each rank's scatter into its own block
+    (DTensor's own lookup, whose backward is an ``index_put``, is what
+    PyTorch 2.11 refuses on a batch-split index)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    placements = getattr(table, "placements", None)
+    if placements is None:
+        out = table[tokens]
+        return out if dtype is None else out.to(dtype)
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from ..distributed.sharding import contiguous_stride, sum_to_replicas
+
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok = [Replicate() if isinstance(p, Shard) or not isinstance(q, Shard)
+           else q for p, q in zip(placements, tokens.placements)]
+    ids = tokens.redistribute(mesh, tok).to_local().long()
+    rows, offset = compute_local_shape_and_global_offset(
+        table.shape, mesh, placements)
+    # where the table is whole and the tokens split, each rank's gradient
+    # is its tokens' share of the whole one
+    local = table.to_local(grad_placements=[
+        Partial() if p.is_replicate() and isinstance(q, Shard) else p
+        for p, q in zip(placements, tok)])
+    if dtype is not None:
+        local = local.to(dtype)
+    lo = offset[0]
+    if rows[0] == table.shape[0]:
+        out = local[ids]
+    else:
+        inside = (ids >= lo) & (ids < lo + rows[0])
+        out = torch.where(inside[..., None],
+                          local[torch.clamp(ids - lo, 0, rows[0] - 1)], 0.0)
+    vocab = [i for i, p in enumerate(placements) if p == Shard(0)]
+    if vocab:
+        out = sum_to_replicas(out, [mesh.get_group(i) for i in vocab])
+    shape = (*tokens.shape, table.shape[1])
+    last = len(shape) - 1
+    result = [Shard(last) if p == Shard(1) else
+              Replicate() if p == Shard(0) else q
+              for p, q in zip(placements, tok)]
+    return DTensor.from_local(out, mesh, result, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
 def _ce_chunk(xc, embed, lc, logit_cap):
     """Summed NLL and valid-label count of one sequence chunk (a
     ``DTensor`` chunk's through :func:`_vocab_parallel_nll`)."""
-    logits = _einsum("bsd,vd->bsv", xc, embed).float()
+    # the einsum flattens (batch, sequence): a sequence split is replicated
+    # first, as in ``_mm``
+    logits = _einsum("bsd,vd->bsv", flattenable(xc, 0, 1), embed).float()
     if logit_cap is not None:
         logits = logit_cap * torch.tanh(logits / logit_cap)
     if hasattr(logits, "device_mesh") and not all(

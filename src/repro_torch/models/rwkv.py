@@ -31,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .layers import (_einsum, _mm, cache_zeros, chunked_ce_loss,
-                     identity_constrain, layer_norm, unflattenable)
+                     embed_lookup, identity_constrain, layer_norm,
+                     unflattenable)
 from .transformer import _layer
 
 __all__ = ["rwkv_layer_table", "rwkv_param_table", "rwkv_forward",
@@ -285,7 +286,7 @@ def _block(h, lp, cfg, last_tm=None, last_cm=None, state0=None,
 
 
 def _embed(params, tokens, cfg):
-    x = params["embed"][tokens].to(cfg.dtype_act)
+    x = embed_lookup(params["embed"], tokens, cfg.dtype_act)
     return layer_norm(x, 1.0 + params["ln0"], params["ln0_b"])
 
 

@@ -41,9 +41,10 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..distributed.sharding import get_active_mesh, keyed_block, mesh_shape
 from .layers import (Cache, _einsum, _mm, apply_rope, attention, cache_zeros,
-                     chunked_ce_loss, decode_attention, flatten_heads,
-                     identity_constrain, mesh_of, mlp, mlp_params, rms_norm,
-                     rope, split_heads, write_at, write_layer, write_prefix)
+                     chunked_ce_loss, decode_attention, embed_lookup,
+                     flatten_heads, identity_constrain, mesh_of, mlp,
+                     mlp_params, rms_norm, rope, split_heads, write_at,
+                     write_layer, write_prefix)
 from .moe import (moe_ffn, moe_ffn_sharded, moe_ffn_sharded_decode,
                   moe_param_table)
 
@@ -277,7 +278,7 @@ def _run_layers(params, x, cfg, cos, sin, cache=None,
 
 
 def _embed(params, tokens, cfg, prefix_embeds=None):
-    x = params["embed"][tokens].to(cfg.dtype_act)
+    x = embed_lookup(params["embed"], tokens, cfg.dtype_act)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     if cfg.scale_embed:

@@ -367,3 +367,35 @@ def test_rwkv_decode_with_the_lora_split_unevenly():
         art = dryrun.plan_serve(cfg, 128, 64, mesh, "decode",
                                 dryrun.SERVE_DECODE_RULES)
     assert art["cost_analysis"]["flops_per_device"] > 0
+
+
+def test_vocab_split_decode_gathers_no_table(monkeypatch):
+    """A smoke decode cell on a fake (2, 2) with the embedding's vocab split
+    over 'model' (vocab 256, which 'model' divides): no collective of the
+    step is the table's size or larger. The lookup works on each rank's
+    block and sums the rows over 'model' (``layers.embed_lookup``); before
+    it DTensor all-gathered the table every step (5.06 GB a rank at
+    qwen2_72b's (32, 8) decode)."""
+    from repro_torch.distributed.sharding import logical_to_pspec
+
+    cfg = get_smoke_config("stablelm_12b").replace(vocab_size=256)
+    seen = []
+
+    class Recorder(hlo_analysis.CollectiveRecorder):
+        def __init__(self, mesh=None):
+            super().__init__(mesh)
+            seen.append(self)
+
+    monkeypatch.setattr(dryrun, "CollectiveRecorder", Recorder)
+    with dryrun.fake_world(4):
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        art = dryrun.plan_serve(cfg, 4, 16, mesh, "decode",
+                                dryrun.SERVE_RULES, 32)
+        spec = logical_to_pspec(("vocab", "embed"), dryrun.SERVE_RULES,
+                                mesh, (cfg.vocab_size, cfg.d_model))
+    assert spec[0] == "model"                        # the vocab is split
+    table = cfg.vocab_size * cfg.d_model \
+        * torch.empty((), dtype=cfg.dtype_param).element_size()
+    sizes = [r.result_bytes for rec in seen for r in rec.records]
+    assert sizes and art["collectives"]["totals"]
+    assert max(sizes) < table, (max(sizes), table)

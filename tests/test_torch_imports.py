@@ -74,7 +74,9 @@ def test_port_has_the_modules_of_this_slice():
                 "launch/__init__",
                 "launch/train", "launch/serve", "launch/mesh",
                 "launch/dryrun", "launch/hlo_analysis", "launch/roofline",
-                "distributed/sharding",
+                "distributed/sharding", "analysis/__init__",
+                "analysis/rules", "analysis/runner", "analysis/__main__",
+                "analysis/dispatch_audit",
                 *(f"configs/{arch}" for arch in ARCH_IDS)):
         assert f"src/repro_torch/{mod}.py" in have
     for src in KERNEL_SOURCES:
