@@ -45,6 +45,7 @@ from typing import Callable, Protocol, runtime_checkable
 
 import torch
 
+from .. import tracing
 from .caching import LRUCache
 from .mvm import lk_mvm, masked_dense
 from .precond import pivoted_cholesky_grid, woodbury_preconditioner
@@ -403,8 +404,10 @@ def _sweep(u, factors, force_kernel: bool, fused: bool):
     # module-level import here would be circular.
     from ..kernels import ops
     K1, K2, mask, noise = factors
-    return ops.lk_mvm_op(K1, K2, mask, u, noise, force_kernel=force_kernel,
-                         fused=fused, device=u.device)
+    with tracing.span("lkgp.mvm.launch"):
+        return ops.lk_mvm_op(K1, K2, mask, u, noise,
+                             force_kernel=force_kernel, fused=fused,
+                             device=u.device)
 
 
 class KernelMVMFunction(torch.autograd.Function):
@@ -515,8 +518,13 @@ class KernelOperator(LatentKroneckerOperator):
         return fused
 
     def __call__(self, u):
-        return KernelMVMFunction.apply(self.K1, self.K2, self.mask, u,
-                                       self.noise, self.fast, self.route(u))
+        with tracing.span("lkgp.mvm") as sp:
+            fused = self.route(u)
+            if sp is not None:
+                sp.set(route="fused" if fused else "two_stage",
+                       B=u.numel() // self.mask.numel())
+            return KernelMVMFunction.apply(self.K1, self.K2, self.mask, u,
+                                           self.noise, self.fast, fused)
 
 
 class KernelMVM:

@@ -45,6 +45,7 @@ from typing import Any, Protocol, runtime_checkable
 
 import torch
 
+from .. import tracing
 from .._device import check_on_device, resolve_device
 from . import gp_kernels as gk
 from .engines import get_engine
@@ -261,21 +262,24 @@ class Posterior:
         Mean is exact (cached CG solve); variance is estimated from Matheron
         samples plus observation noise - the Fig. 4 protocol.
         """
-        st = self._state
-        # Samples first: on a fresh posterior this folds the alpha solve and
-        # the Matheron residual solves into ONE stacked operator sweep; the
-        # mean below then reads the alpha cached by that same solve.
-        if generator is None and n_samples is None and normals is None:
-            s = self._default_samples[:, :, -1]   # cached; same default stream
-        else:
-            if generator is None and normals is None:
-                # tag 2: distinct from the _default_samples stream (tag 1).
-                generator = _stream(st.config.seed, 2, st.device)
-            s = self.samples(generator, n_samples, normals=normals)[:, :, -1]
-        mean = self.mean[:, -1]
-        var_f = s.var(dim=0, unbiased=False)
-        var_y = var_f + st.y_tf.inverse_var(self._noise)
-        return mean, var_y
+        with tracing.span("lkgp.final"):
+            st = self._state
+            # Samples first: on a fresh posterior this folds the alpha solve
+            # and the Matheron residual solves into ONE stacked operator
+            # sweep; the mean below then reads the alpha cached by that same
+            # solve.
+            if generator is None and n_samples is None and normals is None:
+                s = self._default_samples[:, :, -1]   # cached default stream
+            else:
+                if generator is None and normals is None:
+                    # tag 2: distinct from the _default_samples stream (tag 1).
+                    generator = _stream(st.config.seed, 2, st.device)
+                s = self.samples(generator, n_samples,
+                                 normals=normals)[:, :, -1]
+            mean = self.mean[:, -1]
+            var_f = s.var(dim=0, unbiased=False)
+            var_y = var_f + st.y_tf.inverse_var(self._noise)
+            return mean, var_y
 
 
 # -- state-keyed solve cache -----------------------------------------------

@@ -31,6 +31,7 @@ from typing import Any, ClassVar, NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import resolve_device
 from . import gp_kernels as gk
 from .caching import LRUCache
@@ -740,34 +741,35 @@ def extend(state: LKGPState, new_Y, new_mask, new_X=None) -> LKGPState:
     ``backend_used`` are cleared (they described the pre-extend fit), and
     the new state's posterior cache starts cold.
     """
-    dtype, dev = state.Y.dtype, state.device
-    new_Y = _tensor(new_Y, dev, dtype)
-    new_mask = _tensor(new_mask, dev, dtype)
-    new_Y = _observations(new_Y, new_mask, state.m, ("new_Y", "new_mask"))
+    with tracing.span("lkgp.extend"):
+        dtype, dev = state.Y.dtype, state.device
+        new_Y = _tensor(new_Y, dev, dtype)
+        new_mask = _tensor(new_mask, dev, dtype)
+        new_Y = _observations(new_Y, new_mask, state.m, ("new_Y", "new_mask"))
 
-    if new_X is None:
-        if new_Y.shape != state.Y.shape:
-            raise ValueError(f"full-grid update expects shape "
-                             f"{tuple(state.Y.shape)}, got "
-                             f"{tuple(new_Y.shape)}")
-        if bool((new_mask < state.mask).any().item()):
-            raise ValueError("new_mask must be a superset of the current mask")
-        X, Y, mask = state.X, new_Y, new_mask
-    else:
-        new_X = _tensor(new_X, dev, state.X.dtype)
-        X = torch.cat([state.X, new_X], dim=0)
-        Y = torch.cat([state.Y, new_Y], dim=0)
-        mask = torch.cat([state.mask, new_mask], dim=0)
+        if new_X is None:
+            if new_Y.shape != state.Y.shape:
+                raise ValueError(f"full-grid update expects shape "
+                                 f"{tuple(state.Y.shape)}, got "
+                                 f"{tuple(new_Y.shape)}")
+            if bool((new_mask < state.mask).any().item()):
+                raise ValueError("new_mask must be a superset of the current mask")
+            X, Y, mask = state.X, new_Y, new_mask
+        else:
+            new_X = _tensor(new_X, dev, state.X.dtype)
+            X = torch.cat([state.X, new_X], dim=0)
+            Y = torch.cat([state.Y, new_Y], dim=0)
+            mask = torch.cat([state.mask, new_mask], dim=0)
 
-    x_tf, _, y_tf = _fit_transforms(X, state.t, Y, mask)
-    out = dataclasses.replace(state, X=X, Y=Y, mask=mask,
-                              x_tf=x_tf, y_tf=y_tf)
-    eng = getattr(state, "engine", None)
-    if eng is not None:
-        object.__setattr__(out, "engine", eng)
-    object.__setattr__(out, "fit_result", None)
-    object.__setattr__(out, "backend_used", None)
-    return out
+        x_tf, _, y_tf = _fit_transforms(X, state.t, Y, mask)
+        out = dataclasses.replace(state, X=X, Y=Y, mask=mask,
+                                  x_tf=x_tf, y_tf=y_tf)
+        eng = getattr(state, "engine", None)
+        if eng is not None:
+            object.__setattr__(out, "engine", eng)
+        object.__setattr__(out, "fit_result", None)
+        object.__setattr__(out, "backend_used", None)
+        return out
 
 
 def refit(state: LKGPState, config: LKGPConfig | None = None,
