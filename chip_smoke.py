@@ -224,7 +224,8 @@ from repro_torch.kernels.lk_mvm import (  # noqa: E402
     lk_mvm_fused, lk_mvm_fused_plain, lk_mvm_fused_rows,
     lk_mvm_fused_rows_plain, lk_mvm_stage_left, lk_mvm_stage_left_plain,
     lk_mvm_stage_right, lk_mvm_stage_right_plain, lk_mvm_two_stage,
-    lk_mvm_two_stage_plain, TC_COLS, TC_K, TC_ROWS, plan_launch, plan_stream)
+    lk_mvm_two_stage_plain, TC_COLS, TC_K, TC_ROWS, TF32Planes, plan_launch,
+    plan_stage_left, plan_stream)
 from repro_torch.kernels.ref import lk_mvm_ref  # noqa: E402
 from repro_torch.testing import (FaultSchedule,  # noqa: E402
                                  NegatedOperator, arm_flaky_solver,
@@ -305,12 +306,13 @@ KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
                  (1, 2000, 52), (16, 2000, 52), (17, 2000, 52),
                  (65, 2000, 52),
                  (1, 2048, 52), (16, 2048, 52), (17, 2048, 52),
-                 (1, 8192, 64), (16, 8192, 64), (65, 8192, 64)]
+                 (1, 8192, 64), (16, 8192, 64), (65, 8192, 64),
+                 (65, 4096, 52)]
 TIMED_SHAPES = KERNEL_SHAPES[6:]
 MAIN_SHAPE = (65, 8192, 64)
 FIT_MAIN_SHAPE = (17, 2000, 52)
-KERNEL_SOURCES = ("lk_mvm_fused", "lk_mvm_two_stage", "lk_mvm_fused_rows",
-                  "rbf_gram")
+KERNEL_SOURCES = ("lk_mvm_fused", "lk_mvm_two_stage", "lk_mvm_stage_left",
+                  "lk_mvm_fused_rows", "rbf_gram")
 # Kernel K3, the row-shard MVM, as (B, n_local, n, m): a world of one rank
 # (n_local = n) at the serving shapes of the distributed phase (B = 65 for
 # final(), 1 for a mean); one rank's share of a 4-way split of n = 8192; the
@@ -480,18 +482,24 @@ def tc_bounds(bound_fn, *shape, precision: str) -> dict:
             "bound_fma_ms": fma}
 
 
-def plan_row(B: int, n_local: int, n: int, m: int,
-             narrow: bool = False) -> dict:
+def plan_row(B: int, n_local: int, n: int, m: int) -> dict:
     """The wrapper's launch plan at this shape, which is the grid the kernel
     launched (its launcher rejects any other): the split of the k sweep, the
-    cluster (1, 1, splits), the blocks on the card and the panel's width
-    (``narrow``: K2b's plan)."""
-    plan = plan_launch(B, n_local, n, m, sms=device_limits(DEV).sms,
-                       narrow=narrow)
+    cluster (1, 1, splits) and the blocks on the card."""
+    plan = plan_launch(B, n_local, n, m, sms=device_limits(DEV).sms)
     return {"splits": plan.splits, "cluster": [1, 1, plan.splits],
             "grid": [plan.panels, plan.row_tiles, plan.splits],
-            "blocks": plan.blocks, "tiles": plan.tiles,
-            "panel_cols": plan.panel_cols}
+            "blocks": plan.blocks, "tiles": plan.tiles}
+
+
+def left_plan_row(B: int, n: int, m: int) -> dict:
+    """K2b's plan at this shape, which is the grid it launched (its
+    launcher rejects any other): persistent blocks over (row tile, column
+    tile, split) units, the column tile and its padded slots."""
+    plan = plan_stage_left(B, n, m, sms=device_limits(DEV).sms)
+    return {"splits": plan.splits, "grid": [plan.blocks],
+            "blocks": plan.blocks, "tiles": plan.tiles, "units": plan.units,
+            "col_tile": plan.col_tile, "padded_share": plan.padded_share}
 
 
 def check_fills_card(row: dict) -> None:
@@ -664,15 +672,31 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
+def _bits(x):
+    """A result as one tensor of its bits: T's two planes over their
+    columns, side by side, or the tensor itself."""
+    if isinstance(x, TF32Planes):
+        return torch.cat([x.hi[:, :x.cols], x.lo[:, :x.cols]])
+    return x
+
+
+def _value(x):
+    """A result's float32 value: T's planes summed (hi + lo), or the
+    tensor itself."""
+    return x.value() if isinstance(x, TF32Planes) else x
+
+
 def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
-    """K2a, K2b and the pair against their plain versions (K2b on the plain
-    T, so each kernel is held alone) and against a second launch of
-    themselves, bit for bit; K2b and the pair also against the float64
-    oracle. Each row carries the grid its kernel launched; timed at the main
-    paths' shapes, with the 3xTF32 bound and the FMA bound beside it."""
+    """K2a (T transposed and split into TF32 halves), K2b and the pair
+    against their plain versions (K2b on the plain planes, so each kernel is
+    held alone) and against a second launch of themselves, bit for bit; K2b
+    and the pair also against the float64 oracle. Each row carries the grid
+    its kernel launched; timed at the main paths' shapes, with the 3xTF32
+    bound and the FMA bound beside it."""
     B, n, m = u.shape
     T = lk_mvm_stage_right_plain(u, mask, K2)
-    plan_R, plan_L = stream_row(B, n, m), plan_row(B, n, n, m, narrow=True)
+    T32 = torch.matmul(mask * u, K2)
+    plan_R, plan_L = stream_row(B, n, m), left_plan_row(B, n, m)
     cases = [
         ("lk_mvm_stage_right", "src/repro/kernels/lk_mvm.py:170",
          lambda: lk_mvm_stage_right(u, mask, K2),
@@ -682,7 +706,7 @@ def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
         ("lk_mvm_stage_left", "src/repro/kernels/lk_mvm.py:185",
          lambda: lk_mvm_stage_left(K1, T, mask, u, noise),
          lambda: lk_mvm_stage_left_plain(K1, T, mask, u, noise),
-         lambda: mask * torch.matmul(K1, T) + noise * mask * u,
+         lambda: mask * torch.matmul(K1, T32) + noise * mask * u,
          functools.partial(bound_two_stage_ms, "L"), plan_L),
         ("lk_mvm_two_stage", "src/repro/kernels/lk_mvm.py:170,185",
          lambda: lk_mvm_two_stage(K1, K2, mask, u, noise),
@@ -694,12 +718,13 @@ def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
     truth = None
     rows = []
     for name, tpu, kernel, plain, library, bound_fn, grid in cases:
-        ref = plain()
+        ref = _value(plain())
         out = kernel()
         again = kernel()
         torch.cuda.synchronize()
-        check(torch.equal(out, again), f"{name} at {(B, n, m)}: two launches "
-              f"gave different bits")
+        check(torch.equal(_bits(out), _bits(again)), f"{name} at {(B, n, m)}: "
+              f"two launches gave different bits")
+        out = _value(out)
         check(out.shape == ref.shape and out.dtype == torch.float32,
               f"{name} output {out.shape}/{out.dtype} at {(B, n, m)}")
         check(bool(torch.isfinite(out).all()), f"{name} output not finite")
@@ -711,11 +736,15 @@ def two_stage_rows(K1, K2, mask, u, noise) -> list[dict]:
                "ref_scale": scale, "bitwise_repeat": True, **grid}
         if name == "lk_mvm_two_stage":
             # whether the route changes the answer's bits (recorded: K2a
-            # rounds T as K1's stage R does, and K2b is K1's stage L)
+            # rounds T as K1's stage R does; K2b sums in another order)
             row["bitwise_equal_to_fused"] = bool(torch.equal(
                 out, lk_mvm_fused(K1, K2, mask, u, noise)))
         if name == "lk_mvm_stage_left" and B == 1 and n >= 8192:
-            check_fills_card(row)
+            # K2b splits k at B = 1: one wave of units past half the card
+            sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+            check(row["units"] <= sms < row["units"] + row["tiles"],
+                  f"{name} at {(B, n, m)}: {row['units']} units of "
+                  f"{row['tiles']} tiles for {sms} SMs")
         if name != "lk_mvm_stage_right":
             # Independent truth: the float64 oracle of the whole function.
             if truth is None:
@@ -5979,7 +6008,7 @@ def main() -> None:
         summary_row(rows, "lk_mvm_stage_right", csrc + "lk_mvm_two_stage.cu",
                     "src/repro/kernels/lk_mvm.py:170", FIT_MAIN_SHAPE,
                     main_paths["lk_mvm_stage_right"]),
-        summary_row(rows, "lk_mvm_stage_left", csrc + "lk_mvm_two_stage.cu",
+        summary_row(rows, "lk_mvm_stage_left", csrc + "lk_mvm_stage_left.cu",
                     "src/repro/kernels/lk_mvm.py:185", FIT_MAIN_SHAPE,
                     main_paths["lk_mvm_stage_left"]),
         summary_row(rows, "lk_mvm_fused_rows", csrc + "lk_mvm_fused_rows.cu",

@@ -100,6 +100,15 @@ def _patch_port_for_cpu() -> None:
             _counted.launches += 1
             return _fn(*a, **k)
         setattr(mod, plain, counting)
+    # On the CPU lk_mvm_two_stage runs its float32 plain version whole: one
+    # launch of each stage.
+    pair = lk.lk_mvm_two_stage_plain
+
+    def counting_pair(*a, **k):
+        lk.lk_mvm_stage_right.launches += 1
+        lk.lk_mvm_stage_left.launches += 1
+        return pair(*a, **k)
+    lk.lk_mvm_two_stage_plain = counting_pair
 
 
 def _cpu_time_ms(fn, **_):

@@ -26,7 +26,8 @@ LKGP), the LM zoo's RWKV-6 family (``repro_torch.configs``,
 the ``cuda`` engine every CG iteration of the fit's marginal likelihood and
 of the posterior solves is one sweep of the hand-written latent-Kronecker
 MVM kernels: the fused kernel (``kernels/csrc/lk_mvm_fused.cu``) or the
-two-stage pair (``kernels/csrc/lk_mvm_two_stage.cu``), whichever the route
+two-stage pair (``kernels/csrc/lk_mvm_two_stage.cu`` and
+``lk_mvm_stage_left.cu``), whichever the route
 tuner (``kernels/autotune.py``) timed faster at the sweep's shape bucket; a
 route is named with ``make_mll_iterative(config, KernelMVM(fused=...))``. The
 ``distributed`` engine splits the grid's rows over a ``torch.distributed``

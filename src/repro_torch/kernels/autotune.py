@@ -43,7 +43,7 @@ ROUTES = ("fused", "two_stage")
 # The budget entries each route launches (f32; K1's bf16 entry in bf16).
 _ROUTE_BUDGETS = {("fused", "f32"): ("K1 f32 16B",),
                   ("fused", "bf16"): ("K1 bf16 16B",),
-                  ("two_stage", "f32"): ("K2a 16B full", "K2b panel128 16B")}
+                  ("two_stage", "f32"): ("K2a 16B full", "K2b wgmma128")}
 # Timed mode: the reference's tolerance against the oracle (f32; bf16 is
 # held loosely), warm-up calls and timed calls per candidate.
 ATOL = {"f32": 1e-4, "bf16": 0.1}

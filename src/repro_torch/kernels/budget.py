@@ -13,6 +13,8 @@ instantiation, not per block-size choice:
   kernel's constants one to one (:func:`tc_smem_bytes` mirrors
   ``lk_tc::Layout`` of ``csrc/lk_mvm_tc.cuh``, :func:`stream_smem_bytes`
   ``lk_two_stage::BYTES`` of ``csrc/lk_mvm_two_stage.cu``,
+  :func:`stage_left_smem_bytes` ``lk_wg::Smem<BN>::BYTES`` of
+  ``csrc/lk_mvm_stage_left.cu``,
   :func:`gram_smem_bytes` ``rbf::Shape::SMEM`` of ``csrc/rbf_gram.cu``);
 * :class:`DeviceLimits` — the card's limits, :data:`H100_SXM` for the card
   the port targets, :func:`device_limits` read from a CUDA device;
@@ -33,7 +35,7 @@ from dataclasses import dataclass
 
 __all__ = ["DeviceLimits", "H100_SXM", "device_limits", "BlockBudget",
            "INSTANTIATIONS", "tc_smem_bytes", "stream_smem_bytes",
-           "gram_smem_bytes", "kernel_attributes", "GRAM_VARIANTS"]
+           "stage_left_smem_bytes", "gram_smem_bytes", "kernel_attributes", "GRAM_VARIANTS"]
 
 FLOAT = 4   # bytes of a float32 in shared memory
 
@@ -91,7 +93,7 @@ _LIMITS: dict[int, DeviceLimits] = {}
 
 
 def tc_smem_bytes(bf16: bool) -> int:
-    """Dynamic shared memory of the tensor-core body (K1, K3, K2b):
+    """Dynamic shared memory of the tensor-core body (K1, K3):
     ``lk_tc::Layout<BF16>::BYTES`` - a two-stage ring of (A tile, U tiles,
     mask tile), K2^T (split into TF32 halves in f32 mode) and T^T (halves in
     f32 mode)."""
@@ -114,6 +116,21 @@ def stream_smem_bytes() -> int:
     slot = SR * (KR_MAX + 8)
     k2t = KR_MAX * (2 * KR_MAX + 16)
     return (STAGES * slot + slot + k2t) * FLOAT
+
+
+def stage_left_smem_bytes(col_tile: int) -> int:
+    """Dynamic shared memory of K2b: ``lk_wg::Smem<BN>::BYTES`` - a
+    three-stage TMA ring of (K1_hi, K1_lo, T_hi, T_lo) k tiles of 32 floats
+    by 128 rows (K1) and ``col_tile`` rows (T^T), its full and empty
+    barriers, and 1024 bytes to align the ring to the 128-byte swizzle's
+    period."""
+    BM, BK, STAGES = 128, 32, 3
+    stage = 2 * BM * BK * FLOAT + 2 * col_tile * BK * FLOAT
+    return STAGES * stage + 2 * STAGES * 8 + 1024
+
+
+# K2b's threads: two consumer warpgroups and a producer warpgroup.
+STAGE_LEFT_THREADS = 384
 
 
 # K4's instantiations along d: (name, d in registers), as rbf::Variant.
@@ -190,13 +207,12 @@ def _instantiations() -> dict[str, BlockBudget]:
                 [("f32", 16), ("f32", 4), ("bf16", 16), ("bf16", 4)]):
             out.append(BlockBudget(f"{kernel} {prec} {copies}B", lib, which,
                                    512, 1, 0, tc[prec == "bf16"]))
-    for which, (panel, copies) in enumerate(
-            [(128, 16), (128, 4), (64, 16), (64, 4)]):
-        out.append(BlockBudget(f"K2b panel{panel} {copies}B",
-                               "lk_mvm_two_stage", which, 512, 1, 0, tc[False]))
+    for which, col_tile in enumerate((128, 64)):
+        out.append(BlockBudget(f"K2b wgmma{col_tile}", "lk_mvm_stage_left",
+                               which, STAGE_LEFT_THREADS, 1, 0,
+                               stage_left_smem_bytes(col_tile)))
     for which, (copies, cols) in enumerate(
-            [(16, "full"), (16, "ragged"), (4, "full"), (4, "ragged")],
-            start=4):
+            [(16, "full"), (16, "ragged"), (4, "full"), (4, "ragged")]):
         out.append(BlockBudget(f"K2a {copies}B {cols}", "lk_mvm_two_stage",
                                which, 128, 2, 0, stream_smem_bytes()))
     which = 0

@@ -1,26 +1,25 @@
-// Tensor-core body of the masked latent-Kronecker MVM for NVIDIA Hopper
-// (sm_90a), shared by kernel K1 (lk_mvm_fused.cu), kernel K3
-// (lk_mvm_fused_rows.cu) and kernel K2b (lk_mvm_two_stage.cu, stage L):
+// Tensor-core body of the fused masked latent-Kronecker MVM for NVIDIA
+// Hopper (sm_90a), shared by kernel K1 (lk_mvm_fused.cu, in the place of the
+// reference's TPU kernel `lk_mvm_fused`) and kernel K3 (lk_mvm_fused_rows.cu,
+// in the place of `lk_mvm_fused_rows`; both in src/repro/kernels/lk_mvm.py):
 //
 //   out[b] = mask_e * (A @ T[b]) + noise * (mask_e * u_e[b])
-//   T[b]   = um[b] @ K2            (K1, K3: stage R below, never stored)
+//   T[b]   = um[b] @ K2            (stage R below, never stored)
 //
 // A (n_rows, n) with row stride lda: K1 (n_rows = n) or one shard's K1_rows.
 // um[b] (n, m): mask * U[b] formed in the prologue (K1, MASKED = true) or the
-// caller's pre-masked um_full read as it is (K3). With T_LOADED (K2b) the
-// `um` pointer is T itself, (B, n, m) in device memory from kernel K2a: its
-// k tiles are loaded and transposed, K2 is not read and stage R is compiled
-// out. mask_e (n_rows, m) and u_e[b] (n_rows, m): the epilogue's mask and U
-// at the output rows. K2 (m, m) with row stride ldk2. noise is read through
-// a device pointer. float32 in, float32 out.
+// caller's pre-masked um_full read as it is (K3). mask_e (n_rows, m) and
+// u_e[b] (n_rows, m): the epilogue's mask and U at the output rows. K2 (m, m)
+// with row stride ldk2. noise is read through a device pointer. float32 in,
+// float32 out. (Kernel K2b, the two-stage route's stage L, is a wgmma kernel
+// of its own over operands split before it runs: lk_mvm_stage_left.cu.)
 //
 // Instruction: mma.sync (m16n8k8 TF32, m16n8k16 BF16, float32 accumulators).
 // wgmma would reach a higher share of the tensor cores' peak, but it needs
-// both TF32 operands K-major in swizzled shared memory behind descriptors and
-// an asynchronous warpgroup pipeline; mma.sync takes its fragments from
-// registers, which is what lets this body split every float32 operand into
-// two TF32 halves on the way in (below) and run the ragged shapes through the
-// same code. wgmma is the step after this one.
+// both TF32 operands K-major in swizzled shared memory as exact TF32 values;
+// mma.sync takes its fragments from registers, which is what lets this body
+// split every float32 operand into two TF32 halves on the way in (below), T
+// included, which it forms itself and never stores.
 //
 // Arithmetic.
 // * f32 mode: 3xTF32. Each operand x is split as hi = cvt.rna.tf32(x),
@@ -46,13 +45,7 @@
 //   shared memory and split into TF32 halves once) and stores it transposed,
 //   T^T[(b, j)][k], K-major for stage L, its TF32 halves already split (or
 //   bf16-rounded). T is recomputed once per 256-row block: m / 256 extra work
-//   (0.25 at m = 64). With T_LOADED the k tile of T (BPP members x TK rows x
-//   JT columns of the panel) streams into the ring's U slot by cp.async in
-//   the A tile's commit group, and one shared-memory pass writes it
-//   transposed and split into Th / Tl: what the end of stage R writes.
-//   A plan whose batch fits in half a panel (B = 1, planned with `narrow`)
-//   runs stage L on PANEL = 64 columns (warp tile 32 x 32): the columns
-//   that K1 has to carry empty at B = 1 are not multiplied.
+//   (0.25 at m = 64).
 // * f32 mode sums each k step's three MMAs into a zeroed fragment and adds
 //   it to the running sum with a float32 FADD: the tensor cores' accumulator
 //   truncates, and n / 8 * 3 MMAs into one accumulator bias the sum enough
@@ -77,14 +70,15 @@
 //   per SM.
 //
 // What bounds it now (H100, f32 mode, (65, 8192, 64); chip_smoke.py has the
-// times): switching stages off one at a time in a development build put the
-// most time in stage L (3 MMAs and a FADD per product), then stage R, then
-// the loads and barriers alone (each block and k tile moves 56 KB from L2);
-// every instantiation spills (76-220 bytes of stores a thread at 128
-// registers). mma.sync reaches a fraction of the tensor cores' rate that
-// wgmma would, and the A tile is read from L2 once per 128 columns: wgmma,
-// with TMA multicast of the A tile across a cluster of panels, is the way
-// past both.
+// times): operations, at a fraction of the tensor cores' rate. Switching
+// stages off one at a time in a development build put the most time in
+// stage L (3 MMAs and a FADD per product, every A fragment split on the way
+// into registers), then stage R, then the loads and barriers alone (each
+// block and k tile moves 56 KB from L2); every instantiation spills (76-220
+// bytes of stores a thread at 128 registers). The way past it is K2b's
+// design (lk_mvm_stage_left.cu: wgmma fed by TMA from operands split
+// before the kernel), which stage R, fused here, does not let K1 take as it
+// is: T would have to be split and stored K-major in shared memory first.
 
 #pragma once
 
@@ -216,13 +210,9 @@ struct Args {
     Plan plan;
 };
 
-// PANEL: the columns of a panel that stage L multiplies, BN or, with
-// T_LOADED, BN / 2 when the plan's batch fits in half a panel (B = 1).
-template <bool BF16, int VEC, bool MASKED, bool T_LOADED = false, int PANEL = BN>
+template <bool BF16, int VEC, bool MASKED>
 __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
-    static_assert(!(T_LOADED && (BF16 || MASKED)), "T_LOADED is f32, unmasked");
-    static_assert(PANEL == BN || (T_LOADED && PANEL == BN / 2), "panel width");
-    constexpr int NT = PANEL / WARPS_N / 8;   // 8-column fragments per warp
+    constexpr int NT = BN / WARPS_N / 8;   // 8-column fragments per warp
     using L = Layout<BF16>;
     extern __shared__ __align__(16) float smem[];
     float* const k2t = smem + STAGES * L::STAGE_FLOATS;  // [64 j][LDU]  K2^T chunk (hi / bf16)
@@ -291,7 +281,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
         if (kt < kt_end) {
             const int s = (kt - kt_begin) % STAGES;
             load_A(s, kt);
-            load_U(s, kt, T_LOADED ? j0 : 0);   // T_LOADED: T's columns of the panel
+            load_U(s, kt, 0);
         }
         cp_async_commit();
     };
@@ -409,23 +399,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
             }
         }
     };
-    // ---- T_LOADED: the k tile of T in the U slot, [bl][k][j] with row stride
-    //      LDU, written to Th / Tl as T^T[(bl, j)][k] split into TF32 halves.
-    //      A warp takes 8 k rows x 4 columns: 2-way bank conflicts on the
-    //      read, none on the write.
-    auto transpose_T = [&](int s) {
-        const float* src = U_s(s);
-        const int kq_n = TK / 8, jq_n4 = JT / 4;
-        for (int q = tid; q < BPP * TK * JT; q += NTHREADS) {
-            const int rest = q >> 5, kq = rest % kq_n, rest2 = rest / kq_n;
-            const int k = kq * 8 + (q & 7);
-            const int c = (rest2 % jq_n4) * 4 + ((q >> 3) & 3), bl = rest2 / jq_n4;
-            uint32_t h, l;
-            split(src[(bl * TK + k) * LDU + c], h, l);
-            Th[(bl * JT + c) * L::LDT + k] = __uint_as_float(h);
-            Tl[(bl * JT + c) * L::LDT + k] = __uint_as_float(l);
-        }
-    };
     auto stage_R = [&](int s, int kt) {
         for (int ch = 0; ch < nchunks; ++ch) {
             if (nchunks > 1) {   // m > 64: chunks of K2^T and U in turn
@@ -525,9 +498,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
     // ---- the k sweep of this split: a ring of STAGES tiles, the next
     //      STAGES - 1 in flight
     for (int q = tid; q < L::T_FLOATS; q += NTHREADS) Th[q] = 0.f;  // unused columns
-    if constexpr (!T_LOADED) {
-        if (nchunks == 1) load_k2t(0);   // resident for the whole sweep
-    }
+    if (nchunks == 1) load_k2t(0);   // resident for the whole sweep
 #pragma unroll
     for (int t = 0; t < STAGES - 1; ++t) load_tile(kt_begin + t);
     for (int kt = kt_begin; kt < kt_end; ++kt) {
@@ -535,8 +506,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
         cp_async_wait<STAGES - 2>();
         __syncthreads();   // tile kt landed; everyone is done with tile kt - 1
         load_tile(kt + STAGES - 1);
-        if constexpr (T_LOADED) transpose_T(s);
-        else stage_R(s, kt);
+        stage_R(s, kt);
         __syncthreads();   // T of tile kt complete
         stage_L(s);
     }
@@ -605,11 +575,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) lk_mvm_tc_kernel(const Args p) {
 // along k in one cluster (1 = no split). Picks 16-byte or 4-byte copies from
 // the operands' alignment. Returns the CUDA error code (0 = success;
 // cudaErrorInvalidValue for a plan that does not cover the output or does
-// not fit the layout, or bf16 with T_LOADED); does not synchronise and
-// allocates nothing.
-template <bool MASKED, bool T_LOADED = false>
+// not fit the layout); does not synchronise and allocates nothing.
+template <bool MASKED>
 inline int launch(const Args& p, int bf16, void* stream) {
-    static_assert(!(T_LOADED && MASKED), "T_LOADED reads T as it is");
     if (p.B <= 0 || p.n_rows <= 0 || p.n <= 0 || p.m <= 0 || p.n_rows > p.n)
         return (int)cudaErrorInvalidValue;
     const Plan& q = p.plan;
@@ -633,36 +601,19 @@ inline int launch(const Args& p, int bf16, void* stream) {
                       && (p.m % 4 == 0);
     void (*kernel)(const Args);
     int bytes;
-    // With T_LOADED a plan whose panel holds at most BN / 2 columns (B = 1)
-    // takes the half-width instantiation.
-    const bool narrow = T_LOADED && BPP * JT <= BN / 2;
     if (bf16) {
-        if constexpr (T_LOADED) {
-            return (int)cudaErrorInvalidValue;   // float32 only
-        } else {
-            kernel = vec4 ? lk_mvm_tc_kernel<true, 4, MASKED>
-                          : lk_mvm_tc_kernel<true, 1, MASKED>;
-            bytes = Layout<true>::BYTES;
-        }
+        kernel = vec4 ? lk_mvm_tc_kernel<true, 4, MASKED> : lk_mvm_tc_kernel<true, 1, MASKED>;
+        bytes = Layout<true>::BYTES;
     } else {
-        if constexpr (T_LOADED) {
-            if (narrow)
-                kernel = vec4 ? lk_mvm_tc_kernel<false, 4, false, true, BN / 2>
-                              : lk_mvm_tc_kernel<false, 1, false, true, BN / 2>;
-            else
-                kernel = vec4 ? lk_mvm_tc_kernel<false, 4, false, true>
-                              : lk_mvm_tc_kernel<false, 1, false, true>;
-        } else {
-            kernel = vec4 ? lk_mvm_tc_kernel<false, 4, MASKED>
-                          : lk_mvm_tc_kernel<false, 1, MASKED>;
-        }
+        kernel = vec4 ? lk_mvm_tc_kernel<false, 4, MASKED>
+                      : lk_mvm_tc_kernel<false, 1, MASKED>;
         bytes = Layout<false>::BYTES;
     }
     // More than 48 KB of dynamic shared memory has to be asked for, once per
     // instantiation and device. (Two threads racing here set the same value.)
     constexpr int MAX_DEVICES = 64;
     static bool smem_set[4][MAX_DEVICES] = {};
-    const int which = 2 * (bf16 != 0 || narrow) + (vec4 ? 1 : 0);
+    const int which = 2 * (bf16 != 0) + (vec4 ? 1 : 0);
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
@@ -689,7 +640,7 @@ inline int launch(const Args& p, int bf16, void* stream) {
 }
 
 // The runtime's view of the body's instantiations that launch<MASKED>()
-// picks without T_LOADED, at their launch: which = 0 f32 with 16-byte
+// picks, at their launch: which = 0 f32 with 16-byte
 // copies, 1 f32 with 4-byte copies, 2 bf16 16-byte, 3 bf16 4-byte (the
 // order of kernels/budget.py's entries).
 template <bool MASKED>

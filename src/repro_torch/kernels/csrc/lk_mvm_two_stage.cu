@@ -1,58 +1,46 @@
-// Two-stage masked latent-Kronecker matrix-vector product for NVIDIA Hopper
-// (sm_90a): the same function as lk_mvm_fused.cu in two launches, with the
-// intermediate T in device memory between them.
+// Stage R of the two-stage masked latent-Kronecker matrix-vector product
+// (kernel K2a) for NVIDIA Hopper (sm_90a):
 //
-//   stage R (K2a):  T[b]   = (mask * U[b]) @ K2                       (float32)
-//   stage L (K2b):  out[b] = mask * (K1 @ T[b]) + noise * (mask * U[b])
+//   T[b] = (mask * U[b]) @ K2          (float32, 3xTF32 on the tensor cores)
 //
-// K1 (n, n) and K2 (m, m) with unit stride along their rows and row strides
-// ldk1 / ldk2, mask (n, m) of 0/1 floats, U, T and out (B, n, m) contiguous,
-// noise a scalar read through a device pointer. All float32; both products
-// run on the tensor cores in 3xTF32 (lk_mvm_tc.cuh: hi = cvt.rna.tf32(x),
-// lo = cvt.rna.tf32(x - hi), lo*hi + hi*lo + hi*hi per product).
+// written for stage L (kernel K2b, lk_mvm_stage_left.cu) transposed and split:
+// T_hi = cvt.rna.tf32(T), T_lo = cvt.rna.tf32(T - T_hi), each a plane of
+// B m rows (one per flattened column (b, j)) by n, row stride ldt. K2 (m, m)
+// with unit stride along its rows and row stride ldk2, mask (n, m) of 0/1
+// floats, U (B, n, m) contiguous.
 //
-// Replaces the TPU kernels of `lk_mvm_two_stage` in the reference
-// (src/repro/kernels/lk_mvm.py): `_stage_right_kernel` and
-// `_stage_left_kernel`. The reference accumulates over its innermost grid axis
-// into a scratch tile, which runs in order on one core, and pads every operand
-// to block multiples on the host; here a block loops over the reduction
-// itself and every load is zero-filled past the ragged edge, so ragged n and
-// m need no padding copies.
+// Replaces the TPU kernel `_stage_right_kernel` of `lk_mvm_two_stage` in the
+// reference (src/repro/kernels/lk_mvm.py). The reference pads every operand
+// to block multiples on the host and accumulates over its innermost grid axis
+// in a scratch tile; here a block loops over the reduction itself and every
+// load is zero-filled past the ragged edge.
 //
-// Stage L (K2b) is the tensor-core body of lk_mvm_tc.cuh, instantiated with
-// T_LOADED: the k tiles of T stream in by cp.async beside K1's tile and are
-// transposed into the body's TF32 halves; K2 is not read. Everything else is
-// K1's: the batch folded into 128-column panels, so each K1 tile serves up to
-// four batch members; split-k in a thread-block cluster when the output
-// tiles are too few for the card (B = 1); the grid from the wrapper's
-// planner (kernels/lk_mvm.py: plan_launch, narrow: at B = 1 a 64-column
-// panel, not 128 columns of which 64 are empty). Bound on this card:
-// operations at the 3xTF32 rate (2 B n^2 m flops) at large B, K1's bytes at
-// B = 1.
-//
-// Stage R (K2a) does 2 m flops per 12 bytes moved (U and mask in, T out): 16
-// flops per byte at m = 64, so it is bound by bytes at every shape, and the
-// design is about its loads and stores. Its work is cut into strips of SR =
-// 64 rows of one batch member (row tile it of member b); persistent blocks,
-// two per SM, each take a contiguous range of strips in (it, b) order from
-// the wrapper's planner (kernels/lk_mvm.py: plan_stream). So K2^T, split into
-// TF32 halves, is loaded once per block, and so is the mask tile of a row
-// tile, which a block's strips share (one or two row tiles per block at the
-// main shapes): only U streams in, through a three-deep cp.async ring
-// (16-byte copies where rows are 16-byte aligned, zero-filled 4-byte copies
-// otherwise), two strips ahead of the tensor cores. Each warp owns 16 rows of
-// the strip and all its columns; it writes its product over its own rows of
-// the ring slot it has just read and stores them as rows of 16-byte stores,
-// so the only block-wide barrier per strip is the ring's. m > 64 sweeps
-// 64-column chunks of the reduction and 64-column output tiles, reloading
-// K2's and the mask's chunk per step. Each k step's three MMAs go into a
-// zeroed fragment that a rounding FADD adds to the output fragment, as in
-// K1's stage R: accumulating the 24 MMAs of m = 64 in place let the tensor
-// cores' truncation bias T toward zero by ~5e-7 of itself, ten times the
-// bias of this order (emulated in tests/test_torch_kernels.py), and CG
-// solutions amplify it (at n = 8192 the routed serve needed 12-21 % more
-// iterations; PERF.md). K2^T keeps each value's two TF32 halves side by
-// side, one 16-byte shared load per B fragment.
+// What bounds it: bytes. It does 2 m flops per 12 bytes moved (U and mask
+// in, the two halves of T out), 10 flops per byte at m = 64, at every shape
+// below the card's ridge, so the design is about its loads and stores. Its
+// work is cut into strips of SR = 64 rows of one batch member (row tile it of
+// member b); persistent blocks, two per SM, each take a contiguous range of
+// strips in (it, b) order from the wrapper's planner (kernels/lk_mvm.py:
+// plan_stream). So K2^T, split into TF32 halves, is loaded once per block,
+// and so is the mask tile of a row tile, which a block's strips share (one or
+// two row tiles per block at the main shapes): only U streams in, through a
+// three-deep cp.async ring (16-byte copies where rows are 16-byte aligned,
+// zero-filled 4-byte copies otherwise), two strips ahead of the tensor
+// cores. Each warp owns 16 rows of the strip and all its columns; it writes
+// its product transposed over its own rows of the ring slot it has just read
+// and stores each column's 16 rows as 64-byte runs of both planes, so the
+// only block-wide barrier per strip is the ring's. m > 64 sweeps 64-column
+// chunks of the reduction and 64-column output tiles, reloading K2's and the
+// mask's chunk per step. Each k step's three MMAs go into a zeroed fragment
+// that a rounding FADD adds to the output fragment, as in K1's stage R:
+// accumulating the 24 MMAs of m = 64 in place let the tensor cores'
+// truncation bias T toward zero by ~5e-7 of itself, ten times the bias of
+// this order (emulated in tests/test_torch_kernels.py), and CG solutions
+// amplify it (at n = 8192 the routed serve needed 12-21 % more iterations;
+// PERF.md). K2^T keeps each value's two TF32 halves side by side, one 16-byte
+// shared load per B fragment. The split of T into halves is the one K2b's
+// operands need (wgmma reads TF32 values from shared memory): done here, as T
+// is stored, it costs a second plane of stores and no pass of its own.
 
 #include "lk_mvm_tc.cuh"
 
@@ -80,6 +68,10 @@ constexpr int LDK = 2 * KR_MAX + 16;
 constexpr int K2T = KR_MAX * LDK;
 constexpr int BYTES = (STAGES * SLOT + SLOT + K2T) * (int)sizeof(float);
 constexpr int JQ_MAX = KR_MAX / 16;    // 16-column items per warp
+// T^T of a warp's 16 rows, [j][r] with this row stride, in the warp's own
+// 16 rows of a ring slot (64 x 18 <= 16 x LDU_MAX floats).
+constexpr int LDTS = 18;
+static_assert(KR_MAX * LDTS <= 16 * LDU_MAX, "T^T of a warp fits its rows of a slot");
 static_assert(SR == 16 * (NTHREADS / 32), "a warp owns 16 rows of a strip");
 static_assert(2 * (BYTES + 1024) <= 233472, "two blocks must fit on an SM");
 
@@ -89,7 +81,8 @@ template <int VEC, bool FULL>
 __global__ void __launch_bounds__(NTHREADS, 2)
 stage_right_kernel(const float* __restrict__ U, const float* __restrict__ mask,
                    const float* __restrict__ K2, long long ldk2,
-                   float* __restrict__ T, int B, int n, int m, int strips) {
+                   float* __restrict__ T_hi, float* __restrict__ T_lo, long long ldt,
+                   int B, int n, int m, int strips) {
     using lk_tc::cp_async;
     extern __shared__ __align__(16) float smem[];
     float* const M_s = smem + STAGES * SLOT;   // [r][mm] mask tile
@@ -253,33 +246,33 @@ stage_right_kernel(const float* __restrict__ U, const float* __restrict__ mask,
         }
         if (ch != jtiles - 1) continue;
 
-        // ---- the warp's rows of T: over its own rows of the slot it has
-        //      just read, then out in rows of 16-byte stores
+        // ---- the warp's 16 rows of T, transposed (T^T[j][r], row stride
+        //      LDTS) over its own rows of the slot it has just read, then out
+        //      split into TF32 halves: for each column (b, j) 16 consecutive
+        //      rows of k, 64-byte runs of each plane
         __syncwarp();
+        float* const Ts = U_s(s) + warp * 16 * LDU;
 #pragma unroll
         for (int jq = 0; jq < JQ_MAX; ++jq) {
             if (jq >= jq_n) break;
 #pragma unroll
             for (int f = 0; f < 2; ++f)
 #pragma unroll
-                for (int h = 0; h < 2; ++h)
-                    *reinterpret_cast<float2*>(Ur + 8 * h * LDU + jq * 16 + f * 8 + 2 * tig) =
-                        make_float2(acc[jq][f][2 * h], acc[jq][f][2 * h + 1]);
+                for (int e = 0; e < 4; ++e)
+                    Ts[(jq * 16 + f * 8 + 2 * tig + (e & 1)) * LDTS + gid + 8 * (e >> 1)] =
+                        acc[jq][f][e];
         }
         __syncwarp();
-        const float* rows_s = U_s(s) + warp * 16 * LDU;
-        float* const Tb = T + (size_t)b * plane;
-        const int j0 = jt * JT, cpr = JT / VEC;
-        for (int e = lane; e < 16 * cpr; e += 32) {
-            const int r = e / cpr, c = (e - r * cpr) * VEC;
-            const int i = i0 + warp * 16 + r, gc = j0 + c;
-            if (i >= n || gc >= m) continue;
-            if constexpr (VEC == 4) {
-                *reinterpret_cast<float4*>(Tb + (size_t)i * m + gc) =
-                    *reinterpret_cast<const float4*>(rows_s + r * LDU + c);
-            } else {
-                Tb[(size_t)i * m + gc] = rows_s[r * LDU + c];
-            }
+        const int j0 = jt * JT;
+        for (int e = lane; e < 16 * JT; e += 32) {
+            const int jl = e >> 4, r = e & 15;
+            const int i = i0 + warp * 16 + r, gj = j0 + jl;
+            if (i >= n || gj >= m) continue;
+            uint32_t h, l;
+            lk_tc::split(Ts[jl * LDTS + r], h, l);
+            const size_t o = ((size_t)b * m + gj) * (size_t)ldt + i;
+            T_hi[o] = __uint_as_float(h);
+            T_lo[o] = __uint_as_float(l);
         }
     }
 }
@@ -287,26 +280,27 @@ stage_right_kernel(const float* __restrict__ U, const float* __restrict__ mask,
 }  // namespace lk_two_stage
 
 // Launches stage R on `stream` with the grid of `plan` (the wrapper's
-// planner): plan->blocks persistent blocks over plan->strips strips.
+// planner): plan->blocks persistent blocks over plan->strips strips, T
+// written as two planes T_hi, T_lo of (B m) rows with row stride ldt >= n.
 // Returns the CUDA error code of the launch (0 = success;
 // cudaErrorInvalidValue for a plan that does not cover the rows). Does not
 // synchronise and allocates nothing.
 extern "C" int lk_mvm_stage_right_launch(const void* U, const void* mask,
                                          const void* K2, long long ldk2,
-                                         void* T, int B, int n, int m,
+                                         void* T_hi, void* T_lo, long long ldt,
+                                         int B, int n, int m,
                                          const lk_two_stage::StreamPlan* plan,
                                          void* stream) {
     using namespace lk_two_stage;
-    if (B <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+    if (B <= 0 || n <= 0 || m <= 0 || ldt < n) return (int)cudaErrorInvalidValue;
     if (plan->strip_rows != SR
         || (long long)plan->strips != (long long)B * ((n + SR - 1) / SR)
         || plan->blocks < 1 || plan->blocks > plan->strips)
         return (int)cudaErrorInvalidValue;
-    const uintptr_t ptrs = (uintptr_t)U | (uintptr_t)T;
-    const bool vec4 = ptrs % 16 == 0 && m % 4 == 0;
+    const bool vec4 = (uintptr_t)U % 16 == 0 && m % 4 == 0;
     const bool full = m > 48 && m <= KR_MAX;
-    void (*kernel)(const float*, const float*, const float*, long long, float*,
-                   int, int, int, int) =
+    void (*kernel)(const float*, const float*, const float*, long long, float*, float*,
+                   long long, int, int, int, int) =
         vec4 ? (full ? stage_right_kernel<4, true> : stage_right_kernel<4, false>)
              : (full ? stage_right_kernel<1, true> : stage_right_kernel<1, false>);
     // Over 48 KB of dynamic shared memory has to be asked for, once per
@@ -323,67 +317,31 @@ extern "C" int lk_mvm_stage_right_launch(const void* U, const void* mask,
         if (dev < MAX_DEVICES) smem_set[which][dev] = true;
     }
     kernel<<<plan->blocks, NTHREADS, BYTES, (cudaStream_t)stream>>>(
-        (const float*)U, (const float*)mask, (const float*)K2, ldk2, (float*)T,
-        B, n, m, plan->strips);
+        (const float*)U, (const float*)mask, (const float*)K2, ldk2, (float*)T_hi,
+        (float*)T_lo, ldt, B, n, m, plan->strips);
     return (int)cudaGetLastError();
 }
 
-// Launches stage L on `stream` with the grid of `plan` (the wrapper's
-// planner, as for K1); same contract as stage R.
-extern "C" int lk_mvm_stage_left_launch(const void* K1, long long ldk1,
-                                        const void* T, const void* mask,
-                                        const void* U, const void* noise,
-                                        void* out, int B, int n, int m,
-                                        const lk_tc::Plan* plan, void* stream) {
-    lk_tc::Args p;
-    p.A = (const float*)K1;
-    p.lda = ldk1;
-    p.K2 = nullptr;
-    p.ldk2 = 0;
-    p.um = (const float*)T;
-    p.mask_p = nullptr;
-    p.mask_e = (const float*)mask;
-    p.u_e = (const float*)U;
-    p.noise = (const float*)noise;
-    p.out = (float*)out;
-    p.B = B;
-    p.n_rows = n;
-    p.n = n;
-    p.m = m;
-    p.plan = *plan;
-    return lk_tc::launch<false, true>(p, 0, stream);
-}
-
-// The runtime's view of the instantiations the two launchers pick from, at
-// their launch: which = 0..3 stage L (K2b) with a 128-column panel and
-// 16-byte copies, 128 / 4-byte, 64 / 16-byte, 64 / 4-byte; 4..7 stage R
-// (K2a) with 16-byte copies and 48 < m <= 64, 16-byte other m, 4-byte
-// 48 < m <= 64, 4-byte other m (the order of kernels/budget.py's entries).
+// The runtime's view of the instantiations the launcher picks from, at its
+// launch: which = 0 16-byte copies and 48 < m <= 64, 1 16-byte other m,
+// 2 4-byte 48 < m <= 64, 3 4-byte other m (the order of kernels/budget.py's
+// entries).
 extern "C" int lk_mvm_two_stage_attributes(int which, KernelAttr* out) {
-    using lk_tc::lk_mvm_tc_kernel;
     using lk_two_stage::stage_right_kernel;
-    constexpr int L_BYTES = lk_tc::Layout<false>::BYTES, T = lk_tc::NTHREADS;
-    constexpr int HALF = lk_tc::BN / 2;
     switch (which) {
-    case 0: return kernel_attributes(lk_mvm_tc_kernel<false, 4, false, true>, T, L_BYTES, out);
-    case 1: return kernel_attributes(lk_mvm_tc_kernel<false, 1, false, true>, T, L_BYTES, out);
-    case 2: return kernel_attributes(lk_mvm_tc_kernel<false, 4, false, true, HALF>, T,
-                                     L_BYTES, out);
-    case 3: return kernel_attributes(lk_mvm_tc_kernel<false, 1, false, true, HALF>, T,
-                                     L_BYTES, out);
-    case 4: return kernel_attributes(stage_right_kernel<4, true>, lk_two_stage::NTHREADS,
+    case 0: return kernel_attributes(stage_right_kernel<4, true>, lk_two_stage::NTHREADS,
                                      lk_two_stage::BYTES, out);
-    case 5: return kernel_attributes(stage_right_kernel<4, false>, lk_two_stage::NTHREADS,
+    case 1: return kernel_attributes(stage_right_kernel<4, false>, lk_two_stage::NTHREADS,
                                      lk_two_stage::BYTES, out);
-    case 6: return kernel_attributes(stage_right_kernel<1, true>, lk_two_stage::NTHREADS,
+    case 2: return kernel_attributes(stage_right_kernel<1, true>, lk_two_stage::NTHREADS,
                                      lk_two_stage::BYTES, out);
-    case 7: return kernel_attributes(stage_right_kernel<1, false>, lk_two_stage::NTHREADS,
+    case 3: return kernel_attributes(stage_right_kernel<1, false>, lk_two_stage::NTHREADS,
                                      lk_two_stage::BYTES, out);
     default: return (int)cudaErrorInvalidValue;
     }
 }
 
-// Human-readable name of an error code returned by the launch functions.
+// Human-readable name of an error code returned by the launch function.
 extern "C" const char* lk_mvm_two_stage_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }

@@ -26,14 +26,18 @@ the (B, n, m) intermediate going through device memory between them.
 
 :func:`lk_mvm_two_stage`
     The same function in two launches with ``T`` in device memory between
-    them: :func:`lk_mvm_stage_right` (``T = (mask * U) @ K2``, kernel K2a) and
-    :func:`lk_mvm_stage_left` (``mask * (K1 @ T) + noise * (mask * U)``,
-    kernel K2b), both in ``csrc/lk_mvm_two_stage.cu``. They take the place of
-    the reference's ``lk_mvm_two_stage``. K2b is the tensor-core body of K1
-    with T loaded instead of computed (grid from :func:`plan_launch`); K2a
-    is a streaming 3xTF32 pass over strips of rows (grid from
-    :func:`plan_stream`). Each stage has its plain version beside it, and
-    :func:`lk_mvm_two_stage_plain` composes them.
+    them: :func:`lk_mvm_stage_right` (``T = (mask * U) @ K2``, kernel K2a,
+    ``csrc/lk_mvm_two_stage.cu``) and :func:`lk_mvm_stage_left` (``mask *
+    (K1 @ T) + noise * (mask * U)``, kernel K2b,
+    ``csrc/lk_mvm_stage_left.cu``). They take the place of the reference's
+    ``lk_mvm_two_stage``. K2a is a streaming 3xTF32 pass over strips of rows
+    (grid from :func:`plan_stream`) that writes T transposed and split into
+    exact TF32 halves (:class:`TF32Planes`); K2b is a persistent wgmma
+    kernel fed by TMA from those planes and from K1's, split once per K1
+    (:func:`tf32_planes`, cached while K1 lives), over unpadded (b, j)
+    columns (grid from :func:`plan_stage_left`). Each stage has its plain
+    version beside it; :func:`lk_mvm_two_stage_plain` is the pair's plain
+    version in float32.
 
 :func:`lk_mvm_fused_rows`
     The single-pass kernel for ONE row shard of the grid (kernel K3,
@@ -49,8 +53,13 @@ the (B, n, m) intermediate going through device memory between them.
     kernels.
 
 :func:`plan_launch`
-    The host-side planner of K1's, K2b's and K3's launch: output tiles,
-    panels and the split of the k sweep over a thread-block cluster.
+    The host-side planner of K1's and K3's launch: output tiles, panels and
+    the split of the k sweep over a thread-block cluster.
+
+:func:`plan_stage_left`
+    The host-side planner of K2b's launch: the column tile, the split of k
+    and the persistent blocks that walk the (row tile, column tile, split)
+    units.
 
 :func:`plan_stream`
     The host-side planner of K2a's launch: strips of rows and the persistent
@@ -60,6 +69,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -72,10 +82,11 @@ __all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain",
            "lk_mvm_stage_right_plain", "lk_mvm_stage_left",
            "lk_mvm_stage_left_plain", "lk_mvm_fused_rows",
            "lk_mvm_fused_rows_plain", "LaunchPlan", "plan_launch",
-           "StreamPlan", "plan_stream"]
+           "StreamPlan", "plan_stream", "LeftPlan", "plan_stage_left",
+           "TF32Planes", "tf32_split", "tf32_planes"]
 
 _PRECISIONS = ("f32", "bf16")
-# Block tile of the tensor-core body of K1, K2b and K3 (csrc/lk_mvm_tc.cuh:
+# Block tile of the tensor-core body of K1 and K3 (csrc/lk_mvm_tc.cuh:
 # BM, BN, TK, MAX_SPLITS). plan_launch decides the whole grid from them and the
 # kernel launches it as it is; its launcher rejects a plan that does not
 # cover the output, so a mismatch raises instead of computing wrong values.
@@ -85,8 +96,14 @@ STREAM_ROWS = 64
 # K2a's persistent blocks per SM: as many as its budget lets share an SM (two
 # at the H100's limits).
 STREAM_BUDGET = "K2a 16B full"
+# K2b (csrc/lk_mvm_stage_left.cu: BM, BK, MAX_SPLITS, GROUP): output rows per
+# tile, k per stage, most splits of k, row tiles a raster group walks; its
+# column tiles are 128 or, when all of B m fits, 64 columns wide.
+LEFT_ROWS, LEFT_K, LEFT_MAX_SPLITS, LEFT_GROUP = 128, 32, 8, 8
+LEFT_COL_TILES = (64, 128)
 _LIB = None
 _LIB_TWO_STAGE = None
+_LIB_LEFT = None
 _LIB_ROWS = None
 
 
@@ -114,19 +131,32 @@ def _two_stage_library():
     if _LIB_TWO_STAGE is None:
         lib = load_library("lk_mvm_two_stage")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # (U, mask, K2, ldk2, T, B, n, m, stream plan, stream)
+        # (U, mask, K2, ldk2, T_hi, T_lo, ldt, B, n, m, stream plan, stream)
         lib.lk_mvm_stage_right_launch.argtypes = [
-            p, p, p, ll, p, i, i, i, ctypes.POINTER(_CStreamPlan), p]
+            p, p, p, ll, p, p, ll, i, i, i, ctypes.POINTER(_CStreamPlan), p]
         lib.lk_mvm_stage_right_launch.restype = i
-        # (K1, ldk1, T, mask, U, noise, out, B, n, m, plan, stream)
-        lib.lk_mvm_stage_left_launch.argtypes = [p, ll, p, p, p, p, p,
-                                                 i, i, i,
-                                                 ctypes.POINTER(_CPlan), p]
-        lib.lk_mvm_stage_left_launch.restype = i
         lib.lk_mvm_two_stage_error_string.argtypes = [i]
         lib.lk_mvm_two_stage_error_string.restype = ctypes.c_char_p
         _LIB_TWO_STAGE = lib
     return _LIB_TWO_STAGE
+
+
+def _stage_left_library():
+    """Build/load K2b's library and declare its signature."""
+    global _LIB_LEFT
+    if _LIB_LEFT is None:
+        lib = load_library("lk_mvm_stage_left")
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        # (K1_hi, K1_lo, ldk, T_hi, T_lo, ldt, mask, U, noise, out, work,
+        #  B, n, m, plan, stream)
+        lib.lk_mvm_stage_left_launch.argtypes = [p, p, ll, p, p, ll, p, p, p,
+                                                 p, p, i, i, i,
+                                                 ctypes.POINTER(_CLeftPlan), p]
+        lib.lk_mvm_stage_left_launch.restype = i
+        lib.lk_mvm_stage_left_error_string.argtypes = [i]
+        lib.lk_mvm_stage_left_error_string.restype = ctypes.c_char_p
+        _LIB_LEFT = lib
+    return _LIB_LEFT
 
 
 def _rows_library():
@@ -214,7 +244,7 @@ class _CPlan(ctypes.Structure):
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    """One launch of K1, K2b or K3: ``row_tiles`` x ``panels`` output tiles of
+    """One launch of K1 or K3: ``row_tiles`` x ``panels`` output tiles of
     TC_ROWS rows by TC_COLS flattened (b, j) columns (``batch_per_panel``
     batch members of a ``col_tile``-wide column tile), each summed by
     ``splits`` blocks of one thread-block cluster over ``k_tiles`` tiles of
@@ -236,13 +266,6 @@ class LaunchPlan:
     def blocks(self) -> int:
         return self.tiles * self.splits
 
-    @property
-    def panel_cols(self) -> int:
-        """The columns stage L multiplies per panel: 128, or 64 when the
-        plan is narrow."""
-        return TC_COLS if self.batch_per_panel * self.col_tile > TC_COLS // 2 \
-            else TC_COLS // 2
-
     def c_struct(self) -> _CPlan:
         """The plan as the kernel's launcher takes it."""
         return _CPlan(**{f: getattr(self, f) for f, _ in _CPlan._fields_})
@@ -255,27 +278,20 @@ class LaunchPlan:
                 for r in range(s)]
 
 
-def plan_launch(B: int, n_local: int, n: int, m: int, *, sms: int,
-                narrow: bool = False) -> LaunchPlan:
-    """How K1 or K2b (``n_local = n``) or K3 tiles the work, and the split
-    count: the grid the kernel launches on a card of ``sms`` SMs (the
-    wrappers pass the device's count, from
+def plan_launch(B: int, n_local: int, n: int, m: int, *,
+                sms: int) -> LaunchPlan:
+    """How K1 (``n_local = n``) or K3 tiles the work, and the split count:
+    the grid the kernel launches on a card of ``sms`` SMs (the wrappers pass
+    the device's count, from
     :func:`repro_torch.kernels.budget.device_limits`).
 
     With fewer than two tiles per SM the k sweep is split over a cluster of
     s <= 8 blocks (at most one per k tile), s = ceil(2 * sms / tiles), so
     that B = 1 still streams K1 from enough SMs; with enough tiles s = 1.
     The cluster of a launch is its ``splits`` blocks.
-
-    ``narrow`` (K2b, whose T comes from memory): when the whole batch fits
-    in half a panel, a panel holds just the batch, and the kernel runs its
-    half-width instantiation on it (at B = 1 and m = 64: 64 columns, not
-    128 of which 64 are empty).
     """
     col_tile = min(64, -(-m // 16) * 16)
     bpp = min(TC_COLS // col_tile, 4)
-    if narrow and B * col_tile <= TC_COLS // 2:
-        bpp = B
     row_tiles = -(-n_local // TC_ROWS)
     panels = -(-B // bpp) * -(-m // col_tile)
     k_tiles = -(-n // TC_K)
@@ -343,6 +359,161 @@ def plan_stream(B: int, n: int, m: int, *, sms: int,
         raise ValueError(f"K2a's block does not fit an SM of {limits}")
     return StreamPlan(B=B, n=n, strip_rows=STREAM_ROWS, strips=strips,
                       blocks=min(strips, per_sm * sms))
+
+
+class _CLeftPlan(ctypes.Structure):
+    """``lk_wg::Plan`` of csrc/lk_mvm_stage_left.cu, field for field."""
+
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "row_tiles", "col_tiles", "col_tile", "k_tiles", "splits", "blocks")]
+
+
+@dataclass(frozen=True)
+class LeftPlan:
+    """One launch of K2b: ``row_tiles`` x ``col_tiles`` output tiles of
+    LEFT_ROWS rows by ``col_tile`` of the ``cols = B m`` flattened (b, j)
+    columns, each summed by ``splits`` units over ``k_tiles`` tiles of
+    LEFT_K, walked by ``blocks`` persistent blocks (block j takes units j,
+    j + blocks, ...)."""
+
+    n: int
+    cols: int
+    row_tiles: int
+    col_tiles: int
+    col_tile: int
+    k_tiles: int
+    splits: int
+    blocks: int
+
+    @property
+    def tiles(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def padded_share(self) -> float:
+        """Column slots the tensor cores multiply that hold no column."""
+        return 1.0 - self.cols / (self.col_tiles * self.col_tile)
+
+    def c_struct(self) -> _CLeftPlan:
+        """The plan as the kernel's launcher takes it."""
+        return _CLeftPlan(**{f: getattr(self, f) for f, _ in _CLeftPlan._fields_})
+
+    def k_ranges(self) -> list[tuple[int, int]]:
+        """The rows [k0, k1) of the reduction each split sums, in order: the
+        kernel's own rule (whole k tiles, split r from r*KT//s)."""
+        s, kt = self.splits, self.k_tiles
+        return [((r * kt // s) * LEFT_K, min(((r + 1) * kt // s) * LEFT_K,
+                                             self.n)) for r in range(s)]
+
+    def unit(self, q: int) -> tuple[int, int, int]:
+        """(row tile, column tile, split) of unit ``q``: the kernel's rule
+        (``lk_wg::unit``): a tile's splits consecutive, tiles LEFT_GROUP row
+        tiles at a time, column tile by column tile."""
+        t, split = divmod(q, self.splits)
+        g, w = divmod(t, LEFT_GROUP * self.col_tiles)
+        rows = min(LEFT_GROUP, self.row_tiles - g * LEFT_GROUP)
+        return g * LEFT_GROUP + w % rows, w // rows, split
+
+    def schedule(self, block: int) -> list[tuple[int, int, int]]:
+        """The units persistent block ``block`` computes, in its order."""
+        return [self.unit(q) for q in range(block, self.units, self.blocks)]
+
+
+def plan_stage_left(B: int, n: int, m: int, *, sms: int) -> LeftPlan:
+    """K2b's grid on a card of ``sms`` SMs, from what the shape shows: the
+    ``B m`` flattened columns in tiles of 128, or one tile of 64 when they
+    fit (B = 1), so no batch member pads its own tile; k split only when the
+    tiles would leave more than half the card idle (B = 1), into as many
+    whole-tile ranges as keep the units within one wave (at most
+    LEFT_MAX_SPLITS); one persistent block an SM, at most one a unit."""
+    cols = B * m
+    col_tile = LEFT_COL_TILES[0] if cols <= LEFT_COL_TILES[0] \
+        else LEFT_COL_TILES[1]
+    row_tiles = -(-n // LEFT_ROWS)
+    col_tiles = -(-cols // col_tile)
+    k_tiles = -(-n // LEFT_K)
+    tiles = row_tiles * col_tiles
+    splits = 1 if 2 * tiles > sms else max(1, min(LEFT_MAX_SPLITS, k_tiles,
+                                                  sms // tiles))
+    if tiles * splits >= 2**31:
+        raise ValueError(f"{tiles * splits} units are more than a launch takes")
+    return LeftPlan(n=n, cols=cols, row_tiles=row_tiles, col_tiles=col_tiles,
+                    col_tile=col_tile, k_tiles=k_tiles, splits=splits,
+                    blocks=min(tiles * splits, sms))
+
+
+def _leading_dim(n: int) -> int:
+    """Row stride of a plane of ``n`` float32 values: a multiple of four
+    (16 bytes), as TMA reads it."""
+    return -(-n // 4) * 4
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of float32 ``x``, each exactly representable in TF32:
+    ``hi = rna_tf32(x)``, ``lo = rna_tf32(x - hi)`` (``cvt.rna.tf32.f32``:
+    to nearest on the bit pattern, ties away from zero, the 13 low mantissa
+    bits cleared), the kernels' rounding rule."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+@dataclass(frozen=True)
+class TF32Planes:
+    """A float32 matrix (rows, ``cols``) split into exact TF32 halves
+    (:func:`tf32_split`), each a (rows, ld) plane with the row stride
+    ``ld >= cols`` a multiple of four, as K2b's TMA loads read them; the
+    columns past ``cols`` are never read. K1 is split as it is (rows i,
+    columns k); T is split transposed (row ``b * m + j``, column k)."""
+
+    hi: torch.Tensor
+    lo: torch.Tensor
+    cols: int
+
+    @property
+    def ld(self) -> int:
+        return self.hi.stride(0)
+
+    def value(self) -> torch.Tensor:
+        """``hi + lo`` over the planes' columns: the float32 value the
+        kernel's operands carry (exact: both halves fit in 22 bits)."""
+        return (self.hi + self.lo)[:, :self.cols]
+
+
+def tf32_planes(x: torch.Tensor) -> TF32Planes:
+    """``x`` (rows, cols) as :class:`TF32Planes` on its device (padding
+    columns zero), in plain PyTorch: once per operand, not per sweep."""
+    rows, cols = x.shape
+    hi, lo = tf32_split(x)
+    ld = _leading_dim(cols)
+    if ld != cols:
+        pad = lambda v: torch.nn.functional.pad(v, (0, ld - cols))
+        hi, lo = pad(hi), pad(lo)
+    return TF32Planes(hi.contiguous(), lo.contiguous(), cols)
+
+
+# K1's planes, kept while K1 lives and is not written: id -> (weak ref,
+# version counter, planes). The operator's float32 K1 lasts as long as the
+# operator, so each operator (and the tuner's problem) splits K1 once.
+_K1_PLANES: dict[int, tuple] = {}
+
+
+def _k1_planes(K1: torch.Tensor) -> TF32Planes:
+    key = id(K1)
+    hit = _K1_PLANES.get(key)
+    if hit is not None and hit[0]() is K1 and hit[1] == K1._version:
+        return hit[2]
+    planes = tf32_planes(K1)
+    _K1_PLANES[key] = (weakref.ref(K1, lambda _, k=key: _K1_PLANES.pop(k, None)),
+                       K1._version, planes)
+    return planes
 
 
 def lk_mvm_fused_plain(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
@@ -426,10 +597,10 @@ def lk_mvm_fused(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
 lk_mvm_fused.launches = 0
 
 
-def _check_stage_args(u, mask, factor_name, factor, T=None):
+def _check_stage_args(u, mask, factor_name, factor):
     """What the two-stage kernels take: float32 everywhere on one device,
-    ``u`` (and ``T``) (B, n, m) and the mask (n, m) contiguous, the square
-    factor (K1 (n, n) or K2 (m, m)) with unit stride along its rows."""
+    ``u`` (B, n, m) and the mask (n, m) contiguous, the square factor (K1
+    (n, n) or K2 (m, m)) with unit stride along its rows."""
     if mask.ndim != 2 or u.ndim != 3 or u.shape[1:] != mask.shape:
         raise ValueError(f"u must be (B, n, m) over an (n, m) mask, got "
                          f"{tuple(u.shape)} and {tuple(mask.shape)}")
@@ -443,10 +614,6 @@ def _check_stage_args(u, mask, factor_name, factor, T=None):
         raise ValueError(f"{factor_name} must be ({size}, {size}) with unit "
                          f"stride along its rows, got {tuple(factor.shape)}")
     operands = {"u": u, "mask": mask, factor_name: factor}
-    if T is not None:
-        if T.shape != u.shape:
-            raise ValueError(f"T must be {tuple(u.shape)}, got {tuple(T.shape)}")
-        operands["T"] = T
     for name, x in operands.items():
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
@@ -461,33 +628,62 @@ def _check_stage_args(u, mask, factor_name, factor, T=None):
     return B, n, m
 
 
+def _check_planes(name, planes, rows, cols, device):
+    """``planes`` hold a (rows, cols) float32 matrix as K2b reads it."""
+    if not isinstance(planes, TF32Planes):
+        raise TypeError(f"{name} must be TF32Planes, got {type(planes).__name__}")
+    for x in (planes.hi, planes.lo):
+        if (x.dtype != torch.float32 or x.device != device or x.ndim != 2
+                or tuple(x.shape) != (rows, planes.ld) or x.stride(1) != 1
+                or x.stride(0) != planes.ld):
+            raise ValueError(f"{name} must be two float32 ({rows}, ld) planes "
+                             f"with unit column stride on {device}")
+    if planes.cols != cols or planes.ld < cols or planes.ld % 4:
+        raise ValueError(f"{name} must have {cols} columns and a row stride "
+                         f"that is a multiple of 4, got {planes.cols} and "
+                         f"{planes.ld}")
+    _refuse_autograd(planes.hi, planes.lo)
+
+
 def lk_mvm_stage_right_plain(u: torch.Tensor, mask: torch.Tensor,
-                             K2: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`lk_mvm_stage_right`: float32 ``(mask*u) @ K2``."""
+                             K2: torch.Tensor) -> TF32Planes:
+    """Plain version of :func:`lk_mvm_stage_right`: the float32 ``T =
+    (mask*u) @ K2`` rounded to float32, then split into TF32 halves and
+    transposed, ``T^T`` as (B m, n) planes (row ``b * m + j``)."""
     f32 = torch.float32
-    return (mask.to(f32) * u.to(f32)) @ K2.to(f32)
+    T = (mask.to(f32) * u.to(f32)) @ K2.to(f32)
+    B, n, m = T.shape
+    return tf32_planes(T.transpose(1, 2).reshape(B * m, n))
 
 
-def lk_mvm_stage_left_plain(K1: torch.Tensor, T: torch.Tensor,
+def lk_mvm_stage_left_plain(K1: torch.Tensor, T: TF32Planes,
                             mask: torch.Tensor, u: torch.Tensor,
                             noise=0.0) -> torch.Tensor:
-    """Plain version of :func:`lk_mvm_stage_left`: float32
-    ``mask * (K1 @ T) + noise * (mask * u)``."""
+    """Plain version of :func:`lk_mvm_stage_left`: float32 ``mask * (K1 @ T)
+    + noise * (mask * u)`` over the operands the kernel multiplies, K1 and T
+    each the sum of its TF32 halves."""
     f32 = torch.float32
+    B, n, m = u.shape
+    Tv = T.value().reshape(B, m, n).transpose(1, 2)
     mk = mask.to(f32)
-    return mk * (K1.to(f32) @ T.to(f32)) \
+    return mk * (tf32_planes(K1).value() @ Tv) \
         + _noise_scalar(noise, u.device) * (mk * u.to(f32))
 
 
 def lk_mvm_two_stage_plain(K1: torch.Tensor, K2: torch.Tensor,
                            mask: torch.Tensor, u: torch.Tensor, noise=0.0, *,
                            precision: str = "f32") -> torch.Tensor:
-    """Plain version of :func:`lk_mvm_two_stage`, same rounding points: a
-    float32 ``T``, a float32 product, a float32 epilogue, the result cast
-    to ``u.dtype``."""
+    """Plain version of :func:`lk_mvm_two_stage`, with its rounding points:
+    a float32 ``T``, a float32 product, a float32 epilogue, the result cast
+    to ``u.dtype`` (the kernels' operands split into TF32 halves carry each
+    float32 value to 2^-22 of itself, below this version's own rounding)."""
     _two_stage_precision(precision)
-    T = lk_mvm_stage_right_plain(u, mask, K2)
-    return lk_mvm_stage_left_plain(K1, T, mask, u, noise).to(u.dtype)
+    f32 = torch.float32
+    mk = mask.to(f32)
+    T = (mk * u.to(f32)) @ K2.to(f32)
+    out = mk * (K1.to(f32) @ T) + _noise_scalar(noise, u.device) * (
+        mk * u.to(f32))
+    return out.to(u.dtype)
 
 
 def _two_stage_precision(precision: str) -> None:
@@ -500,8 +696,10 @@ def _two_stage_precision(precision: str) -> None:
 
 
 def lk_mvm_stage_right(u: torch.Tensor, mask: torch.Tensor,
-                       K2: torch.Tensor) -> torch.Tensor:
-    """Kernel K2a: ``T[b] = (mask * u[b]) @ K2``, float32 (B, n, m) -> (B, n, m).
+                       K2: torch.Tensor) -> TF32Planes:
+    """Kernel K2a: ``T[b] = (mask * u[b]) @ K2``, float32 (B, n, m), returned
+    as K2b reads it: transposed and split into TF32 halves, two (B m, ld)
+    planes (:class:`TF32Planes`).
 
     One launch of ``stage_right_kernel`` (3xTF32 on the tensor cores,
     persistent blocks over the grid of :func:`plan_stream`) on the current
@@ -511,7 +709,9 @@ def lk_mvm_stage_right(u: torch.Tensor, mask: torch.Tensor,
     B, n, m = _check_stage_args(u, mask, "K2", K2)
     if u.device.type == "cpu":
         return lk_mvm_stage_right_plain(u, mask, K2)
-    T = torch.empty_like(u)
+    ld = _leading_dim(n)
+    T_hi, T_lo = torch.empty((2, B * m, ld), dtype=torch.float32,
+                             device=u.device)
     limits = device_limits(u.device)
     plan = plan_stream(B, n, m, sms=limits.sms, limits=limits)
     lib = _two_stage_library()
@@ -519,40 +719,58 @@ def lk_mvm_stage_right(u: torch.Tensor, mask: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lk_mvm_stage_right_launch(
             u.data_ptr(), mask.data_ptr(), K2.data_ptr(), K2.stride(0),
-            T.data_ptr(), B, n, m, ctypes.byref(plan.c_struct()), stream)
+            T_hi.data_ptr(), T_lo.data_ptr(), ld, B, n, m,
+            ctypes.byref(plan.c_struct()), stream)
     _raise_on_launch_error(rc, lib.lk_mvm_two_stage_error_string,
                            "lk_mvm_stage_right", (B, n, m))
     lk_mvm_stage_right.launches += 1
-    return T
+    return TF32Planes(T_hi, T_lo, n)
 
 
 lk_mvm_stage_right.launches = 0
 
 
-def lk_mvm_stage_left(K1: torch.Tensor, T: torch.Tensor, mask: torch.Tensor,
+def lk_mvm_stage_left(K1: torch.Tensor, T: TF32Planes, mask: torch.Tensor,
                       u: torch.Tensor, noise=0.0) -> torch.Tensor:
     """Kernel K2b: ``out[b] = mask * (K1 @ T[b]) + noise * (mask * u[b])``,
-    float32. ``noise`` is read through a device pointer.
+    float32 (B, n, m). ``T`` is what :func:`lk_mvm_stage_right` returns;
+    ``K1`` (n, n) float32 is split into TF32 halves at its first use and the
+    halves kept while it lives and is not written. ``noise`` is read through
+    a device pointer.
 
-    One launch of the tensor-core body of ``csrc/lk_mvm_tc.cuh`` with T
-    loaded (3xTF32, the grid of :func:`plan_launch`) on the current stream
-    for a CUDA tensor (or a raise); the plain version for a CPU tensor.
+    One launch of ``lk_mvm_tc_kernel_wgmma`` (3xTF32 wgmma fed by TMA, the
+    grid of :func:`plan_stage_left`; with a split of k, a second kernel
+    sums the splits in order) on the current stream for a CUDA tensor (or a
+    raise); the plain version for a CPU tensor.
     ``lk_mvm_stage_left.launches`` counts kernel launches.
     """
-    B, n, m = _check_stage_args(u, mask, "K1", K1, T=T)
+    B, n, m = _check_stage_args(u, mask, "K1", K1)
+    _check_planes("T", T, B * m, n, u.device)
     if u.device.type == "cpu":
         return lk_mvm_stage_left_plain(K1, T, mask, u, noise)
+    return _stage_left_cuda(K1, T, mask, u, noise)
+
+
+def _stage_left_cuda(K1, T, mask, u, noise):
+    """K2b's launch on operands that :func:`lk_mvm_stage_left` checks, or
+    that :func:`lk_mvm_two_stage` checked and K2a wrote."""
+    B, n, m = u.shape
+    K1p = _k1_planes(K1)
     noise_t = _noise_scalar(noise, u.device)
     out = torch.empty_like(u)
-    plan = plan_launch(B, n, n, m, sms=device_limits(u.device).sms, narrow=True)
-    lib = _two_stage_library()
+    plan = plan_stage_left(B, n, m, sms=device_limits(u.device).sms)
+    work = torch.empty((plan.splits, n, B * m), dtype=torch.float32,
+                       device=u.device) if plan.splits > 1 else None
+    lib = _stage_left_library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lk_mvm_stage_left_launch(
-            K1.data_ptr(), K1.stride(0), T.data_ptr(), mask.data_ptr(),
-            u.data_ptr(), noise_t.data_ptr(), out.data_ptr(), B, n, m,
+            K1p.hi.data_ptr(), K1p.lo.data_ptr(), K1p.ld, T.hi.data_ptr(),
+            T.lo.data_ptr(), T.ld, mask.data_ptr(), u.data_ptr(),
+            noise_t.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), B, n, m,
             ctypes.byref(plan.c_struct()), stream)
-    _raise_on_launch_error(rc, lib.lk_mvm_two_stage_error_string,
+    _raise_on_launch_error(rc, lib.lk_mvm_stage_left_error_string,
                            "lk_mvm_stage_left", (B, n, m))
     lk_mvm_stage_left.launches += 1
     return out
@@ -570,7 +788,8 @@ def lk_mvm_two_stage(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
     Takes what :func:`lk_mvm_fused` takes (float32 factors and mask, float32
     or float64 ``u`` with any leading batch dims, computed on in float32,
     returned in ``u.dtype``) and computes the same function. On a CUDA tensor
-    it launches both kernels or raises; on a CPU tensor it runs
+    it launches both kernels or raises (K1's TF32 halves are made at K1's
+    first sweep and kept while K1 lives); on a CPU tensor it runs
     :func:`lk_mvm_two_stage_plain`. ``precision="bf16"`` raises
     ``NotImplementedError``. ``block_n`` / ``block_m`` are accepted for
     signature parity with the reference and ignored.
@@ -578,9 +797,11 @@ def lk_mvm_two_stage(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
     del block_n, block_m
     _two_stage_precision(precision)
     n, m = _check_args(K1, K2, mask, u, precision)
+    if u.device.type == "cpu":
+        return lk_mvm_two_stage_plain(K1, K2, mask, u, noise)
     u3 = u.detach().reshape(-1, n, m).to(torch.float32)
     T = lk_mvm_stage_right(u3, mask, K2)
-    out = lk_mvm_stage_left(K1, T, mask, u3, noise)
+    out = _stage_left_cuda(K1, T, mask, u3, noise)
     return out.to(u.dtype).reshape(u.shape)
 
 

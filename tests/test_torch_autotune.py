@@ -21,6 +21,7 @@ from repro_torch.kernels.autotune import (autotune_route, cache_contents,
                                           heuristic_route)
 from repro_torch.kernels.budget import (H100_SXM, INSTANTIATIONS,
                                         DeviceLimits, gram_smem_bytes,
+                                        stage_left_smem_bytes,
                                         stream_smem_bytes, tc_smem_bytes)
 
 CSRC = Path(budget.__file__).resolve().parent / "csrc"
@@ -42,8 +43,9 @@ def _fresh_cache():
 
 def test_budget_bytes_equal_the_kernels_constants():
     """Every instantiation's shared memory, recomputed from the constants
-    the CUDA sources declare: the tensor-core body (K1, K3, K2b; 208 and 214
-    KB), K2a's ring (110,592 B) and K4's staging rows."""
+    the CUDA sources declare: the tensor-core body (K1, K3; 208 and 214
+    KB), K2a's ring (110,592 B), K2b's TMA ring (193 or 145 KB) and K4's
+    staging rows."""
     tc = _constants("lk_mvm_tc.cuh")
     assert (tc["BM"], tc["BN"], tc["TK"], tc["STAGES"], tc["KR_MAX"]) == (
         256, 128, 32, 2, 64)
@@ -72,6 +74,19 @@ def test_budget_bytes_equal_the_kernels_constants():
                                        + tc["KR_MAX"] * (2 * tc["KR_MAX"] + 16))
     assert stream_smem_bytes() == 110592
 
+    wg = _constants("lk_mvm_stage_left.cu")
+    assert (wg["BM"], wg["BK"], wg["STAGES"], wg["CONSUMERS"]) == (128, 32, 3, 2)
+    left = (CSRC / "lk_mvm_stage_left.cu").read_text()
+    assert "NTHREADS = 128 * (CONSUMERS + 1)" in left
+    assert "__launch_bounds__(NTHREADS, 1)" in left
+    assert "BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024" in left
+    for bn in (64, 128):
+        stage = 2 * wg["BM"] * wg["BK"] * 4 + 2 * bn * wg["BK"] * 4
+        assert stage_left_smem_bytes(bn) == wg["STAGES"] * stage \
+            + 2 * wg["STAGES"] * 8 + 1024
+    assert (stage_left_smem_bytes(128), stage_left_smem_bytes(64)) == (
+        197680, 148528)
+
     g = _constants("rbf_gram.cu")
     assert (g["NTHREADS"], g["RB"], g["DK_SMALL"], g["DK_LARGE"]) == (
         256, 32, 8, 16)
@@ -83,8 +98,8 @@ def test_budget_bytes_equal_the_kernels_constants():
 
     for b in INSTANTIATIONS.values():
         want = {"lk_mvm_fused": (512, 1), "lk_mvm_fused_rows": (512, 1),
-                "rbf_gram": (256, 3 if "d<=8" in b.name else 2)}.get(
-            b.library, (512, 1) if b.name.startswith("K2b") else (128, 2))
+                "lk_mvm_stage_left": (384, 1), "lk_mvm_two_stage": (128, 2),
+                "rbf_gram": (256, 3 if "d<=8" in b.name else 2)}[b.library]
         assert (b.threads, b.min_blocks) == want, b.name
 
 
@@ -95,21 +110,24 @@ def test_every_instantiation_is_exported_by_its_library():
     for b in INSTANTIATIONS.values():
         by_lib.setdefault(b.library, []).append(b.which)
     assert set(by_lib) == {"lk_mvm_fused", "lk_mvm_fused_rows",
-                           "lk_mvm_two_stage", "rbf_gram"}
+                           "lk_mvm_two_stage", "lk_mvm_stage_left",
+                           "rbf_gram"}
     for lib, whiches in by_lib.items():
         assert sorted(whiches) == list(range(len(whiches)))
         src = (CSRC / f"{lib}.cu").read_text()
         assert f'extern "C" int {lib}_attributes(int which, KernelAttr* out)' \
             in src
-    assert len(by_lib["rbf_gram"]) == 12 and len(by_lib["lk_mvm_two_stage"]) == 8
+    assert len(by_lib["rbf_gram"]) == 12 and len(by_lib["lk_mvm_two_stage"]) == 4
+    assert len(by_lib["lk_mvm_stage_left"]) == 2
 
 
 def test_blocks_per_sm_at_the_h100_limits():
-    """One tensor-core block per SM (214 KB), two K2a blocks (255 registers
-    and 110,592 B each), three or two K4 blocks (80 or 128 registers)."""
+    """One tensor-core block per SM (214 KB), one K2b block (193 KB or 145
+    KB of TMA ring), two K2a blocks (255 registers and 110,592 B each),
+    three or two K4 blocks (80 or 128 registers)."""
     assert H100_SXM.sms == 132
     for b in INSTANTIATIONS.values():
-        want = (1 if b.threads == 512 else 2 if b.threads == 128
+        want = (1 if b.threads in (512, 384) else 2 if b.threads == 128
                 else 3 if "d<=8" in b.name else 2)
         assert b.blocks_per_sm() == want, b.name
         assert b.fits()

@@ -23,7 +23,7 @@ BANNED_ROOTS = {"jax", "jaxlib", "repro", "flax", "optax"}
 # Only ever imported inside the function that needs them.
 LAZY_ONLY_ROOTS = {"triton"}
 KERNEL_SOURCES = ("lk_mvm_fused.cu", "lk_mvm_two_stage.cu",
-                  "lk_mvm_fused_rows.cu", "rbf_gram.cu")
+                  "lk_mvm_stage_left.cu", "lk_mvm_fused_rows.cu", "rbf_gram.cu")
 
 
 def _imports(path: Path):
@@ -110,12 +110,18 @@ def test_kernel_source_calls_no_library_product():
         assert "torch/extension.h" not in src
         if name in ("lk_mvm_fused.cu", "lk_mvm_fused_rows.cu",
                     "lk_mvm_two_stage.cu"):
-            # K1, K2b and K3: one tensor-core body (K2a beside it in the
-            # two-stage source), no FMA main loop left
+            # K1 and K3: one tensor-core body (K2a beside it in the
+            # two-stage source, with its helpers), no FMA main loop left
             assert '#include "lk_mvm_tc.cuh"' in src
             assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32" in code
             assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16" in code
             assert "cvt.rna.tf32.f32" in code and "fmaf" not in code
+        if name == "lk_mvm_stage_left.cu":
+            # K2b: its own wgmma kernel fed by TMA, sharing no device code
+            # with the tensor-core body
+            assert '#include "lk_mvm_tc.cuh"' not in src
+            assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in code
+            assert "cp.async.bulk.tensor.2d" in code and "mma.sync" not in code
 
 
 def test_import_works_without_gpu_toolchain_and_pulls_in_no_jax():

@@ -29,7 +29,8 @@ from repro_torch.kernels import (lk_mvm_cuda, lk_mvm_fused,
                                  lk_mvm_two_stage, lk_mvm_two_stage_plain,
                                  rbf_gram_op, rbf_gram_ref)
 from repro_torch.kernels import _build
-from _tf32_emulation import mma_3xtf32, tc_matmul
+from repro_torch.kernels.lk_mvm import TF32Planes, tf32_planes, tf32_split
+from _tf32_emulation import mma_3xtf32, tc_matmul, tf32
 
 # (B, n, m): n < 8, non-multiples of 8, B > 1, m spanning several blocks.
 AWKWARD_SHAPES = [(1, 5, 3), (1, 7, 19), (3, 32, 16), (2, 30, 21),
@@ -154,7 +155,8 @@ def test_two_stage_plain_matches_reference_kernel_and_oracle(shape):
     """lk_mvm_two_stage_plain (float32 T, float32 products and epilogue)
     against the reference's Pallas two-stage kernel in interpret mode
     (float32 too) to float32 rounding, 1e-5 of max|out|; against the
-    float64 oracle to the same. The stages compose to it exactly."""
+    float64 oracle to the same. The stages, which carry T and K1 as their
+    TF32 halves, compose to it within float32 rounding (1e-6 of max|out|)."""
     K1, K2, mask, u = _problem(*shape)
     ref = np.asarray(ref_lk_mvm_two_stage(
         jnp.asarray(K1), jnp.asarray(K2), jnp.asarray(mask), jnp.asarray(u),
@@ -167,14 +169,17 @@ def test_two_stage_plain_matches_reference_kernel_and_oracle(shape):
     exact = lk_mvm_ref(*(x.double() for x in (tK1, tK2, tmask, tu)), 0.37)
     assert float((out.double() - exact).abs().max()) <= 1e-5 * scale
     T = lk_mvm_stage_right_plain(tu, tmask, tK2)
-    assert torch.equal(lk_mvm_stage_left_plain(tK1, T, tmask, tu, 0.37), out)
+    both = lk_mvm_stage_left_plain(tK1, T, tmask, tu, 0.37)
+    assert float((both - out).abs().max()) <= 1e-6 * scale
 
 
 def test_two_stage_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
     K1, K2, mask, u = _t(*_problem(3, 9, 11))
     counts = (lk_mvm_stage_right.launches, lk_mvm_stage_left.launches)
     T = lk_mvm_stage_right(u, mask, K2)
-    assert torch.equal(T, lk_mvm_stage_right_plain(u, mask, K2))
+    plain = lk_mvm_stage_right_plain(u, mask, K2)
+    assert isinstance(T, TF32Planes) and (T.hi.shape[0], T.cols) == (3 * 11, 9)
+    assert torch.equal(T.hi, plain.hi) and torch.equal(T.lo, plain.lo)
     out = lk_mvm_stage_left(K1, T, mask, u, torch.tensor(0.2))
     assert torch.equal(out, lk_mvm_stage_left_plain(K1, T, mask, u, 0.2))
     # float64 u with leading batch dims: float32 inside, float64 out
@@ -182,7 +187,9 @@ def test_two_stage_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
     both = lk_mvm_two_stage(K1, K2, mask, u64, 0.2)
     assert both.dtype == torch.float64 and both.shape == u64.shape
     assert torch.equal(both, lk_mvm_two_stage_plain(K1, K2, mask, u64, 0.2))
-    assert torch.equal(both.reshape(3, 9, 11).float(), out)
+    # the stages carry K1 and T as their TF32 halves: float32 rounding apart
+    gap = (both.reshape(3, 9, 11).float() - out).abs().max()
+    assert float(gap) <= 1e-6 * float(out.abs().max())
     assert (lk_mvm_stage_right.launches, lk_mvm_stage_left.launches) == counts
 
 
@@ -199,7 +206,7 @@ def test_two_stage_wrappers_reject_what_the_kernels_do_not_take(case):
     elif case == "strided_u":
         u = torch.cat([u, u], dim=-1)[..., ::2]
     elif case == "bad_T":
-        T = T[:1]
+        T = TF32Planes(T.hi[:1], T.lo[:1], T.cols)
     elif case == "requires_grad":
         K2, err = K2.clone().requires_grad_(), NotImplementedError
     elif case == "empty":
@@ -383,7 +390,7 @@ def test_build_failure_is_raised_not_swallowed(tmp_path, monkeypatch):
 # and the arithmetic of its f32 mode (3xTF32), emulated on the CPU
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("name", ["lk_mvm_fused", "lk_mvm_fused_rows",
-                                  "lk_mvm_two_stage"])
+                                  "lk_mvm_two_stage", "lk_mvm_stage_left"])
 def test_library_digest_covers_the_shared_header(name, tmp_path):
     """An edited header under csrc/ gives another library name, so a stale
     build is never loaded; the digest is otherwise stable."""
@@ -478,19 +485,23 @@ def test_stream_planner_covers_every_row_once(shape):
 
 
 def test_split_planner_fills_the_card_at_batch_one():
-    from repro_torch.kernels.lk_mvm import plan_launch
+    from repro_torch.kernels.lk_mvm import plan_launch, plan_stage_left
     plan = functools.partial(plan_launch, sms=H100_SMS)
     one = plan(1, 8192, 8192, 64)
     assert one.splits > 1 and one.blocks >= 132
     assert plan(65, 8192, 8192, 64).splits == 1
-    # K2b's narrow plan: the same grid on a 64-column panel at B = 1, the
-    # usual one as soon as the batch fills more than half a panel
-    narrow = plan(1, 8192, 8192, 64, narrow=True)
-    assert narrow.panel_cols == 64 and one.panel_cols == 128
-    assert (narrow.splits, narrow.blocks) == (one.splits, one.blocks)
-    assert narrow.blocks >= 132
-    assert plan(2, 8192, 8192, 64, narrow=True) == plan(2, 8192, 8192, 64)
-    assert plan(4, 50, 50, 16, narrow=True).panel_cols == 64
+    # K2b's plan: at B = 1 one 64-column tile (the batch's columns, not 128
+    # of which 64 are empty) and k split into as many ranges as keep the
+    # units within one wave that fills the card past half; the usual
+    # 128-column tile once the batch's columns pass 64
+    left = functools.partial(plan_stage_left, sms=H100_SMS)
+    narrow = left(1, 8192, 64)
+    assert narrow.col_tile == 64 and narrow.splits == 2
+    assert narrow.units == narrow.blocks == 128
+    assert narrow.units + narrow.tiles > 132
+    assert left(2, 8192, 64).col_tile == 128
+    assert left(4, 50, 16).col_tile == 64
+    assert left(65, 8192, 64).splits == 1
 
 
 # What the planners gave before they read the card's SM count (an H100's
@@ -526,6 +537,120 @@ def test_planners_follow_the_device_sm_count(sms):
     if sms == 114:
         assert splits[(16, 2000, 52)] == 4 != PLANS_AT_132[
             (16, 2000, 52)][1]
+
+
+# K2b's planner at the shapes above, the cell's (65, 4096, 52) and a B = 1
+# serve at n = 8192.
+LEFT_PLAN_SHAPES = [*PLANS_AT_132, (65, 4096, 52), (1, 8192, 64)]
+
+
+@pytest.mark.parametrize("shape", LEFT_PLAN_SHAPES, ids=str)
+def test_stage_left_schedule_covers_every_output_tile_once(shape):
+    """plan_stage_left's persistent schedule, as the kernel walks it, gives
+    every (row tile, column tile) output tile each of its splits exactly
+    once; the splits' k ranges partition n in whole tiles; the tiles cover
+    the n rows and the B m flattened columns; one block an SM at most."""
+    from repro_torch.kernels.lk_mvm import (LEFT_K, LEFT_MAX_SPLITS,
+                                            LEFT_ROWS, plan_stage_left)
+    B, n, m = shape
+    plan = plan_stage_left(B, n, m, sms=H100_SMS)
+    assert plan.row_tiles == -(-n // LEFT_ROWS)
+    assert plan.col_tiles * plan.col_tile >= B * m > (plan.col_tiles - 1) \
+        * plan.col_tile
+    assert 1 <= plan.splits <= min(LEFT_MAX_SPLITS, plan.k_tiles)
+    assert plan.k_tiles == -(-n // LEFT_K)
+    assert 1 <= plan.blocks == min(plan.units, H100_SMS)
+    seen = {}
+    for block in range(plan.blocks):
+        for unit in plan.schedule(block):
+            seen[unit] = seen.get(unit, 0) + 1
+    want = {(r, c, s) for r in range(plan.row_tiles)
+            for c in range(plan.col_tiles) for s in range(plan.splits)}
+    assert set(seen) == want and set(seen.values()) == {1}
+    ranges = plan.k_ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    for (k0, k1), (k2, _) in zip(ranges, ranges[1:]):
+        assert k1 == k2
+    for k0, k1 in ranges:
+        assert k0 % LEFT_K == 0 and k1 > k0 and (k1 % LEFT_K == 0 or k1 == n)
+    c = plan.c_struct()
+    assert (c.row_tiles, c.col_tiles, c.col_tile, c.k_tiles, c.splits,
+            c.blocks) == (plan.row_tiles, plan.col_tiles, plan.col_tile,
+                          plan.k_tiles, plan.splits, plan.blocks)
+
+
+def test_stage_left_pads_under_three_percent_of_the_cells_columns():
+    """At the benchmark cell's (65, 4096, 52) the flattened (b, j) columns
+    fill 27 tiles of 128 but 2.2 % of the slots; the parent's per-member
+    64-column panels (two a panel, 33 panels of 128) padded 20 %."""
+    from repro_torch.kernels.lk_mvm import plan_launch, plan_stage_left
+    plan = plan_stage_left(65, 4096, 52, sms=H100_SMS)
+    assert (plan.col_tiles, plan.col_tile, plan.splits) == (27, 128, 1)
+    assert plan.padded_share < 0.03
+    panels = plan_launch(65, 4096, 4096, 52, sms=H100_SMS).panels
+    assert 1 - 65 * 52 / (panels * 128) > 0.19
+
+
+def test_tf32_split_gives_exact_halves_that_reconstruct_the_value():
+    """K1's split: hi and lo with their 13 low mantissa bits zero (exact
+    TF32 values), hi the value rounded to nearest with ties away from zero
+    (the tests' own cvt.rna emulation), hi + lo exact in float32 and within
+    2^-21 of the value; the planes pad each row to a multiple of four."""
+    rng = np.random.default_rng(32)
+    x = np.sort(rng.uniform(0.0, 40.0, 101))
+    K1 = np.exp(-np.abs(x[:, None] - x[None, :]) / 3.0) \
+        * rng.uniform(0.5, 2.0, (101, 101))
+    K1 = torch.from_numpy(np.concatenate([K1, -K1[:7]]).astype(np.float32))
+    hi, lo = tf32_split(K1)
+    for half in (hi, lo):
+        assert int((half.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert torch.equal(hi, tf32(K1)) and torch.equal(lo, tf32(K1 - hi))
+    assert torch.equal((hi + lo).double(), hi.double() + lo.double())
+    rel = ((hi.double() + lo.double() - K1.double()).abs()
+           / K1.double().abs()).max()
+    assert 0 < float(rel) <= 2.0**-21
+    planes = tf32_planes(K1)
+    assert (planes.hi.shape[0], planes.cols, planes.ld) == (108, 101, 104)
+    assert torch.equal(planes.hi[:, :101], hi)
+    assert torch.equal(planes.lo[:, :101], lo)
+    assert not planes.hi[:, 101:].any() and not planes.lo[:, 101:].any()
+    assert torch.equal(planes.value(), hi + lo)
+
+
+@pytest.mark.parametrize("shape", AWKWARD_SHAPES)
+def test_stage_right_plain_is_todays_T_split_and_transposed(shape):
+    """The plain stage R's planes are, bit for bit, the float32 T of the
+    parent's plain stage R, ``(mask * u) @ K2``, transposed to (B m, n) and
+    split into TF32 halves by the kernels' rule."""
+    K1, K2, mask, u = _t(*_problem(*shape))
+    B, n, m = shape
+    T = (mask * u) @ K2
+    Tt = T.transpose(1, 2).reshape(B * m, n)
+    P = lk_mvm_stage_right_plain(u, mask, K2)
+    assert (P.hi.shape[0], P.cols) == (B * m, n) and P.ld % 4 == 0 and P.ld >= n
+    hi = tf32(Tt)
+    assert torch.equal(P.hi[:, :n], hi)
+    assert torch.equal(P.lo[:, :n], tf32(Tt - hi))
+
+
+@pytest.mark.parametrize("shape", AWKWARD_SHAPES)
+def test_stage_left_plain_over_planes_is_todays_within_rounding(shape):
+    """The plain stage L over K1's and T's planes equals the parent's plain
+    stage L on the float32 T, ``mask * (K1 @ T) + noise * (mask * u)``,
+    within float32 rounding (1e-6 of max|out|), and the product of the
+    halves' sums bit for bit."""
+    K1, K2, mask, u = _t(*_problem(*shape, seed=5))
+    T = (mask * u) @ K2
+    today = mask * (K1 @ T) + 0.37 * (mask * u)
+    P = lk_mvm_stage_right_plain(u, mask, K2)
+    got = lk_mvm_stage_left_plain(K1, P, mask, u, 0.37)
+    B, n, m = shape
+    Tv = P.value().reshape(B, m, n).transpose(1, 2)
+    assert torch.equal(got, mask * (tf32_planes(K1).value() @ Tv)
+                       + torch.tensor(0.37) * (mask * u))
+    assert got.dtype == torch.float32 and got.shape == today.shape
+    scale = float(today.abs().max())
+    assert float((got - today).abs().max()) <= 1e-6 * scale
 
 
 def _tc_route(route, K1, K2, mask, u, noise, passes):
@@ -614,3 +739,38 @@ def test_k2a_sums_each_k_step_apart_against_truncation_drift():
         assert np.abs(err).max() <= 1e-5 * np.abs(exact).max()
     assert bias[False] < -2e-7                 # toward zero
     assert abs(bias[True]) * 5 < abs(bias[False])
+
+
+def test_k2b_promotes_every_two_k_steps_against_truncation_drift():
+    """K2b's K1 @ T at its depth (n = 4096: a Matern-like row of K1 against
+    a column of T, 64 x 64 of each) as its wgmmas compute it: 3xTF32, each
+    MMA's float32 sum truncated, PROMOTE k steps chained into a zeroed
+    accumulator (lo products first) before a rounding add (the kernel's
+    constant, read from its source). Its bias toward zero stays within 2x
+    of one step's chain (K1's and K2a's order), at least 5x below
+    accumulating in place, and its largest error within 1e-5 of max|exact|:
+    the CPU evidence that CG does not need more sweeps."""
+    import re
+    src = (_build.CSRC / "lk_mvm_stage_left.cu").read_text()
+    promote = int(re.search(r"constexpr int PROMOTE = (\d+);", src).group(1))
+    assert promote == 2
+    rng = np.random.default_rng(32)
+    n = 4096
+    x = np.sort(rng.uniform(0.0, 40.0, n))
+    rows = rng.choice(n, 64, replace=False)
+    K1 = np.exp(-np.abs(x[rows][:, None] - x[None, :]) / 3.0)
+    T = rng.standard_normal((n, 64))
+    a, b = (torch.from_numpy(v.astype(np.float32)) for v in (K1, T))
+    exact = a.double().numpy() @ b.double().numpy()
+    bias, worst = {}, {}
+    for name, kw in (("in_place", dict(per_step=False)),
+                     ("step", dict(per_step=True)),
+                     ("k2b", dict(per_step=True, interval=promote))):
+        err = mma_3xtf32(a, b, **kw).astype(np.float64) - exact
+        bias[name] = float(np.mean(err * np.sign(exact))
+                           / np.mean(np.abs(exact)))
+        worst[name] = float(np.abs(err).max() / np.abs(exact).max())
+    assert bias["in_place"] < bias["k2b"] < 0       # toward zero
+    assert abs(bias["k2b"]) <= 2 * abs(bias["step"])
+    assert 5 * abs(bias["k2b"]) <= abs(bias["in_place"])
+    assert worst["k2b"] <= 1e-5
