@@ -300,14 +300,16 @@ KERNEL_TOL = {"f32": 1e-4, "bf16": 2e-2}     # times max|plain|
 # at n = 2048, where the warm phase's refit on new configurations and its
 # mean run. The three small buckets after the ragged ones are those only the
 # exact phase (24 x 16) and the escalation ladder (64 x 32, and the
-# near-singular 8 x 6 problem) solve at: checked, not timed.
+# near-singular 8 x 6 problem) solve at: checked, not timed. Last, the
+# benchmark's two final() shapes: LCBench's (65, 4096, 52) and
+# NAS-Bench-201's (65, 4096, 200), where K2a takes its wide kernel.
 KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
                  (1, 24, 16), (1, 64, 32), (1, 8, 6),
                  (1, 2000, 52), (16, 2000, 52), (17, 2000, 52),
                  (65, 2000, 52),
                  (1, 2048, 52), (16, 2048, 52), (17, 2048, 52),
                  (1, 8192, 64), (16, 8192, 64), (65, 8192, 64),
-                 (65, 4096, 52)]
+                 (65, 4096, 52), (65, 4096, 200)]
 TIMED_SHAPES = KERNEL_SHAPES[6:]
 MAIN_SHAPE = (65, 8192, 64)
 FIT_MAIN_SHAPE = (17, 2000, 52)

@@ -521,10 +521,26 @@ class KernelOperator(LatentKroneckerOperator):
         with tracing.span("lkgp.mvm") as sp:
             fused = self.route(u)
             if sp is not None:
-                sp.set(route="fused" if fused else "two_stage",
-                       B=u.numel() // self.mask.numel())
+                self._trace(sp, u, fused)
             return KernelMVMFunction.apply(self.K1, self.K2, self.mask, u,
                                            self.noise, self.fast, fused)
+
+    def _trace(self, sp, u, fused: bool) -> None:
+        """A traced sweep: its route and shape on its ``lkgp.mvm`` span
+        (``r_steps``: K2a's ring steps a strip at this m),
+        and on the two-stage route K2a's plan in the counters
+        ``lkgp.mvm.stage_r_steps`` (strip steps) and ``.stage_r_bytes``
+        (bytes its loads and stores move)."""
+        from ..kernels.lk_mvm import stream_plan
+        n, m = self.mask.shape
+        B = u.numel() // (n * m)
+        plan = stream_plan(B, n, m, u.device)
+        sp.set(route="fused" if fused else "two_stage", B=B, m=m,
+               r_steps=plan.strip_steps)
+        if not fused:
+            tracing.count("lkgp.mvm.stage_r_steps",
+                          plan.strips * plan.strip_steps)
+            tracing.count("lkgp.mvm.stage_r_bytes", plan.nbytes())
 
 
 class KernelMVM:

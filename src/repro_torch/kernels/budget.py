@@ -111,7 +111,9 @@ def tc_smem_bytes(bf16: bool) -> int:
 
 def stream_smem_bytes() -> int:
     """Dynamic shared memory of K2a: ``lk_two_stage::BYTES`` - a three-deep
-    ring of 64-row U tiles, the mask tile and K2^T as (hi, lo) pairs."""
+    ring of 64-row U tiles, the mask tile and K2^T as (hi, lo) pairs (the
+    wide kernel's double-buffered ring of U, mask and K2 chunks fits in it
+    and launches with it)."""
     SR, STAGES, KR_MAX = 64, 3, 64
     slot = SR * (KR_MAX + 8)
     k2t = KR_MAX * (2 * KR_MAX + 16)
@@ -212,7 +214,8 @@ def _instantiations() -> dict[str, BlockBudget]:
                                which, STAGE_LEFT_THREADS, 1, 0,
                                stage_left_smem_bytes(col_tile)))
     for which, (copies, cols) in enumerate(
-            [(16, "full"), (16, "ragged"), (4, "full"), (4, "ragged")]):
+            [(16, "full"), (16, "ragged"), (4, "full"), (4, "ragged"),
+             (16, "wide"), (4, "wide")]):
         out.append(BlockBudget(f"K2a {copies}B {cols}", "lk_mvm_two_stage",
                                which, 128, 2, 0, stream_smem_bytes()))
     which = 0

@@ -82,7 +82,8 @@ __all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain",
            "lk_mvm_stage_right_plain", "lk_mvm_stage_left",
            "lk_mvm_stage_left_plain", "lk_mvm_fused_rows",
            "lk_mvm_fused_rows_plain", "LaunchPlan", "plan_launch",
-           "StreamPlan", "plan_stream", "LeftPlan", "plan_stage_left",
+           "StreamPlan", "plan_stream", "stream_plan", "LeftPlan",
+           "plan_stage_left",
            "TF32Planes", "tf32_split", "tf32_planes"]
 
 _PRECISIONS = ("f32", "bf16")
@@ -91,8 +92,10 @@ _PRECISIONS = ("f32", "bf16")
 # kernel launches it as it is; its launcher rejects a plan that does not
 # cover the output, so a mismatch raises instead of computing wrong values.
 TC_ROWS, TC_COLS, TC_K, TC_MAX_SPLITS = 256, 128, 32, 8
-# K2a (csrc/lk_mvm_two_stage.cu: SR): rows of (B n) per strip.
-STREAM_ROWS = 64
+# K2a (csrc/lk_mvm_two_stage.cu): rows of (B n) a strip (SR); the widest m
+# that its narrow kernel holds whole (KR_MAX); the wide kernel's k rows a
+# stage (KC) and output columns a pass (NJ).
+STREAM_ROWS, STREAM_COLS, STREAM_CHUNK, STREAM_PASS = 64, 64, 32, 240
 # K2a's persistent blocks per SM: as many as its budget lets share an SM (two
 # at the H100's limits).
 STREAM_BUDGET = "K2a 16B full"
@@ -315,10 +318,12 @@ class StreamPlan:
     """One launch of K2a: ``strips`` strips of ``strip_rows`` rows of one
     batch member each (strip q is row tile q // B of member q % B), walked by
     ``blocks`` persistent blocks, block j taking the contiguous strips
-    [j * strips // blocks, (j + 1) * strips // blocks)."""
+    [j * strips // blocks, (j + 1) * strips // blocks). Each strip takes
+    ``strip_steps`` steps of the kernel's ring."""
 
     B: int
     n: int
+    m: int
     strip_rows: int
     strips: int
     blocks: int
@@ -340,6 +345,40 @@ class StreamPlan:
                         b * self.n + min(i0 + self.strip_rows, self.n)))
         return out
 
+    @property
+    def passes(self) -> int:
+        """Passes over a strip's U: one while m <= STREAM_PASS."""
+        return -(-self.m // STREAM_PASS)
+
+    @property
+    def strip_steps(self) -> int:
+        """Ring steps of a strip: one while m <= STREAM_COLS (the narrow
+        kernel, K2 and the mask resident), else the wide kernel's (pass, k
+        chunk of STREAM_CHUNK) steps."""
+        if self.m <= STREAM_COLS:
+            return 1
+        return self.passes * -(-self.m // STREAM_CHUNK)
+
+    def nbytes(self) -> int:
+        """Bytes the launch's loads and stores move in device memory. T's
+        two float32 planes are written once. The narrow kernel reads U once,
+        K2 once a block and the mask tile once for each row tile a block
+        enters; the wide one reads U and the mask once a pass and K2 whole
+        once a strip."""
+        B, n, m, SR = self.B, self.n, self.m, self.strip_rows
+        if m > STREAM_COLS:
+            return 8 * B * n * m * self.passes + 4 * self.strips * m * m \
+                + 8 * B * n * m
+        last_tile = (n - 1) // SR
+        mask_rows = 0
+        for j in range(self.blocks):
+            t0 = (j * self.strips // self.blocks) // B
+            t1 = ((j + 1) * self.strips // self.blocks - 1) // B
+            mask_rows += (t1 - t0 + 1) * SR \
+                - (SR * (last_tile + 1) - n if t1 == last_tile else 0)
+        return 4 * B * n * m + 4 * (self.blocks * m * m + mask_rows * m) \
+            + 8 * B * n * m
+
 
 def plan_stream(B: int, n: int, m: int, *, sms: int,
                 limits: DeviceLimits = H100_SXM) -> StreamPlan:
@@ -349,16 +388,25 @@ def plan_stream(B: int, n: int, m: int, *, sms: int,
     up to the blocks per SM that K2a's budget admits under ``limits`` (two
     on an H100), each loading K2 once and taking a contiguous range of
     strips with the next ones in flight. (``m`` does not change the grid:
-    wider rows are swept in 64-column chunks inside the block.)"""
-    del m
+    beyond 64 columns the wide kernel streams K2 and the mask in chunks
+    inside the block.)"""
     strips = B * -(-n // STREAM_ROWS)
     if strips >= 2**31:
         raise ValueError(f"{strips} strips are more than a launch takes")
     per_sm = INSTANTIATIONS[STREAM_BUDGET].blocks_per_sm(limits)
     if per_sm < 1:
         raise ValueError(f"K2a's block does not fit an SM of {limits}")
-    return StreamPlan(B=B, n=n, strip_rows=STREAM_ROWS, strips=strips,
+    return StreamPlan(B=B, n=n, m=m, strip_rows=STREAM_ROWS, strips=strips,
                       blocks=min(strips, per_sm * sms))
+
+
+def stream_plan(B: int, n: int, m: int, device) -> StreamPlan:
+    """K2a's plan for a sweep on ``device``: the card's own limits on a CUDA
+    device, an H100's elsewhere (what the kernel would launch there)."""
+    if torch.device(device).type != "cuda":
+        return plan_stream(B, n, m, sms=H100_SXM.sms)
+    limits = device_limits(device)
+    return plan_stream(B, n, m, sms=limits.sms, limits=limits)
 
 
 class _CLeftPlan(ctypes.Structure):
@@ -712,8 +760,7 @@ def lk_mvm_stage_right(u: torch.Tensor, mask: torch.Tensor,
     ld = _leading_dim(n)
     T_hi, T_lo = torch.empty((2, B * m, ld), dtype=torch.float32,
                              device=u.device)
-    limits = device_limits(u.device)
-    plan = plan_stream(B, n, m, sms=limits.sms, limits=limits)
+    plan = stream_plan(B, n, m, u.device)
     lib = _two_stage_library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -8,7 +8,8 @@ The request path opens five spans, all named ``lkgp.*``:
   ``n``, ``m``, ``iters``, ``replacements``;
 * ``lkgp.mvm`` - one sweep of the ``cuda`` engine's operator
   (``KernelOperator.__call__``: route, autograd wrapper, casts, kernel
-  wrappers), attrs ``route``, ``B``;
+  wrappers), attrs ``route``, ``B``, ``m`` and ``r_steps`` (K2a's ring
+  steps a strip: 1 while m <= 64, else one a pass and k chunk);
 * ``lkgp.mvm.launch`` - the kernel wrappers inside it (checks, plans,
   ctypes structs, launches).
 
@@ -16,7 +17,10 @@ and the CG loop adds three counters when it ends: ``lkgp.cg.wait_ns`` (host
 nanoseconds blocked in the loop's reads of the device), ``lkgp.cg.cols_swept``
 (B for each operator sweep) and ``lkgp.cg.cols_active`` (the solve's
 active-column MVMs, ``CGResult.matvecs``). A loop's enqueue time is its
-span's duration minus its wait.
+span's duration minus its wait. Each two-stage sweep adds K2a's plan to
+``lkgp.mvm.stage_r_steps`` (its strips' ring steps) and
+``lkgp.mvm.stage_r_bytes`` (the bytes its loads and stores move: U, the
+mask, K2 and T's two planes).
 
 Tracing is off by default, and then a site costs one flag check: no record,
 no clock read, no host read. :func:`enable` switches it on for the process.

@@ -73,6 +73,13 @@ def test_budget_bytes_equal_the_kernels_constants():
     assert stream_smem_bytes() == 4 * (ts["STAGES"] * slot + slot
                                        + tc["KR_MAX"] * (2 * tc["KR_MAX"] + 16))
     assert stream_smem_bytes() == 110592
+    # the wide kernel (m > 64) launches with the same bytes: its ring of U,
+    # mask and K2 chunks fits in them
+    assert (ts["KC"], ts["WSTAGES"], ts["NJ"]) == (32, 2, 240)
+    assert "LDW = KC + 4" in two and "LDB = NJ + 24" in two
+    wide = 4 * ts["WSTAGES"] * (2 * ts["SR"] * (ts["KC"] + 4)
+                                + ts["KC"] * (ts["NJ"] + 24))
+    assert wide == 104448 <= stream_smem_bytes()
 
     wg = _constants("lk_mvm_stage_left.cu")
     assert (wg["BM"], wg["BK"], wg["STAGES"], wg["CONSUMERS"]) == (128, 32, 3, 2)
@@ -117,7 +124,7 @@ def test_every_instantiation_is_exported_by_its_library():
         src = (CSRC / f"{lib}.cu").read_text()
         assert f'extern "C" int {lib}_attributes(int which, KernelAttr* out)' \
             in src
-    assert len(by_lib["rbf_gram"]) == 12 and len(by_lib["lk_mvm_two_stage"]) == 4
+    assert len(by_lib["rbf_gram"]) == 12 and len(by_lib["lk_mvm_two_stage"]) == 6
     assert len(by_lib["lk_mvm_stage_left"]) == 2
 
 

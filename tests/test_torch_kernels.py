@@ -453,7 +453,8 @@ def test_split_planner_partitions_k_in_whole_tiles(shape):
 # K2a's grid rule at the (B, n, m) of chip_smoke.py's KERNEL_SHAPES.
 STREAM_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257), (1, 2000, 52),
                  (16, 2000, 52), (17, 2000, 52), (65, 2000, 52),
-                 (1, 8192, 64), (16, 8192, 64), (65, 8192, 64)]
+                 (1, 8192, 64), (16, 8192, 64), (65, 8192, 64),
+                 (65, 4096, 200)]
 
 
 @pytest.mark.parametrize("shape", STREAM_SHAPES, ids=str)
