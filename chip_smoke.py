@@ -302,14 +302,17 @@ KERNEL_TOL = {"f32": 1e-4, "bf16": 2e-2}     # times max|plain|
 # exact phase (24 x 16) and the escalation ladder (64 x 32, and the
 # near-singular 8 x 6 problem) solve at: checked, not timed. Last, the
 # benchmark's two final() shapes: LCBench's (65, 4096, 52) and
-# NAS-Bench-201's (65, 4096, 200), where K2a takes its wide kernel.
+# NAS-Bench-201's (65, 4096, 200), where K2a takes its wide kernel, and the
+# observed prefixes their earlier Successive Halving rungs solve on (L = 1,
+# 3, 9 and 27 epochs).
 KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
                  (1, 24, 16), (1, 64, 32), (1, 8, 6),
                  (1, 2000, 52), (16, 2000, 52), (17, 2000, 52),
                  (65, 2000, 52),
                  (1, 2048, 52), (16, 2048, 52), (17, 2048, 52),
                  (1, 8192, 64), (16, 8192, 64), (65, 8192, 64),
-                 (65, 4096, 52), (65, 4096, 200)]
+                 (65, 4096, 52), (65, 4096, 200),
+                 (65, 4096, 1), (65, 4096, 3), (65, 4096, 9), (65, 4096, 27)]
 TIMED_SHAPES = KERNEL_SHAPES[6:]
 MAIN_SHAPE = (65, 8192, 64)
 FIT_MAIN_SHAPE = (17, 2000, 52)
@@ -349,13 +352,18 @@ REFERENCE_NPZ = (Path(__file__).resolve().parent / "tests" / "fixtures"
 # the automl phase's (2000, 52) and Hyperband's (243, 27) at the fit's three
 # and final()'s B=65 (B=64: a keyed final() on a posterior whose alpha is
 # cached solves only the residuals); the cuda service's fits at (48, 20);
-# the zoo phase's freeze-thaw over 8 RWKV runs at (8, 10).
+# the zoo phase's freeze-thaw over 8 RWKV runs at (8, 10). A scheduler's
+# final() solves on its rung's observed prefix, so the automl and amortize
+# phases' reads also sweep (2000, L) at L = 1, 3, 9 (Successive Halving),
+# 13, 26 (freeze-thaw), and Hyperband's (243, L) at L = 1, 3, 9.
 ROUTE_SHAPES = [(8192, 64, 65), (8192, 64, 1), (8192, 64, 16),
                 (2000, 52, 65), (2000, 52, 1), (2000, 52, 16),
                 (2000, 52, 17), (24, 16, 1), (64, 32, 1), (8, 6, 1),
                 (2000, 52, 64), (243, 27, 65), (243, 27, 17), (243, 27, 16),
                 (243, 27, 1), (48, 20, 17), (48, 20, 16), (8, 10, 17),
-                (8, 10, 16), (8, 10, 1), (8, 10, 65)]
+                (8, 10, 16), (8, 10, 1), (8, 10, 65),
+                *((2000, L, B) for L in (1, 3, 9, 26) for B in (65, 64)),
+                *((243, L, 65) for L in (1, 3, 9))]
 # The wrappers each route launches per sweep.
 ROUTE_KERNELS = {"fused": ("lk_mvm_fused",),
                  "two_stage": ("lk_mvm_stage_right", "lk_mvm_stage_left")}
@@ -2612,11 +2620,13 @@ class TracedPredictor(CurvePredictor):
         s = check_solve(post, req, self.gp.cg_tol)
         check(req.launches == s["iters"],
               f"{name}: {req.launches} sweeps for {s['iters']} PCG iterations")
-        n, m = self.X.shape[0], self.max_epochs
+        # the solve ran on the observed prefix of the epoch grid
+        n, m = self.X.shape[0], post._prefix
         check_route(req, n, m, s["columns"])
         self.rows.append({"step": f"final {self.n_refits}",
                           "seconds": req.seconds, "launches": req.by_kernel,
-                          "route": routed(n, m, s["columns"]), **s})
+                          "route": routed(n, m, s["columns"]),
+                          "prefix_cols": m, **s})
         if self.n_refits == 1 and self.first_mean is None:
             self.first_mean = mean
         return mean, std

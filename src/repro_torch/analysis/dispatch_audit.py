@@ -66,6 +66,9 @@ DESIGNED_READS = {
         "the one read an iteration: any column active",
     ("core/solvers/guarded.py", "health"):
         "the guard's one health read per solve",
+    ("core/posterior.py", "_prefix"):
+        "the observed prefix L, one read a posterior: its solves run on the "
+        "(n, L) grid, whose width the host needs to build the operator",
 }
 # Float64 ops a float32 path makes by design, by site, with the reason.
 DESIGNED_F64 = {

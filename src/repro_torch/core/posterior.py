@@ -14,6 +14,13 @@ is computed once and cached, then shared between
   ``K^{-1}(Y - F - eps) = alpha - K^{-1}(F + eps)``, so each sampling call
   only solves for the (F + eps) part and reuses the cached ``alpha``.
 
+Solves run on the observed prefix of the epoch grid: with L one past the
+last epoch column that holds an observation, every column at or past L is
+masked out, so the operator on the observed cells is exactly the one on the
+(n, L) grid with ``K2[:L, :L]``. The solve takes the first L columns of each
+right-hand side, and the products read the (n, L) solution against
+``K2[:L, :]``. At L = m nothing is cropped.
+
 Solves are consolidated: if samples are requested before ``alpha`` exists,
 the posterior stacks ``[Y * mask | Matheron residuals]`` into ONE multi-RHS
 block solve, so a full posterior evaluation (``final()``: exact mean +
@@ -132,7 +139,7 @@ class Posterior:
             n_obs = int(state.mask.sum().item())
             engine = get_engine(resolve_backend(state.config, n_obs))
         self._engine = engine
-        self._alpha: torch.Tensor | None = None   # cached K^{-1}(Y*mask)
+        self._alpha: torch.Tensor | None = None   # K^{-1}(Y*mask), (n, L)
         self._solve_info: Any = None  # CGResult of most recent engine solve
         self._n_solves = 0            # engine solves performed (sweeps run)
 
@@ -160,28 +167,57 @@ class Posterior:
         return torch.exp(self._state.params.raw_noise)
 
     @cached_property
+    def _prefix(self) -> int:
+        """L: one past the last epoch column holding an observation (1 when
+        nothing is observed). Every column from L on is masked out."""
+        mask = self._state.mask
+        cols = torch.arange(1, mask.shape[-1] + 1, device=mask.device)
+        return max(int((mask.any(dim=0) * cols).max()), 1)
+
+    def _observed(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s first L columns (a view)."""
+        return x[..., :self._prefix]
+
+    @cached_property
     def _operator(self):
-        """A = P (K1 (x) K2) P^T + sigma^2 I over the training block."""
+        """A = P (K1 (x) K2) P^T + sigma^2 I over the training block, on the
+        (n, L) grid of the observed prefix."""
         K1a, K2 = self._grams
-        n = self._state.n
-        return self._engine.operator_from_grams(
-            K1a[:n, :n], K2, self._state.mask, self._noise)
+        n, L = self._state.n, self._prefix
+        mask = self._state.mask
+        if L < mask.shape[-1]:
+            K2, mask = K2[:L, :L].contiguous(), mask[:, :L].contiguous()
+        return self._engine.operator_from_grams(K1a[:n, :n], K2, mask,
+                                                self._noise)
 
     def _solve(self, rhs):
-        """Engine solve capturing the block solver's diagnostics."""
+        """Engine solve of an (..., n, L) ``rhs`` on the observed prefix,
+        capturing the block solver's diagnostics."""
+        tracing.count("lkgp.solve.prefix_cols", self._prefix)
+        tracing.count("lkgp.solve.grid_cols", self._state.mask.shape[-1])
         x = self._engine.solve(self._operator, rhs, self._state.config)
         self._solve_info = getattr(self._operator, "last_result", None)
         self._n_solves += 1
         return x
 
+    def _rhs_y(self):
+        """``Y * mask`` in transformed space on the observed prefix."""
+        st = self._state
+        return st.y_tf(self._observed(st.Y)) * self._observed(st.mask)
+
+    def _alpha_prefix(self):
+        """Cached K^{-1} (Y * mask) on the observed prefix, (n, L)."""
+        if self._alpha is None:
+            self._alpha = self._solve(self._rhs_y())
+        return self._alpha
+
     @property
     def alpha(self):
-        """Cached K^{-1} (Y * mask) in transformed space (grid form)."""
-        if self._alpha is None:
-            st = self._state
-            Ym = st.y_tf(st.Y) * st.mask
-            self._alpha = self._solve(Ym)
-        return self._alpha
+        """Cached K^{-1} (Y * mask) in transformed space (grid form, (n, m):
+        zero from column L on)."""
+        a = self._alpha_prefix()
+        pad = self._state.mask.shape[-1] - a.shape[-1]
+        return torch.nn.functional.pad(a, (0, pad)) if pad else a
 
     @property
     def solve_info(self):
@@ -204,7 +240,7 @@ class Posterior:
         """Exact posterior mean over the grid: (n(+n*), m), y units."""
         K1a, K2 = self._grams
         n = self._state.n
-        mean_t = K1a[:, :n] @ self.alpha @ K2
+        mean_t = K1a[:, :n] @ self._alpha_prefix() @ K2[:self._prefix]
         return self._state.y_tf.inverse(mean_t)
 
     def samples(self, generator, n_samples: int | None = None, *,
@@ -228,16 +264,17 @@ class Posterior:
                                       n_samples, jitter=cfg.jitter,
                                       normals=normals)
         F, eps = F.to(K1a.dtype), eps.to(K1a.dtype)
-        resid = st.mask * (F[:, :n, :] + eps)
+        obs = self._observed
+        resid = obs(st.mask) * (obs(F[:, :n, :]) + obs(eps))
         if self._alpha is None:
-            Ym = st.y_tf(st.Y) * st.mask
-            sol = self._solve(torch.cat([Ym[None], resid], dim=0))
+            sol = self._solve(torch.cat([self._rhs_y()[None], resid], dim=0))
             self._alpha = sol[0]
             u = sol[0][None] - sol[1:]
         else:
             # Linearity: K^{-1}(Y - F - eps) = alpha - K^{-1}(F + eps).
             u = self._alpha[None] - self._solve(resid)
-        raw = F + kronecker_correction(K1a, u, K2, n)
+        # u is (s, n, L): its rows of K2 are the first L
+        raw = F + kronecker_correction(K1a, u, K2[:self._prefix], n)
         return st.y_tf.inverse(raw)
 
     @cached_property

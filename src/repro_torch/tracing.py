@@ -20,7 +20,10 @@ active-column MVMs, ``CGResult.matvecs``). A loop's enqueue time is its
 span's duration minus its wait. Each two-stage sweep adds K2a's plan to
 ``lkgp.mvm.stage_r_steps`` (its strips' ring steps) and
 ``lkgp.mvm.stage_r_bytes`` (the bytes its loads and stores move: U, the
-mask, K2 and T's two planes).
+mask, K2 and T's two planes). Each solve of a
+:class:`~repro_torch.core.Posterior` adds the epoch columns it swept,
+the observed prefix L, to ``lkgp.solve.prefix_cols`` and the grid's m to
+``lkgp.solve.grid_cols``.
 
 Tracing is off by default, and then a site costs one flag check: no record,
 no clock read, no host read. :func:`enable` switches it on for the process.

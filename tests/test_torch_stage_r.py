@@ -285,10 +285,15 @@ def test_stage_r_tracing_costs_nothing_while_off(monkeypatch):
     assert tracing.snapshot() == {"spans": {}, "counters": {}}
 
 
-def test_a_request_counts_stage_r_once_a_sweep(race, monkeypatch):
+@pytest.mark.parametrize("rung, L, steps", [(2, 9, 1), (4, M, 7)])
+def test_a_request_counts_stage_r_once_a_sweep(race, monkeypatch, rung, L,
+                                               steps):
     """``extend`` + ``final()`` at m = 200 with the tuner's route set to
     the two-stage pair: the counters hold the plan once for each of the
-    solve's sweeps, which the CG loop counts as ``lkgp.cg.cols_swept``."""
+    solve's sweeps, which the CG loop counts as ``lkgp.cg.cols_swept``. The
+    solve runs on the observed prefix, L columns: at rung 2 (L = 9) K2a's
+    narrow kernel, one ring step a strip; at the last rung (L = m) the wide
+    one, seven."""
     from repro_torch.kernels import autotune
     monkeypatch.setattr(autotune, "autotune_route",
                         lambda *a, **k: "two_stage")
@@ -296,13 +301,13 @@ def test_a_request_counts_stage_r_once_a_sweep(race, monkeypatch):
     cfg = core.LKGPConfig(backend="cuda", posterior_samples=16, seed=3)
     snap = _snapshot(X, t, *rungs[0], cfg)
     tracing.enable()
-    st = core.extend(snap, *rungs[2])
+    st = core.extend(snap, *rungs[rung])
     post = core.posterior(st, device="cpu")
     post.final(normals=normals)
     tracing.disable()
     c = tracing.snapshot()["counters"]
     sweeps = c["lkgp.cg.cols_swept"] // 17
     assert sweeps == int(post.solve_info.iters) > 0
-    plan = plan_stream(17, N, M, sms=H100_SMS)
-    assert c["lkgp.mvm.stage_r_steps"] == sweeps * plan.strips * 7
+    plan = plan_stream(17, N, L, sms=H100_SMS)
+    assert c["lkgp.mvm.stage_r_steps"] == sweeps * plan.strips * steps
     assert c["lkgp.mvm.stage_r_bytes"] == sweeps * plan.nbytes()

@@ -3,6 +3,7 @@ without effect, the span tree of one ``extend`` + ``final()`` request on the
 ``cuda`` engine (its plain CPU path), the CG loop's counters against the
 solve's own numbers, the span clock against ``torch.profiler``'s, and one
 stack of open spans per thread."""
+import dataclasses
 import threading
 
 import pytest
@@ -127,6 +128,23 @@ def test_counters_against_the_solve(state):
     assert 0 < c["lkgp.cg.wait_ns"] <= snap["spans"]["lkgp.cg"]["total_ns"]
     # every sweep swept is counted once, active or frozen
     assert c["lkgp.cg.cols_active"] <= c["lkgp.cg.cols_swept"]
+
+
+def test_prefix_counters_of_a_request(state):
+    """A request on a mask observed up to epoch L < m solves on the (n, L)
+    prefix: its counters say L of the grid's m columns, and the CG span's
+    ``m`` reads L."""
+    L, m = 5, state.mask.shape[-1]
+    mask = state.mask * (torch.arange(m) < L).to(F64)
+    Y = state.Y * mask
+    prefix = dataclasses.replace(state, Y=Y, mask=mask,
+                                 y_tf=core.YTransform.fit(Y, mask))
+    traced_request(prefix)
+    c = tracing.snapshot()["counters"]
+    assert (c["lkgp.solve.prefix_cols"], c["lkgp.solve.grid_cols"]) == (L, m)
+    cg, = [r for r in tracing.spans() if r["name"] == "lkgp.cg"]
+    assert (cg["attrs"]["n"], cg["attrs"]["m"]) == (64, L)
+    assert set(tracing.snapshot()["spans"]) == set(NAMES)
 
 
 def test_spans_on_the_profilers_clock(state):
