@@ -202,6 +202,7 @@ from repro_torch.core import (DistributedEngine,  # noqa: E402
                               stack_states, unstack)
 from repro_torch.core.engines import (IterativeEngine,  # noqa: E402
                                       KernelEngine, KernelMVM,
+                                      KernelOperator,
                                       LatentKroneckerOperator)
 from repro_torch.core.matheron import prior_residual_draws  # noqa: E402
 from repro_torch.core.posterior import joint_grams  # noqa: E402
@@ -314,6 +315,9 @@ KERNEL_SHAPES = [(1, 5, 3), (3, 50, 21), (2, 130, 257),
                  (65, 4096, 52), (65, 4096, 200),
                  (65, 4096, 1), (65, 4096, 3), (65, 4096, 9), (65, 4096, 27)]
 TIMED_SHAPES = KERNEL_SHAPES[6:]
+# The cuda engine's operator against the checked wrappers, bit for bit on
+# both routes: the benchmark's two final() shapes and a B = 1 mean.
+LAUNCH_SHAPES = [(65, 4096, 52), (65, 4096, 200), (1, 4096, 52)]
 MAIN_SHAPE = (65, 8192, 64)
 FIT_MAIN_SHAPE = (17, 2000, 52)
 KERNEL_SOURCES = ("lk_mvm_fused", "lk_mvm_two_stage", "lk_mvm_stage_left",
@@ -678,6 +682,48 @@ def phase_kernels() -> list[dict]:
         check(err64 <= tol64, f"lk_mvm_fused float64 u at {(B, n, m)}: "
                               f"max err {err64:.3e} > tol {tol64:.3e}")
         del K1, K2, mask, u, u64, out, ref, out64, ref64
+        torch.cuda.empty_cache()
+    return rows + launch_rows()
+
+
+def launch_rows() -> list[dict]:
+    """The cuda engine's operator (float64 factors, float64 u) on each
+    route at LAUNCH_SHAPES: its first sweep of a batch, which makes its
+    launch, and a second through the cached launch each equal the checked
+    wrapper of the route on the operator's float32 operands bit for bit,
+    and each sweep launches one K1, or one K2a and one K2b. Not timed."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 20)
+    per_sweep = {"fused": {"lk_mvm_fused": 1},
+                 "two_stage": {"lk_mvm_stage_right": 1,
+                               "lk_mvm_stage_left": 1}}
+    rows = []
+    for (B, n, m) in LAUNCH_SHAPES:
+        K1, K2, mask, u, noise = mvm_problem(B, n, m, gen)
+        u64 = u.double()
+        for route, wrapper in (("fused", lk_mvm_fused),
+                               ("two_stage", lk_mvm_two_stage)):
+            A = KernelOperator(K1.double(), K2.double(), mask.double(),
+                               noise.double(), fused=route == "fused")
+            want = wrapper(*A.fast[:3], u64, A.fast[3])
+            before = launch_counts()
+            outs = [A(u64), A(u64)]
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in launch_counts(before).items() if v}
+            where = f"operator's {route} launch at {(B, n, m)}"
+            check(A.launch(B).route == route, f"{where}: another route")
+            check(all(torch.equal(o, want) for o in outs),
+                  f"{where}: bits differ from {wrapper.__name__}")
+            check(launched == {k: 2 * v for k, v in per_sweep[route].items()},
+                  f"{where}: launches {launched} for 2 sweeps")
+            rows.append({"name": "mvm_launch", "route": route,
+                         "precision": "f32", "shape": [B, n, m],
+                         "u_dtype": "float64", "wrapper": wrapper.__name__,
+                         "bitwise_equal_to_wrapper": True,
+                         "launches_per_sweep": per_sweep[route],
+                         "max_err": 0.0, "tol": 0.0})
+            del A, want, outs
+        del K1, K2, mask, u, u64
         torch.cuda.empty_cache()
     return rows
 

@@ -369,6 +369,7 @@ def main() -> None:
                             (1, 24, 16), (1, 64, 32), (1, 8, 6),
                             (17, 40, 52)]
         cs.TIMED_SHAPES = [(17, 40, 52)]
+        cs.LAUNCH_SHAPES = [(65, 40, 52), (65, 40, 200), (1, 40, 52)]
         cs.ROWS_SHAPES = [(3, 65, 130, 70), (2, 50, 100, 21),
                           (17, 40, 80, 52)]
         cs.ROWS_TIMED = [(17, 40, 80, 52)]

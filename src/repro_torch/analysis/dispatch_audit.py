@@ -300,15 +300,16 @@ def audit_kernel_mvm(device=None) -> list[str]:
         rng.normal(size=(B, n, m)).astype(np.float32))
     noise = torch.tensor(0.1, device=dev)
     failures = []
-    for fused, names in ((True, ("lk_mvm_fused",)),
-                         (False, ("lk_mvm_stage_right", "lk_mvm_stage_left"))):
+    for route, names in (("fused", ("lk_mvm_fused",)),
+                         ("two_stage", ("lk_mvm_stage_right",
+                                        "lk_mvm_stage_left"))):
         uu = u.clone().requires_grad_()
+        launch = kern.mvm_launch(route, K1, K2, mask, noise, B)
         before = [getattr(kern, k).launches for k in names]
         with DispatchRecorder() as rec:
-            out = KernelMVMFunction.apply(K1, K2, mask, uu, noise,
-                                          (K1, K2, mask, noise), fused)
+            out = KernelMVMFunction.apply(K1, K2, mask, uu, noise, launch)
             out.sum().backward()
-        tag = f"kernel_mvm[{'fused' if fused else 'two_stage'}]"
+        tag = f"kernel_mvm[{route}]"
         failures += _audit(tag, rec, reads={})
         if dev.type == "cuda":
             got = [getattr(kern, k).launches - b for k, b in

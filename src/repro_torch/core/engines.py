@@ -399,30 +399,25 @@ class CustomMVMEngine(IterativeEngine):
 # --------------------------------------------------------------------------
 # cuda (iterative, MVMs through the GPU kernels)
 # --------------------------------------------------------------------------
-def _sweep(u, factors, force_kernel: bool, fused: bool):
-    # Import at call time: repro_torch.kernels imports core.gp_kernels, so a
-    # module-level import here would be circular.
-    from ..kernels import ops
-    K1, K2, mask, noise = factors
-    with tracing.span("lkgp.mvm.launch"):
-        return ops.lk_mvm_op(K1, K2, mask, u, noise,
-                             force_kernel=force_kernel, fused=fused,
-                             device=u.device)
+def _kernels():
+    """``repro_torch.kernels``, imported at first use: it imports
+    ``core.gp_kernels``, so a module-level import here would be circular."""
+    from .. import kernels
+    return kernels
 
 
 class KernelMVMFunction(torch.autograd.Function):
     """Differentiable A(u) through the kernel route, in the slot of the
     reference's ``_pallas_mvm`` (``repro/core/engines.py``).
 
-    ``apply(K1, K2, mask, u, noise, fast, fused)``. ``K1, K2, mask, u, noise``
-    are tensors in the state's dtype and receive the gradients. ``fast`` holds
-    the float32 copies ``(K1, K2, mask, noise)`` the kernel reads, made once
-    per operator: the forward sweep and ``du`` go through ``lk_mvm_op(*fast,
-    force_kernel=True, fused=fused)``, i.e. the kernel on a CUDA tensor (K1
-    with ``fused=True``, K2a + K2b with ``fused=False``) and its float32 plain
-    version on a CPU tensor. ``fused`` is the route the operator resolved,
-    so the backward launches what the forward did. ``fast=None`` sends the
-    sweeps to ``lk_mvm_op`` by device on the state-dtype tensors
+    ``apply(K1, K2, mask, u, noise, launch)``. ``K1, K2, mask, u, noise``
+    are tensors in the state's dtype and receive the gradients. ``launch``
+    is the operator's :class:`~repro_torch.kernels.lk_mvm.MVMLaunch` for
+    ``u``'s batch (over the float32 copies the kernels read, checked and
+    planned once): the forward sweep and ``du`` both call it, so the
+    backward launches what the forward did, the kernels on a CUDA tensor
+    and their float32 plain version on a CPU tensor. ``launch=None`` sends
+    the sweeps to ``lk_mvm_op`` by device on the state-dtype tensors
     themselves: the float64 oracle for CPU tensors, which is what a
     finite-difference check needs.
 
@@ -435,11 +430,14 @@ class KernelMVMFunction(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, K1, K2, mask, u, noise, fast, fused):
+    def forward(ctx, K1, K2, mask, u, noise, launch):
         ctx.save_for_backward(K1, K2, mask, u, noise)
-        ctx.fast, ctx.fused = fast, fused
-        factors = (K1, K2, mask, noise) if fast is None else fast
-        return _sweep(u, factors, fast is not None, fused)
+        if launch is None:
+            op = _kernels().ops.lk_mvm_op
+            launch = lambda v: op(K1, K2, mask, v, noise, device=v.device)
+        ctx.launch = launch
+        with tracing.span("lkgp.mvm.launch"):
+            return launch(u)
 
     @staticmethod
     def backward(ctx, g):
@@ -454,12 +452,11 @@ class KernelMVMFunction(torch.autograd.Function):
         if need[1]:
             dK2 = torch.einsum("bij,bik->jk", K1 @ um, gm)
         if need[3]:
-            fast = ctx.fast
-            factors = (K1, K2, mask, noise) if fast is None else fast
-            du = _sweep(g.contiguous(), factors, fast is not None, ctx.fused)
+            with tracing.span("lkgp.mvm.launch"):
+                du = ctx.launch(g.contiguous())
         if need[4]:
             dnoise = (gm * um).sum().reshape(noise.shape)
-        return dK1, dK2, None, du, dnoise, None, None
+        return dK1, dK2, None, du, dnoise, None
 
 
 class KernelOperator(LatentKroneckerOperator):
@@ -478,10 +475,13 @@ class KernelOperator(LatentKroneckerOperator):
 
     ``K1, K2, mask, noise`` stay in the state's dtype (the backward's
     products run in it); the kernels compute in float32 whatever that dtype
-    is, so their float32 copies are made ONCE, here, as ``fast``. Per sweep
-    only ``u`` is cast and the result cast back. The noise stays a 0-d device
-    tensor, which the kernels read through a pointer: a Python float would
-    cost a host sync per sweep.
+    is, so their float32 copies are made ONCE, here, as ``fast``. The first
+    sweep of each batch size B makes the operator's launch for it
+    (:func:`repro_torch.kernels.lk_mvm.mvm_launch`: operands checked, plans
+    made, kept; :meth:`launch`); per sweep only ``u`` is cast, the outputs
+    allocated, the kernels launched and the result cast back. The noise
+    stays a 0-d device tensor, which the kernels read through a pointer: a
+    Python float would cost a host sync per sweep.
 
     A float32 sweep cannot vouch for its own result: at n = 8192 its
     summation error in A(x) is up to half of ``0.01 * ||b||``. So for a
@@ -502,42 +502,47 @@ class KernelOperator(LatentKroneckerOperator):
                           for x in (K1, K2, mask, noise))
         self.fused = fused
         self.routes: dict[int, bool] = {}
+        self._launches: dict = {}
 
-    def route(self, u) -> bool:
-        """The route of a sweep of ``u`` (True: K1, False: K2a + K2b)."""
-        if self.fused is not None:
-            return self.fused
-        from ..kernels.autotune import autotune_route, bucket
-        n, m = self.mask.shape
-        B = u.numel() // (n * m)
-        key = bucket(B)
-        fused = self.routes.get(key)
-        if fused is None:
-            fused = self.routes[key] = autotune_route(
-                n, m, B, precision="f32", device=u.device) == "fused"
-        return fused
+    def launch(self, B: int):
+        """The launch of a sweep of B grid vectors, made at the first: on
+        the route named, or else on the tuner's route of B's bucket."""
+        launch = self._launches.get(B)
+        if launch is None:
+            kernels = _kernels()
+            fused = self.fused
+            if fused is None:
+                key = kernels.autotune.bucket(B)
+                fused = self.routes.get(key)
+                if fused is None:
+                    n, m = self.mask.shape
+                    fused = self.routes[key] = kernels.autotune.autotune_route(
+                        n, m, B, precision="f32",
+                        device=self.fast[0].device) == "fused"
+            launch = self._launches[B] = kernels.lk_mvm.mvm_launch(
+                "fused" if fused else "two_stage", *self.fast, B)
+        return launch
 
     def __call__(self, u):
         with tracing.span("lkgp.mvm") as sp:
-            fused = self.route(u)
+            n, m = self.mask.shape
+            launch = self.launch(u.numel() // (n * m))
             if sp is not None:
-                self._trace(sp, u, fused)
+                self._trace(sp, launch)
             return KernelMVMFunction.apply(self.K1, self.K2, self.mask, u,
-                                           self.noise, self.fast, fused)
+                                           self.noise, launch)
 
-    def _trace(self, sp, u, fused: bool) -> None:
+    @staticmethod
+    def _trace(sp, launch) -> None:
         """A traced sweep: its route and shape on its ``lkgp.mvm`` span
         (``r_steps``: K2a's ring steps a strip at this m),
         and on the two-stage route K2a's plan in the counters
         ``lkgp.mvm.stage_r_steps`` (strip steps) and ``.stage_r_bytes``
         (bytes its loads and stores move)."""
-        from ..kernels.lk_mvm import stream_plan
-        n, m = self.mask.shape
-        B = u.numel() // (n * m)
-        plan = stream_plan(B, n, m, u.device)
-        sp.set(route="fused" if fused else "two_stage", B=B, m=m,
+        plan = launch.stream
+        sp.set(route=launch.route, B=launch.B, m=launch.m,
                r_steps=plan.strip_steps)
-        if not fused:
+        if launch.route == "two_stage":
             tracing.count("lkgp.mvm.stage_r_steps",
                           plan.strips * plan.strip_steps)
             tracing.count("lkgp.mvm.stage_r_bytes", plan.nbytes())
@@ -645,8 +650,7 @@ class DistributedOperator:
         if self.fused:
             if grad:
                 raise NotImplementedError(_NO_K3_GRADIENT)
-            from ..kernels.lk_mvm import lk_mvm_fused_rows
-            out_rows = lk_mvm_fused_rows(
+            out_rows = _kernels().lk_mvm.lk_mvm_fused_rows(
                 K1[rows], K2, mask[rows], u[..., rows, :].contiguous(),
                 (mask * u).contiguous(), noise)
             return gather_rows(out_rows, self.group, self.world)

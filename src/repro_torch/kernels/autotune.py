@@ -34,6 +34,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from . import lk_mvm
 from .budget import H100_SXM, INSTANTIATIONS, DeviceLimits, device_limits
 
 __all__ = ["ROUTES", "RouteChoice", "autotune_route", "candidate_routes",
@@ -120,9 +121,9 @@ def _problem(nb: int, mb: int, Bb: int, device):
 
 
 def _run(route, K1, K2, mask, u, noise, precision):
-    from .lk_mvm import lk_mvm_cuda
-    return lk_mvm_cuda(K1, K2, mask, u, noise, fused=route == "fused",
-                       precision=precision)
+    wrapper = lk_mvm.lk_mvm_fused if route == "fused" \
+        else lk_mvm.lk_mvm_two_stage
+    return wrapper(K1, K2, mask, u, noise, precision=precision)
 
 
 def _time_ms(route, fn) -> float:

@@ -33,6 +33,8 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 
+from ._build import CKernelAttr, load_library
+
 __all__ = ["DeviceLimits", "H100_SXM", "device_limits", "BlockBudget",
            "INSTANTIATIONS", "tc_smem_bytes", "stream_smem_bytes",
            "stage_left_smem_bytes", "gram_smem_bytes", "kernel_attributes", "GRAM_VARIANTS"]
@@ -72,12 +74,8 @@ def device_limits(device) -> DeviceLimits:
         else device.index
     limits = _LIMITS.get(index)
     if limits is None:
-        from ._build import load_library
-        fn = load_library("rbf_gram").repro_device_limits
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
         vals = (ctypes.c_int * 7)()
-        rc = fn(index, vals)
+        rc = load_library("rbf_gram").repro_device_limits(index, vals)
         if rc != 0:
             raise RuntimeError(f"cudaDeviceGetAttribute on cuda:{index} "
                                f"failed: CUDA error {rc}")
@@ -233,28 +231,15 @@ def _instantiations() -> dict[str, BlockBudget]:
 INSTANTIATIONS = _instantiations()
 
 
-class _CKernelAttr(ctypes.Structure):
-    """``KernelAttr`` of csrc/kernel_attr.cuh, field for field."""
-
-    _fields_ = [(f, ctypes.c_int) for f in (
-        "num_regs", "local_bytes", "static_smem", "max_dynamic_smem",
-        "max_threads", "threads", "dynamic_smem", "blocks_per_sm")]
-
-
 def kernel_attributes(b: BlockBudget) -> dict:
     """What the CUDA runtime reports for instantiation ``b`` at its launch
     on the current device (builds its library if needed). Raises on a CUDA
     error."""
-    from ._build import load_library
     lib = load_library(b.library)
-    fn = getattr(lib, f"{b.library}_attributes")
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(_CKernelAttr)]
-    fn.restype = ctypes.c_int
-    attr = _CKernelAttr()
-    rc = fn(b.which, ctypes.byref(attr))
+    attr = CKernelAttr()
+    rc = getattr(lib, f"{b.library}_attributes")(b.which, ctypes.byref(attr))
     if rc != 0:
-        err = getattr(lib, f"{b.library}_error_string")
-        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        err = getattr(lib, f"{b.library}_error_string")(rc).decode()
         raise RuntimeError(f"{b.library}_attributes({b.which}) failed: CUDA "
-                           f"error {rc} ({err(rc).decode()})")
-    return {f: getattr(attr, f) for f, _ in _CKernelAttr._fields_}
+                           f"error {rc} ({err})")
+    return {f: getattr(attr, f) for f, _ in CKernelAttr._fields_}

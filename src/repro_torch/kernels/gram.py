@@ -29,10 +29,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ._build import load_library
+from ._build import CGramPlan, launch, refuse_autograd
 from .budget import (GRAM_VARIANTS, H100_SXM, INSTANTIATIONS, DeviceLimits,
                      device_limits)
-from .lk_mvm import _raise_on_launch_error, _refuse_autograd
 
 __all__ = ["rbf_gram_cuda", "rbf_gram_plain", "GramPlan", "plan_gram"]
 
@@ -40,31 +39,6 @@ __all__ = ["rbf_gram_cuda", "rbf_gram_plain", "GramPlan", "plan_gram"]
 # block, and the largest d kept in registers by each instantiation.
 GRAM_COLS, GRAM_WARPS = 128, 8
 _DTYPES = (torch.float32, torch.float64)
-_LIB = None
-
-
-def _library():
-    """Build/load the kernel's library and declare its C signature."""
-    global _LIB
-    if _LIB is None:
-        lib = load_library("rbf_gram")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        # (x1, x2, ls, x_double, outputscale, out, out_double, n, p, d, plan,
-        #  stream)
-        lib.rbf_gram_launch.argtypes = [p, p, p, i, p, p, i, i, i, i,
-                                        ctypes.POINTER(_CGramPlan), p]
-        lib.rbf_gram_launch.restype = i
-        lib.rbf_gram_error_string.argtypes = [i]
-        lib.rbf_gram_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
-class _CGramPlan(ctypes.Structure):
-    """``rbf::GramPlan`` of csrc/rbf_gram.cu, field for field."""
-
-    _fields_ = [(f, ctypes.c_int) for f in ("col_tiles", "row_chunks",
-                                            "blocks")]
 
 
 @dataclass(frozen=True)
@@ -81,9 +55,9 @@ class GramPlan:
     row_chunks: int
     blocks: int
 
-    def c_struct(self) -> _CGramPlan:
+    def c_struct(self) -> CGramPlan:
         """The plan as the kernel's launcher takes it."""
-        return _CGramPlan(**{f: getattr(self, f) for f, _ in _CGramPlan._fields_})
+        return CGramPlan(**{f: getattr(self, f) for f, _ in CGramPlan._fields_})
 
     def units(self, warp: int) -> list[tuple[int, int, int]]:
         """(column tile, first row, end row) of each unit that warp ``warp``
@@ -141,7 +115,7 @@ def _check_inputs(x1, x2, lengthscale):
             raise ValueError(f"{name} lives on {x.device}, x1 on {x1.device}")
     if not (x1.dtype.is_floating_point and x2.dtype.is_floating_point):
         raise TypeError("x1 and x2 must be floating point")
-    _refuse_autograd(x1, x2, lengthscale)
+    refuse_autograd(x1, x2, lengthscale)
 
 
 def _scaled_inputs(x1, x2, lengthscale):
@@ -160,7 +134,7 @@ def _scale_scalar(outputscale, device) -> torch.Tensor:
     if isinstance(outputscale, torch.Tensor):
         if outputscale.numel() != 1:
             raise ValueError("outputscale must be a scalar")
-        _refuse_autograd(outputscale)
+        refuse_autograd(outputscale)
         return outputscale.detach().reshape(()).to(device=device,
                                                    dtype=torch.float32)
     return torch.tensor(float(outputscale), dtype=torch.float32, device=device)
@@ -223,16 +197,10 @@ def rbf_gram_cuda(x1: torch.Tensor, x2: torch.Tensor,
     out = torch.empty((n, p), dtype=x1.dtype, device=x1.device)
     limits = device_limits(x1.device)
     plan = plan_gram(n, p, d, sms=limits.sms, limits=limits)
-    lib = _library()
-    with torch.cuda.device(x1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rbf_gram_launch(a.data_ptr(), b.data_ptr(), ls.data_ptr(),
-                                 int(tx == torch.float64), scale.data_ptr(),
-                                 out.data_ptr(),
-                                 int(out.dtype == torch.float64), n, p, d,
-                                 ctypes.byref(plan.c_struct()), stream)
-    _raise_on_launch_error(rc, lib.rbf_gram_error_string, "rbf_gram",
-                           (n, p, d))
+    launch("rbf_gram", "rbf_gram", (n, p, d), x1.device, a.data_ptr(),
+           b.data_ptr(), ls.data_ptr(), int(tx == torch.float64),
+           scale.data_ptr(), out.data_ptr(), int(out.dtype == torch.float64),
+           n, p, d, ctypes.byref(plan.c_struct()))
     rbf_gram_cuda.launches += 1
     return out
 

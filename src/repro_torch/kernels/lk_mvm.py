@@ -47,10 +47,13 @@ the (B, n, m) intermediate going through device memory between them.
     n rows. The distributed engine runs it on each rank's rows.
     :func:`lk_mvm_fused_rows_plain` is its plain version.
 
-:func:`lk_mvm_cuda`
-    The dispatcher in the slot of the reference's ``lk_mvm_pallas``:
-    ``fused=True`` is the single-pass kernel, ``fused=False`` the two-stage
-    kernels.
+:func:`mvm_launch`
+    The launch of one route (``"fused"``: K1, ``"two_stage"``: K2a + K2b)
+    over fixed operands and batch, in the slot of the reference's
+    ``lk_mvm_pallas``: the operands checked, the plans made and the noise
+    cast once, then :class:`MVMLaunch` called per sweep. The operator of
+    the ``cuda`` engine keeps one per batch size; :func:`lk_mvm_fused` and
+    :func:`lk_mvm_two_stage` build one and call it once.
 
 :func:`plan_launch`
     The host-side planner of K1's and K3's launch: output tiles, panels and
@@ -74,10 +77,10 @@ from dataclasses import dataclass
 
 import torch
 
-from ._build import load_library
+from ._build import CLeftPlan, CPlan, CStreamPlan, launch, refuse_autograd
 from .budget import H100_SXM, INSTANTIATIONS, DeviceLimits, device_limits
 
-__all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain",
+__all__ = ["mvm_launch", "MVMLaunch", "lk_mvm_fused", "lk_mvm_fused_plain",
            "lk_mvm_two_stage", "lk_mvm_two_stage_plain", "lk_mvm_stage_right",
            "lk_mvm_stage_right_plain", "lk_mvm_stage_left",
            "lk_mvm_stage_left_plain", "lk_mvm_fused_rows",
@@ -87,6 +90,7 @@ __all__ = ["lk_mvm_cuda", "lk_mvm_fused", "lk_mvm_fused_plain",
            "TF32Planes", "tf32_split", "tf32_planes"]
 
 _PRECISIONS = ("f32", "bf16")
+_U_DTYPES = (torch.float32, torch.float64)
 # Block tile of the tensor-core body of K1 and K3 (csrc/lk_mvm_tc.cuh:
 # BM, BN, TK, MAX_SPLITS). plan_launch decides the whole grid from them and the
 # kernel launches it as it is; its launcher rejects a plan that does not
@@ -104,89 +108,13 @@ STREAM_BUDGET = "K2a 16B full"
 # column tiles are 128 or, when all of B m fits, 64 columns wide.
 LEFT_ROWS, LEFT_K, LEFT_MAX_SPLITS, LEFT_GROUP = 128, 32, 8, 8
 LEFT_COL_TILES = (64, 128)
-_LIB = None
-_LIB_TWO_STAGE = None
-_LIB_LEFT = None
-_LIB_ROWS = None
 
 
-def _library():
-    """Build/load the kernel's library and declare its C signatures."""
-    global _LIB
-    if _LIB is None:
-        lib = load_library("lk_mvm_fused")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # (K1, ldk1, K2, ldk2, mask, U, noise, out, B, n, m, bf16, plan,
-        #  stream)
-        lib.lk_mvm_fused_launch.argtypes = [p, ll, p, ll, p, p, p, p,
-                                            i, i, i, i,
-                                            ctypes.POINTER(_CPlan), p]
-        lib.lk_mvm_fused_launch.restype = i
-        lib.lk_mvm_fused_error_string.argtypes = [i]
-        lib.lk_mvm_fused_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
-def _two_stage_library():
-    """Build/load the two-stage kernels' library and declare its signatures."""
-    global _LIB_TWO_STAGE
-    if _LIB_TWO_STAGE is None:
-        lib = load_library("lk_mvm_two_stage")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # (U, mask, K2, ldk2, T_hi, T_lo, ldt, B, n, m, stream plan, stream)
-        lib.lk_mvm_stage_right_launch.argtypes = [
-            p, p, p, ll, p, p, ll, i, i, i, ctypes.POINTER(_CStreamPlan), p]
-        lib.lk_mvm_stage_right_launch.restype = i
-        lib.lk_mvm_two_stage_error_string.argtypes = [i]
-        lib.lk_mvm_two_stage_error_string.restype = ctypes.c_char_p
-        _LIB_TWO_STAGE = lib
-    return _LIB_TWO_STAGE
-
-
-def _stage_left_library():
-    """Build/load K2b's library and declare its signature."""
-    global _LIB_LEFT
-    if _LIB_LEFT is None:
-        lib = load_library("lk_mvm_stage_left")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # (K1_hi, K1_lo, ldk, T_hi, T_lo, ldt, mask, U, noise, out, work,
-        #  B, n, m, plan, stream)
-        lib.lk_mvm_stage_left_launch.argtypes = [p, p, ll, p, p, ll, p, p, p,
-                                                 p, p, i, i, i,
-                                                 ctypes.POINTER(_CLeftPlan), p]
-        lib.lk_mvm_stage_left_launch.restype = i
-        lib.lk_mvm_stage_left_error_string.argtypes = [i]
-        lib.lk_mvm_stage_left_error_string.restype = ctypes.c_char_p
-        _LIB_LEFT = lib
-    return _LIB_LEFT
-
-
-def _rows_library():
-    """Build/load the row-shard kernel's library and declare its signature."""
-    global _LIB_ROWS
-    if _LIB_ROWS is None:
-        lib = load_library("lk_mvm_fused_rows")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # (K1_rows, ldk1, K2, ldk2, um_full, mask_rows, u_rows, noise, out,
-        #  B, n_local, n, m, bf16, plan, stream)
-        lib.lk_mvm_fused_rows_launch.argtypes = [p, ll, p, ll, p, p, p, p, p,
-                                                 i, i, i, i, i,
-                                                 ctypes.POINTER(_CPlan), p]
-        lib.lk_mvm_fused_rows_launch.restype = i
-        lib.lk_mvm_fused_rows_error_string.argtypes = [i]
-        lib.lk_mvm_fused_rows_error_string.restype = ctypes.c_char_p
-        _LIB_ROWS = lib
-    return _LIB_ROWS
-
-
-def _raise_on_launch_error(rc: int, error_string, what: str, shape) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed at shape {shape}: "
-                           f"CUDA error {rc} ({error_string(rc).decode()})")
-
-
-def _check_args(K1, K2, mask, u, precision):
+def _check_grid(mask, *, K1=None, K2=None, precision: str = "f32"):
+    """The operands the MVM kernels take beside ``u``: a contiguous float32
+    (n, m) 0/1 mask and the factors given, float32 K1 (n, n) and K2 (m, m)
+    with unit stride along their rows, all on one CPU or CUDA device and
+    none needing a gradient. Returns (n, m)."""
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
     if mask.ndim != 2:
@@ -194,37 +122,51 @@ def _check_args(K1, K2, mask, u, precision):
     n, m = mask.shape
     if n == 0 or m == 0:
         raise ValueError("empty grid")
-    if tuple(K1.shape) != (n, n) or tuple(K2.shape) != (m, m):
-        raise ValueError(f"K1 must be {(n, n)} and K2 {(m, m)}, got "
-                         f"{tuple(K1.shape)} and {tuple(K2.shape)}")
-    if u.ndim < 2 or tuple(u.shape[-2:]) != (n, m):
-        raise ValueError(f"u must be (..., {n}, {m}), got {tuple(u.shape)}")
-    if u.numel() == 0:
-        raise ValueError("u has an empty batch dimension")
-    for name, x in (("K1", K1), ("K2", K2), ("mask", mask)):
-        if x.device != u.device:
-            raise ValueError(f"{name} lives on {x.device}, u on {u.device}")
+    factors = {k: x for k, x in (("K1", K1), ("K2", K2)) if x is not None}
+    for name, x in factors.items():
+        size = n if name == "K1" else m
+        if tuple(x.shape) != (size, size) or x.stride(1) != 1:
+            raise ValueError(f"{name} must be ({size}, {size}) with unit "
+                             f"stride along its rows, got {tuple(x.shape)}")
+    for name, x in (("mask", mask), *factors.items()):
+        if x.device != mask.device:
+            raise ValueError(f"{name} lives on {x.device}, the mask on "
+                             f"{mask.device}")
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 (a 0/1 float mask, not "
                             f"bool), got {x.dtype}; cast it once where the "
                             "operator is built")
-    if u.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"u must be float32 or float64, got {u.dtype}")
-    if K1.stride(1) != 1 or K2.stride(1) != 1:
-        raise ValueError("K1 and K2 must have unit stride along their rows")
-    if not mask.is_contiguous() or not u.is_contiguous():
-        raise ValueError("mask and u must be contiguous")
-    _refuse_autograd(K1, K2, mask, u)
+    if not mask.is_contiguous():
+        raise ValueError("mask must be contiguous")
+    if mask.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the MVM kernels run on cuda or cpu tensors, not "
+                         f"{mask.device}")
+    refuse_autograd(mask, *factors.values())
     return n, m
 
 
-def _refuse_autograd(*tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
-        raise NotImplementedError(
-            "the kernel wrappers have no backward: differentiate through "
-            "repro_torch.core.engines.KernelMVM (ROADMAP queue 2 item K5), "
-            "or call them under torch.no_grad() or on detached tensors")
+def _check_u(u, n: int, m: int, device, *, dtypes=_U_DTYPES,
+             stacked: bool = False) -> int:
+    """``u`` as the MVM kernels take it over an (n, m) grid on ``device``:
+    (..., n, m) (with ``stacked``, exactly (B, n, m)), non-empty,
+    contiguous, of one of ``dtypes``, needing no gradient. Returns its B."""
+    if u.ndim < 2 or u.shape[-2:] != (n, m) or (stacked and u.ndim != 3):
+        raise ValueError(f"u must be ({'B' if stacked else '...'}, {n}, {m}),"
+                         f" got {tuple(u.shape)}")
+    if u.numel() == 0:
+        raise ValueError("u has an empty batch dimension")
+    if u.device != device:
+        raise ValueError(f"u lives on {u.device}, the mask on {device}")
+    if u.dtype not in dtypes:
+        raise TypeError(f"u must be {' or '.join(map(str, dtypes))}, got "
+                        f"{u.dtype}")
+    if not u.is_contiguous():
+        raise ValueError("u must be contiguous")
+    refuse_autograd(u)
+    B = u.numel() // (n * m)
+    if max(B, n, m) >= 2**31:
+        raise ValueError("B, n and m must fit in 32-bit integers")
+    return B
 
 
 def _noise_scalar(noise, device) -> torch.Tensor:
@@ -232,17 +174,9 @@ def _noise_scalar(noise, device) -> torch.Tensor:
     if isinstance(noise, torch.Tensor):
         if noise.numel() != 1:
             raise ValueError("noise must be a scalar")
-        _refuse_autograd(noise)
+        refuse_autograd(noise)
         return noise.detach().reshape(()).to(device=device, dtype=torch.float32)
     return torch.tensor(float(noise), dtype=torch.float32, device=device)
-
-
-class _CPlan(ctypes.Structure):
-    """``lk_tc::Plan`` of csrc/lk_mvm_tc.cuh, field for field."""
-
-    _fields_ = [(f, ctypes.c_int) for f in (
-        "row_tiles", "panels", "k_tiles", "col_tile", "batch_per_panel",
-        "splits")]
 
 
 @dataclass(frozen=True)
@@ -269,9 +203,9 @@ class LaunchPlan:
     def blocks(self) -> int:
         return self.tiles * self.splits
 
-    def c_struct(self) -> _CPlan:
+    def c_struct(self) -> CPlan:
         """The plan as the kernel's launcher takes it."""
-        return _CPlan(**{f: getattr(self, f) for f, _ in _CPlan._fields_})
+        return CPlan(**{f: getattr(self, f) for f, _ in CPlan._fields_})
 
     def k_ranges(self) -> list[tuple[int, int]]:
         """The rows [k0, k1) of the reduction each split sums, in order: the
@@ -307,12 +241,6 @@ def plan_launch(B: int, n_local: int, n: int, m: int, *,
                       batch_per_panel=bpp, splits=splits)
 
 
-class _CStreamPlan(ctypes.Structure):
-    """``lk_two_stage::StreamPlan`` of csrc/lk_mvm_two_stage.cu."""
-
-    _fields_ = [(f, ctypes.c_int) for f in ("strip_rows", "strips", "blocks")]
-
-
 @dataclass(frozen=True)
 class StreamPlan:
     """One launch of K2a: ``strips`` strips of ``strip_rows`` rows of one
@@ -328,10 +256,10 @@ class StreamPlan:
     strips: int
     blocks: int
 
-    def c_struct(self) -> _CStreamPlan:
+    def c_struct(self) -> CStreamPlan:
         """The plan as the kernel's launcher takes it."""
-        return _CStreamPlan(**{f: getattr(self, f)
-                               for f, _ in _CStreamPlan._fields_})
+        return CStreamPlan(**{f: getattr(self, f)
+                              for f, _ in CStreamPlan._fields_})
 
     def row_ranges(self, block: int) -> list[tuple[int, int]]:
         """The rows [r0, r1) of the (B n, m) matrix that block ``block``
@@ -409,13 +337,6 @@ def stream_plan(B: int, n: int, m: int, device) -> StreamPlan:
     return plan_stream(B, n, m, sms=limits.sms, limits=limits)
 
 
-class _CLeftPlan(ctypes.Structure):
-    """``lk_wg::Plan`` of csrc/lk_mvm_stage_left.cu, field for field."""
-
-    _fields_ = [(f, ctypes.c_int) for f in (
-        "row_tiles", "col_tiles", "col_tile", "k_tiles", "splits", "blocks")]
-
-
 @dataclass(frozen=True)
 class LeftPlan:
     """One launch of K2b: ``row_tiles`` x ``col_tiles`` output tiles of
@@ -446,9 +367,9 @@ class LeftPlan:
         """Column slots the tensor cores multiply that hold no column."""
         return 1.0 - self.cols / (self.col_tiles * self.col_tile)
 
-    def c_struct(self) -> _CLeftPlan:
+    def c_struct(self) -> CLeftPlan:
         """The plan as the kernel's launcher takes it."""
-        return _CLeftPlan(**{f: getattr(self, f) for f, _ in _CLeftPlan._fields_})
+        return CLeftPlan(**{f: getattr(self, f) for f, _ in CLeftPlan._fields_})
 
     def k_ranges(self) -> list[tuple[int, int]]:
         """The rows [k0, k1) of the reduction each split sums, in order: the
@@ -591,8 +512,7 @@ def lk_mvm_fused_plain(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
 
 
 def lk_mvm_fused(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
-                 u: torch.Tensor, noise=0.0, *, block_n: int | None = None,
-                 block_m: int | None = None,
+                 u: torch.Tensor, noise=0.0, *,
                  precision: str = "f32") -> torch.Tensor:
     """Single-pass masked Kronecker MVM. u: (..., n, m) -> same shape.
 
@@ -607,73 +527,130 @@ def lk_mvm_fused(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
     synchronising, or raises (wrong dtype/shape/layout, build failure, launch
     error). It never falls back to the plain version. On a CPU tensor it
     runs :func:`lk_mvm_fused_plain`. ``lk_mvm_fused.launches`` counts kernel
-    launches.
+    launches. Tile sizes are the kernel's own (compile-time constants, their
+    shared memory in :mod:`repro_torch.kernels.budget`).
 
-    ``block_n`` / ``block_m`` are accepted for signature parity with the
-    reference and ignored: tile sizes are the kernel's own (compile-time
-    constants, their shared memory in :mod:`repro_torch.kernels.budget`).
+    Each call checks and plans anew: :func:`mvm_launch` with the route
+    ``"fused"``, called once.
     """
-    del block_n, block_m
-    n, m = _check_args(K1, K2, mask, u, precision)
-    if u.device.type == "cpu":
-        return lk_mvm_fused_plain(K1, K2, mask, u, noise, precision=precision)
-    if u.device.type != "cuda":
-        raise ValueError(f"lk_mvm_fused runs on cuda or cpu tensors, not "
-                         f"{u.device}")
-
-    u3 = u.detach().reshape(-1, n, m).to(torch.float32)
-    B = u3.shape[0]
-    if max(B, n, m) >= 2**31:
-        raise ValueError("B, n and m must fit in 32-bit integers")
-    noise_t = _noise_scalar(noise, u.device)
-    out = torch.empty_like(u3)
-    plan = plan_launch(B, n, n, m, sms=device_limits(u.device).sms)
-    lib = _library()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lk_mvm_fused_launch(
-            K1.data_ptr(), K1.stride(0), K2.data_ptr(), K2.stride(0),
-            mask.data_ptr(), u3.data_ptr(), noise_t.data_ptr(),
-            out.data_ptr(), B, n, m, int(precision == "bf16"),
-            ctypes.byref(plan.c_struct()), stream)
-    _raise_on_launch_error(rc, lib.lk_mvm_fused_error_string,
-                           "lk_mvm_fused", (B, n, m))
-    lk_mvm_fused.launches += 1
-    return out.to(u.dtype).reshape(u.shape)
+    return mvm_launch("fused", K1, K2, mask, noise, _batch(u, mask),
+                      precision=precision)(u)
 
 
 lk_mvm_fused.launches = 0
 
 
-def _check_stage_args(u, mask, factor_name, factor):
-    """What the two-stage kernels take: float32 everywhere on one device,
-    ``u`` (B, n, m) and the mask (n, m) contiguous, the square factor (K1
-    (n, n) or K2 (m, m)) with unit stride along its rows."""
-    if mask.ndim != 2 or u.ndim != 3 or u.shape[1:] != mask.shape:
-        raise ValueError(f"u must be (B, n, m) over an (n, m) mask, got "
-                         f"{tuple(u.shape)} and {tuple(mask.shape)}")
-    B, n, m = u.shape
-    if u.numel() == 0:
-        raise ValueError("empty operand")
+def lk_mvm_two_stage(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
+                     u: torch.Tensor, noise=0.0, *,
+                     precision: str = "f32") -> torch.Tensor:
+    """Two-stage masked Kronecker MVM: K2a then K2b, ``T`` in device memory.
+
+    Takes what :func:`lk_mvm_fused` takes (float32 factors and mask, float32
+    or float64 ``u`` with any leading batch dims, computed on in float32,
+    returned in ``u.dtype``) and computes the same function. On a CUDA tensor
+    it launches both kernels or raises (K1's TF32 halves are made at K1's
+    first sweep and kept while K1 lives); on a CPU tensor it runs
+    :func:`lk_mvm_two_stage_plain`. ``precision="bf16"`` raises
+    ``NotImplementedError``. Each call checks and plans anew:
+    :func:`mvm_launch` with the route ``"two_stage"``, called once.
+    """
+    return mvm_launch("two_stage", K1, K2, mask, noise, _batch(u, mask),
+                      precision=precision)(u)
+
+
+def _batch(u, mask) -> int:
+    """Grid vectors in ``u`` over ``mask``'s grid."""
+    return u.numel() // max(mask.numel(), 1)
+
+
+def mvm_launch(route: str, K1: torch.Tensor, K2: torch.Tensor,
+               mask: torch.Tensor, noise=0.0, B: int = 1, *,
+               precision: str = "f32") -> "MVMLaunch":
+    """The sweep of ``route`` (``"fused"``: K1; ``"two_stage"``: K2a +
+    K2b) for batches of ``B`` grid vectors over these operands, as a
+    callable ``launch(u)``.
+
+    Here, once: the operands are checked (float32 K1, K2 and mask on one
+    CPU or CUDA device, as :func:`lk_mvm_fused` takes them), the route's
+    plans and their C structs are made for the device, K1's TF32 planes are
+    taken (two-stage route, on the card) and ``noise`` is cast to a 0-d
+    float32 tensor on the device. The operands must not be written while
+    the launch is in use.
+    """
+    if route not in ("fused", "two_stage"):
+        raise ValueError(f"route must be 'fused' or 'two_stage', got "
+                         f"{route!r}")
+    if route == "two_stage":
+        _two_stage_precision(precision)
+    n, m = _check_grid(mask, K1=K1, K2=K2, precision=precision)
+    if B < 1:
+        raise ValueError(f"a launch takes B >= 1 grid vectors, got {B}")
     if max(B, n, m) >= 2**31:
         raise ValueError("B, n and m must fit in 32-bit integers")
-    size = n if factor_name == "K1" else m
-    if tuple(factor.shape) != (size, size) or factor.stride(1) != 1:
-        raise ValueError(f"{factor_name} must be ({size}, {size}) with unit "
-                         f"stride along its rows, got {tuple(factor.shape)}")
-    operands = {"u": u, "mask": mask, factor_name: factor}
-    for name, x in operands.items():
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.device != u.device:
-            raise ValueError(f"{name} lives on {x.device}, u on {u.device}")
-        if name != factor_name and not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if u.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the two-stage kernels run on cuda or cpu tensors, "
-                         f"not {u.device}")
-    _refuse_autograd(*operands.values())
-    return B, n, m
+    return MVMLaunch(route, K1, K2, mask, _noise_scalar(noise, mask.device),
+                     B, precision)
+
+
+class MVMLaunch:
+    """One route's sweep over fixed operands and batch, made by
+    :func:`mvm_launch`. ``launch(u)`` takes a (..., n, m) ``u`` of B grid
+    vectors, float32 or float64, contiguous, on the operands' device, and
+    returns A(u) in ``u.dtype``: it casts ``u`` to float32, allocates the
+    outputs (T's planes and K2b's split-k workspace on the two-stage
+    route), launches the route's kernels on the current stream, bumps
+    their wrappers' ``launches`` and casts the result back. On a CPU device
+    it runs the route's plain float32 version.
+
+    ``plan`` is K1's :class:`LaunchPlan` (fused route) and ``left`` K2b's
+    :class:`LeftPlan` (two-stage route); ``stream`` is K2a's
+    :class:`StreamPlan` at this shape on either route, which a traced sweep
+    reports. Off the card the plans are those of an H100.
+    """
+
+    def __init__(self, route, K1, K2, mask, noise, B, precision):
+        self.route, self.precision, self.B = route, precision, B
+        self.n, self.m = n, m = mask.shape
+        self.device = dev = mask.device
+        self.K1, self.K2, self.mask, self.noise = K1, K2, mask, noise
+        sms = device_limits(dev).sms if dev.type == "cuda" else H100_SXM.sms
+        self.stream = stream_plan(B, n, m, dev)
+        self.plan = self.left = None
+        if route == "fused":
+            self.plan = plan_launch(B, n, n, m, sms=sms)
+            self._c_plan = self.plan.c_struct()
+        else:
+            self.left = plan_stage_left(B, n, m, sms=sms)
+            self._c_stream = self.stream.c_struct()
+            self._c_left = self.left.c_struct()
+            self._K1p = _k1_planes(K1) if dev.type == "cuda" else None
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        n, m = self.n, self.m
+        B = _check_u(u, n, m, self.device)
+        if B != self.B:
+            raise ValueError(f"u holds {B} grid vectors; this launch takes "
+                             f"{self.B}")
+        if self.device.type == "cpu":
+            if self.route == "fused":
+                return lk_mvm_fused_plain(self.K1, self.K2, self.mask, u,
+                                          self.noise, precision=self.precision)
+            return lk_mvm_two_stage_plain(self.K1, self.K2, self.mask, u,
+                                          self.noise)
+        u3 = u.reshape(B, n, m).to(torch.float32)
+        if self.route == "fused":
+            out = torch.empty_like(u3)
+            K1, K2 = self.K1, self.K2
+            launch("lk_mvm_fused", "lk_mvm_fused", (B, n, m), self.device,
+                   K1.data_ptr(), K1.stride(0), K2.data_ptr(), K2.stride(0),
+                   self.mask.data_ptr(), u3.data_ptr(), self.noise.data_ptr(),
+                   out.data_ptr(), B, n, m, int(self.precision == "bf16"),
+                   ctypes.byref(self._c_plan))
+            lk_mvm_fused.launches += 1
+        else:
+            T = _stage_right(u3, self.mask, self.K2, self._c_stream)
+            out = _stage_left(self._K1p, T, self.mask, u3, self.noise,
+                              self._c_left, self.left.splits)
+        return out.to(u.dtype).reshape(u.shape)
 
 
 def _check_planes(name, planes, rows, cols, device):
@@ -690,7 +667,7 @@ def _check_planes(name, planes, rows, cols, device):
         raise ValueError(f"{name} must have {cols} columns and a row stride "
                          f"that is a multiple of 4, got {planes.cols} and "
                          f"{planes.ld}")
-    _refuse_autograd(planes.hi, planes.lo)
+    refuse_autograd(planes.hi, planes.lo)
 
 
 def lk_mvm_stage_right_plain(u: torch.Tensor, mask: torch.Tensor,
@@ -754,22 +731,23 @@ def lk_mvm_stage_right(u: torch.Tensor, mask: torch.Tensor,
     stream for a CUDA tensor (or a raise); the plain version for a CPU
     tensor. ``lk_mvm_stage_right.launches`` counts kernel launches.
     """
-    B, n, m = _check_stage_args(u, mask, "K2", K2)
+    n, m = _check_grid(mask, K2=K2)
+    B = _check_u(u, n, m, mask.device, dtypes=(torch.float32,), stacked=True)
     if u.device.type == "cpu":
         return lk_mvm_stage_right_plain(u, mask, K2)
+    return _stage_right(u, mask, K2, stream_plan(B, n, m, u.device).c_struct())
+
+
+def _stage_right(u, mask, K2, c_plan) -> TF32Planes:
+    """K2a's launch on checked (B, n, m) float32 operands, grid ``c_plan``."""
+    B, n, m = u.shape
     ld = _leading_dim(n)
     T_hi, T_lo = torch.empty((2, B * m, ld), dtype=torch.float32,
                              device=u.device)
-    plan = stream_plan(B, n, m, u.device)
-    lib = _two_stage_library()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lk_mvm_stage_right_launch(
-            u.data_ptr(), mask.data_ptr(), K2.data_ptr(), K2.stride(0),
-            T_hi.data_ptr(), T_lo.data_ptr(), ld, B, n, m,
-            ctypes.byref(plan.c_struct()), stream)
-    _raise_on_launch_error(rc, lib.lk_mvm_two_stage_error_string,
-                           "lk_mvm_stage_right", (B, n, m))
+    launch("lk_mvm_two_stage", "lk_mvm_stage_right", (B, n, m), u.device,
+           u.data_ptr(), mask.data_ptr(), K2.data_ptr(), K2.stride(0),
+           T_hi.data_ptr(), T_lo.data_ptr(), ld, B, n, m,
+           ctypes.byref(c_plan))
     lk_mvm_stage_right.launches += 1
     return TF32Planes(T_hi, T_lo, n)
 
@@ -791,34 +769,31 @@ def lk_mvm_stage_left(K1: torch.Tensor, T: TF32Planes, mask: torch.Tensor,
     raise); the plain version for a CPU tensor.
     ``lk_mvm_stage_left.launches`` counts kernel launches.
     """
-    B, n, m = _check_stage_args(u, mask, "K1", K1)
+    n, m = _check_grid(mask, K1=K1)
+    B = _check_u(u, n, m, mask.device, dtypes=(torch.float32,), stacked=True)
     _check_planes("T", T, B * m, n, u.device)
     if u.device.type == "cpu":
         return lk_mvm_stage_left_plain(K1, T, mask, u, noise)
-    return _stage_left_cuda(K1, T, mask, u, noise)
-
-
-def _stage_left_cuda(K1, T, mask, u, noise):
-    """K2b's launch on operands that :func:`lk_mvm_stage_left` checks, or
-    that :func:`lk_mvm_two_stage` checked and K2a wrote."""
-    B, n, m = u.shape
-    K1p = _k1_planes(K1)
-    noise_t = _noise_scalar(noise, u.device)
-    out = torch.empty_like(u)
     plan = plan_stage_left(B, n, m, sms=device_limits(u.device).sms)
-    work = torch.empty((plan.splits, n, B * m), dtype=torch.float32,
-                       device=u.device) if plan.splits > 1 else None
-    lib = _stage_left_library()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lk_mvm_stage_left_launch(
-            K1p.hi.data_ptr(), K1p.lo.data_ptr(), K1p.ld, T.hi.data_ptr(),
-            T.lo.data_ptr(), T.ld, mask.data_ptr(), u.data_ptr(),
-            noise_t.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(), B, n, m,
-            ctypes.byref(plan.c_struct()), stream)
-    _raise_on_launch_error(rc, lib.lk_mvm_stage_left_error_string,
-                           "lk_mvm_stage_left", (B, n, m))
+    return _stage_left(_k1_planes(K1), T, mask, u,
+                       _noise_scalar(noise, u.device), plan.c_struct(),
+                       plan.splits)
+
+
+def _stage_left(K1p, T, mask, u, noise, c_plan, splits) -> torch.Tensor:
+    """K2b's launch on checked float32 operands (K1's planes, T's planes,
+    the (B, n, m) ``u``, a 0-d ``noise`` on the device), grid ``c_plan``
+    with ``splits`` splits of k."""
+    B, n, m = u.shape
+    out = torch.empty_like(u)
+    work = torch.empty((splits, n, B * m), dtype=torch.float32,
+                       device=u.device) if splits > 1 else None
+    launch("lk_mvm_stage_left", "lk_mvm_stage_left", (B, n, m), u.device,
+           K1p.hi.data_ptr(), K1p.lo.data_ptr(), K1p.ld, T.hi.data_ptr(),
+           T.lo.data_ptr(), T.ld, mask.data_ptr(), u.data_ptr(),
+           noise.data_ptr(), out.data_ptr(),
+           None if work is None else work.data_ptr(), B, n, m,
+           ctypes.byref(c_plan))
     lk_mvm_stage_left.launches += 1
     return out
 
@@ -826,93 +801,34 @@ def _stage_left_cuda(K1, T, mask, u, noise):
 lk_mvm_stage_left.launches = 0
 
 
-def lk_mvm_two_stage(K1: torch.Tensor, K2: torch.Tensor, mask: torch.Tensor,
-                     u: torch.Tensor, noise=0.0, *, block_n: int | None = None,
-                     block_m: int | None = None,
-                     precision: str = "f32") -> torch.Tensor:
-    """Two-stage masked Kronecker MVM: K2a then K2b, ``T`` in device memory.
-
-    Takes what :func:`lk_mvm_fused` takes (float32 factors and mask, float32
-    or float64 ``u`` with any leading batch dims, computed on in float32,
-    returned in ``u.dtype``) and computes the same function. On a CUDA tensor
-    it launches both kernels or raises (K1's TF32 halves are made at K1's
-    first sweep and kept while K1 lives); on a CPU tensor it runs
-    :func:`lk_mvm_two_stage_plain`. ``precision="bf16"`` raises
-    ``NotImplementedError``. ``block_n`` / ``block_m`` are accepted for
-    signature parity with the reference and ignored.
-    """
-    del block_n, block_m
-    _two_stage_precision(precision)
-    n, m = _check_args(K1, K2, mask, u, precision)
-    if u.device.type == "cpu":
-        return lk_mvm_two_stage_plain(K1, K2, mask, u, noise)
-    u3 = u.detach().reshape(-1, n, m).to(torch.float32)
-    T = lk_mvm_stage_right(u3, mask, K2)
-    out = _stage_left_cuda(K1, T, mask, u3, noise)
-    return out.to(u.dtype).reshape(u.shape)
-
-
-def lk_mvm_cuda(K1, K2, mask, u, noise=0.0, *, block_n: int | None = None,
-                block_m: int | None = None, fused: bool = True,
-                precision: str = "f32") -> torch.Tensor:
-    """Masked Kronecker MVM through a hand-written kernel.
-
-    ``fused=True`` is :func:`lk_mvm_fused`, ``fused=False``
-    :func:`lk_mvm_two_stage`.
-    """
-    if not fused:
-        return lk_mvm_two_stage(K1, K2, mask, u, noise, block_n=block_n,
-                                block_m=block_m, precision=precision)
-    return lk_mvm_fused(K1, K2, mask, u, noise, block_n=block_n,
-                        block_m=block_m, precision=precision)
-
-
 def _check_rows_args(K1_rows, K2, mask_rows, u_rows, um_full, precision):
-    """What the row-shard kernel takes: float32 everywhere on one device,
-    ``K1_rows`` (n_local, n) and ``K2`` (m, m) with unit stride along their
-    rows, ``mask_rows`` (n_local, m), ``u_rows`` (..., n_local, m) and
-    ``um_full`` (..., n, m) with the same leading dims, all contiguous."""
-    if precision not in _PRECISIONS:
-        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
-    if mask_rows.ndim != 2:
-        raise ValueError(f"mask_rows must be (n_local, m), got "
-                         f"{tuple(mask_rows.shape)}")
-    n_local, m = mask_rows.shape
-    if K1_rows.ndim != 2 or K1_rows.shape[0] != n_local:
-        raise ValueError(f"K1_rows must be ({n_local}, n), got "
-                         f"{tuple(K1_rows.shape)}")
+    """What the row-shard kernel takes: ``mask_rows`` (n_local, m) and
+    ``K2`` (m, m) as :func:`_check_grid` takes a grid's, ``K1_rows``
+    (n_local, n) with unit stride along its rows, ``u_rows`` (..., n_local,
+    m) and ``um_full`` (..., n, m) with the same leading dims, all float32
+    on one device and contiguous."""
+    n_local, m = _check_grid(mask_rows, K2=K2, precision=precision)
+    if K1_rows.ndim != 2 or K1_rows.shape[0] != n_local \
+            or K1_rows.stride(1) != 1:
+        raise ValueError(f"K1_rows must be ({n_local}, n) with unit stride "
+                         f"along its rows, got {tuple(K1_rows.shape)}")
     n = K1_rows.shape[1]
-    if n_local == 0 or m == 0 or n < n_local:
-        raise ValueError(f"empty or inconsistent row shard: n_local={n_local}"
-                         f", n={n}, m={m}")
-    if tuple(K2.shape) != (m, m):
-        raise ValueError(f"K2 must be {(m, m)}, got {tuple(K2.shape)}")
-    if u_rows.ndim < 2 or tuple(u_rows.shape[-2:]) != (n_local, m):
-        raise ValueError(f"u_rows must be (..., {n_local}, {m}), got "
-                         f"{tuple(u_rows.shape)}")
-    if tuple(um_full.shape) != (*u_rows.shape[:-2], n, m):
-        raise ValueError(f"um_full must be {(*u_rows.shape[:-2], n, m)}, got "
-                         f"{tuple(um_full.shape)}")
-    if u_rows.numel() == 0:
-        raise ValueError("u_rows has an empty batch dimension")
-    operands = {"K1_rows": K1_rows, "K2": K2, "mask_rows": mask_rows,
-                "u_rows": u_rows, "um_full": um_full}
-    for name, x in operands.items():
+    if n < n_local:
+        raise ValueError(f"inconsistent row shard: n_local={n_local}, n={n}")
+    for name, x in (("K1_rows", K1_rows), ("um_full", um_full)):
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}: the "
                             "row-shard kernel computes in float32 only")
-        if x.device != u_rows.device:
-            raise ValueError(f"{name} lives on {x.device}, u_rows on "
-                             f"{u_rows.device}")
-    if K1_rows.stride(1) != 1 or K2.stride(1) != 1:
-        raise ValueError("K1_rows and K2 must have unit stride along their rows")
-    for name in ("mask_rows", "u_rows", "um_full"):
-        if not operands[name].is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if u_rows.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"lk_mvm_fused_rows runs on cuda or cpu tensors, not "
-                         f"{u_rows.device}")
-    _refuse_autograd(*operands.values())
+        if x.device != mask_rows.device:
+            raise ValueError(f"{name} lives on {x.device}, mask_rows on "
+                             f"{mask_rows.device}")
+    _check_u(u_rows, n_local, m, mask_rows.device, dtypes=(torch.float32,))
+    if tuple(um_full.shape) != (*u_rows.shape[:-2], n, m) \
+            or not um_full.is_contiguous():
+        raise ValueError(f"um_full must be a contiguous "
+                         f"{(*u_rows.shape[:-2], n, m)}, got "
+                         f"{tuple(um_full.shape)}")
+    refuse_autograd(K1_rows, um_full)
     return n_local, n, m
 
 
@@ -966,21 +882,15 @@ def lk_mvm_fused_rows(K1_rows: torch.Tensor, K2: torch.Tensor,
                                        um_full, noise, precision=precision)
     u3 = u_rows.reshape(-1, n_local, m)
     B = u3.shape[0]
-    if max(B, n, m) >= 2**31:
-        raise ValueError("B, n and m must fit in 32-bit integers")
     noise_t = _noise_scalar(noise, u_rows.device)
     out = torch.empty_like(u3)
     plan = plan_launch(B, n_local, n, m, sms=device_limits(u_rows.device).sms)
-    lib = _rows_library()
-    with torch.cuda.device(u_rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lk_mvm_fused_rows_launch(
-            K1_rows.data_ptr(), K1_rows.stride(0), K2.data_ptr(), K2.stride(0),
-            um_full.data_ptr(), mask_rows.data_ptr(), u3.data_ptr(),
-            noise_t.data_ptr(), out.data_ptr(), B, n_local, n, m,
-            int(precision == "bf16"), ctypes.byref(plan.c_struct()), stream)
-    _raise_on_launch_error(rc, lib.lk_mvm_fused_rows_error_string,
-                           "lk_mvm_fused_rows", (B, n_local, m))
+    launch("lk_mvm_fused_rows", "lk_mvm_fused_rows", (B, n_local, m),
+           u_rows.device, K1_rows.data_ptr(), K1_rows.stride(0),
+           K2.data_ptr(), K2.stride(0), um_full.data_ptr(),
+           mask_rows.data_ptr(), u3.data_ptr(), noise_t.data_ptr(),
+           out.data_ptr(), B, n_local, n, m, int(precision == "bf16"),
+           ctypes.byref(plan.c_struct()))
     lk_mvm_fused_rows.launches += 1
     return out.reshape(u_rows.shape)
 

@@ -12,14 +12,13 @@ from __future__ import annotations
 from .._device import check_on_device, resolve_device
 from .autotune import autotune_route
 from .gram import rbf_gram_cuda
-from .lk_mvm import lk_mvm_cuda
+from .lk_mvm import mvm_launch
 from .ref import lk_mvm_ref, rbf_gram_ref
 
 __all__ = ["lk_mvm_op", "rbf_gram_op"]
 
 
 def lk_mvm_op(K1, K2, mask, u, noise=0.0, *, force_kernel: bool = False,
-              block_n: int | None = None, block_m: int | None = None,
               fused: bool | None = None, precision: str = "f32", device=None):
     """A(u) = mask * (K1 @ (mask*u) @ K2) + noise * (mask*u).
 
@@ -28,18 +27,19 @@ def lk_mvm_op(K1, K2, mask, u, noise=0.0, *, force_kernel: bool = False,
     kernels K2a + K2b; ``fused=None`` asks the route tuner
     (:func:`repro_torch.kernels.autotune.autotune_route`: timed on a CUDA
     device, the reference's rule on the CPU), as the reference asks its
-    block tuner when no blocks are given.
+    block tuner when no blocks are given. The kernels run through a launch
+    of :func:`repro_torch.kernels.lk_mvm.mvm_launch`, made for this call.
     """
     dev = resolve_device(device)
     check_on_device(dev, K1=K1, K2=K2, mask=mask, u=u)
     if dev.type == "cuda" or force_kernel:
+        B = u.numel() // max(mask.numel(), 1)
         if fused is None:
             n, m = mask.shape
-            B = u.numel() // max(n * m, 1)
             fused = autotune_route(n, m, B, precision=precision,
                                    device=dev) == "fused"
-        return lk_mvm_cuda(K1, K2, mask, u, noise, block_n=block_n,
-                           block_m=block_m, fused=fused, precision=precision)
+        return mvm_launch("fused" if fused else "two_stage", K1, K2, mask,
+                          noise, B, precision=precision)(u)
     return lk_mvm_ref(K1, K2, mask, u, noise)
 
 

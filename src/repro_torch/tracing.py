@@ -7,11 +7,13 @@ The request path opens five spans, all named ``lkgp.*``:
 * ``lkgp.cg`` - one CG / PCG loop (``core/solvers/cg.py``), attrs ``B``,
   ``n``, ``m``, ``iters``, ``replacements``;
 * ``lkgp.mvm`` - one sweep of the ``cuda`` engine's operator
-  (``KernelOperator.__call__``: route, autograd wrapper, casts, kernel
-  wrappers), attrs ``route``, ``B``, ``m`` and ``r_steps`` (K2a's ring
-  steps a strip: 1 while m <= 64, else one a pass and k chunk);
-* ``lkgp.mvm.launch`` - the kernel wrappers inside it (checks, plans,
-  ctypes structs, launches).
+  (``KernelOperator.__call__``: the launch of the batch, made at its first
+  sweep, the autograd wrapper, the launch), attrs ``route``, ``B``, ``m``
+  and ``r_steps`` (K2a's ring steps a strip: 1 while m <= 64, else one a
+  pass and k chunk);
+* ``lkgp.mvm.launch`` - the launch inside it (``u``'s check and casts, the
+  outputs' allocation, the kernels' launches), in the forward and in the
+  backward's ``du`` sweep.
 
 and the CG loop adds three counters when it ends: ``lkgp.cg.wait_ns`` (host
 nanoseconds blocked in the loop's reads of the device), ``lkgp.cg.cols_swept``

@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import engines
 from repro_torch.core.engines import KernelEngine, KernelMVM, KernelOperator
 from repro_torch.kernels import autotune, budget, lk_mvm_op, lk_mvm_ref
+from repro_torch.kernels.lk_mvm import MVMLaunch
 from repro_torch.kernels.autotune import (autotune_route, cache_contents,
                                           candidate_routes, clear_cache,
                                           heuristic_route)
@@ -269,14 +269,14 @@ def test_route_resolved_once_per_operator_forward_and_backward_alike(
         asked.append((n, m, B, precision, str(device)))
         return next(answers)
 
-    real_sweep = engines._sweep
+    real_sweep = MVMLaunch.__call__
 
-    def spy_sweep(u, factors, force_kernel, fused):
-        swept.append((tuple(u.shape), fused))
-        return real_sweep(u, factors, force_kernel, fused)
+    def spy_sweep(launch, u):
+        swept.append((tuple(u.shape), launch.route == "fused"))
+        return real_sweep(launch, u)
 
     monkeypatch.setattr(autotune, "autotune_route", fake_route)
-    monkeypatch.setattr(engines, "_sweep", spy_sweep)
+    monkeypatch.setattr(MVMLaunch, "__call__", spy_sweep)
     (K1, K2, mask), noise = _operator_inputs()
     A = KernelEngine().operator_from_grams(K1, K2, mask, noise)
     assert isinstance(A, KernelOperator) and A.fused is None

@@ -209,11 +209,11 @@ def test_fit_through_the_kernel_engine_on_the_cpu(task, monkeypatch):
     plain version. Each objective evaluation costs exactly the stacked
     solve's CG iterations plus 2 sweeps (A(alpha), A(probes) in the
     gradient); the result is finite and the objective went down."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels.lk_mvm import MVMLaunch
 
     sweeps = []
-    real = ops.lk_mvm_op
-    monkeypatch.setattr(ops, "lk_mvm_op",
+    real = MVMLaunch.__call__
+    monkeypatch.setattr(MVMLaunch, "__call__",
                         lambda *a, **k: sweeps.append(1) or real(*a, **k))
     built = []
 

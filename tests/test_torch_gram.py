@@ -134,7 +134,7 @@ def test_rbf_gram_wrapper_rejects_what_the_kernel_does_not_take(bad):
 def test_rbf_gram_wrapper_counts_only_kernel_launches(monkeypatch):
     """On CPU tensors the wrapper runs the plain version and counts nothing;
     the library is never built."""
-    monkeypatch.setattr(gram_mod, "_library", None)   # must not be reached
+    monkeypatch.setattr(gram_mod, "launch", None)   # must not be reached
     before = rbf_gram_cuda.launches
     x1, x2, ls = (torch.from_numpy(a) for a in _inputs(9, 11, 3, seed=7))
     rbf_gram_cuda(x1, x2, ls, 1.0)

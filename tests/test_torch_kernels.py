@@ -4,6 +4,7 @@ the reference's, and the dispatch rules of ``lk_mvm_op``.
 
 Inputs are made with numpy from a seed and handed to both frameworks.
 """
+import ctypes
 import functools
 
 import jax
@@ -22,7 +23,7 @@ from repro.kernels import lk_mvm_ref as ref_lk_mvm_ref
 from repro_torch.core import gp_kernels as gk
 from repro_torch.core import mvm
 from repro.kernels import lk_mvm_two_stage as ref_lk_mvm_two_stage
-from repro_torch.kernels import (lk_mvm_cuda, lk_mvm_fused,
+from repro_torch.kernels import (lk_mvm_fused, mvm_launch,
                                  lk_mvm_fused_plain, lk_mvm_op, lk_mvm_ref,
                                  lk_mvm_stage_left, lk_mvm_stage_left_plain,
                                  lk_mvm_stage_right, lk_mvm_stage_right_plain,
@@ -315,9 +316,10 @@ def test_lk_mvm_op_cpu_routes():
 
 @pytest.mark.parametrize("entry", ["op", "dispatcher"])
 def test_two_stage_slot_raises_not_falls_back(entry, monkeypatch):
-    """fused=False reaches the two-stage wrapper (never the fused kernel),
-    and what the two-stage kernels do not compute (bf16 operands) raises
-    instead of running in float32."""
+    """fused=False (and the launch of the route "two_stage") reaches the
+    two-stage kernels (never the fused kernel), and what the two-stage
+    kernels do not compute (bf16 operands) raises instead of running in
+    float32."""
     K1, K2, mask, u = _t(*_problem(2, 6, 5))
     import repro_torch.kernels.lk_mvm as lk
 
@@ -325,7 +327,8 @@ def test_two_stage_slot_raises_not_falls_back(entry, monkeypatch):
         if entry == "op":
             return lk_mvm_op(K1, K2, mask, u, 0.1, force_kernel=True,
                              fused=False, device="cpu", **kw)
-        return lk_mvm_cuda(K1, K2, mask, u, 0.1, fused=False, **kw)
+        return mvm_launch("two_stage", K1, K2, mask, 0.1, u.shape[0],
+                          **kw)(u)
 
     monkeypatch.setattr(lk, "lk_mvm_fused", None)   # must not be reached
     out = call()
@@ -383,6 +386,83 @@ def test_build_failure_is_raised_not_swallowed(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load_library("lk_mvm_fused")
     assert not list(tmp_path.iterdir())
+
+
+# --------------------------------------------------------------------------
+# the launch seam: one launch per operator and batch, one table of libraries
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("B", [1, 3, 65])
+@pytest.mark.parametrize("route", ["fused", "two_stage"])
+def test_operator_sweep_is_the_checked_wrapper_bit_for_bit(route, B):
+    """A float64 sweep of the cuda engine's operator, through its cached
+    launch, gives the bits of the public wrapper of its route called on the
+    operator's float32 operands: the same casts, plans and version."""
+    from repro_torch.core.engines import KernelOperator
+    K1, K2, mask, u = _t(*_problem(B, 13, 7, seed=B, dtype=np.float64))
+    A = KernelOperator(K1, K2, mask, torch.tensor(0.3, dtype=torch.float64),
+                       fused=route == "fused")
+    wrapper = lk_mvm_fused if route == "fused" else lk_mvm_two_stage
+    for v in (u, 0.5 * u):             # the launch's first sweep and a later
+        got = A(v)
+        assert got.dtype == torch.float64 and A.launch(B).route == route
+        assert torch.equal(got, wrapper(*A.fast[:3], v, A.fast[3]))
+
+
+@pytest.mark.parametrize("route", ["fused", "two_stage"])
+def test_operator_checks_and_plans_once_per_batch(route, monkeypatch):
+    """Repeated sweeps of one batch size run the operand checker and the
+    route's planners once, at the first sweep; a new batch size builds a
+    new launch, and a batch size seen before reuses its own."""
+    import repro_torch.kernels.lk_mvm as lk
+    from repro_torch.core.engines import KernelOperator
+    calls = {}
+    for name in ("_check_grid", "plan_launch", "plan_stream",
+                 "plan_stage_left"):
+        real = getattr(lk, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **k)
+        monkeypatch.setattr(lk, name, counted)
+    K1, K2, mask, u = _t(*_problem(3, 11, 6, dtype=np.float64))
+    A = KernelOperator(K1, K2, mask, 0.2, fused=route == "fused")
+    planner = "plan_launch" if route == "fused" else "plan_stage_left"
+    once = {"_check_grid": 1, "plan_stream": 1, planner: 1}
+    for _ in range(4):
+        A(u)
+    assert calls == once
+    first = A.launch(3)
+    A(u[:2])
+    assert calls == {k: 2 * v for k, v in once.items()}
+    assert A.launch(2) is not first and A.launch(3) is first
+    A(u)
+    assert calls == {k: 2 * v for k, v in once.items()}
+
+
+_PTR = ctypes.POINTER
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "long long": ctypes.c_longlong, "int": ctypes.c_int,
+            "int*": _PTR(ctypes.c_int), "const lk_tc::Plan*": _PTR(_build.CPlan),
+            "const lk_two_stage::StreamPlan*": _PTR(_build.CStreamPlan),
+            "const lk_wg::Plan*": _PTR(_build.CLeftPlan),
+            "const rbf::GramPlan*": _PTR(_build.CGramPlan)}
+
+
+@pytest.mark.parametrize("library,entry", [
+    (lib, entry) for lib, entries in _build.LIBRARIES.items()
+    for entry in entries])
+def test_library_table_matches_the_c_sources(library, entry):
+    """Each entry point of the table of kernel libraries is exported by its
+    source with the argument types the table declares, in order."""
+    import re
+    src = "kernel_attr.cuh" if entry == "repro_device_limits" \
+        else f"{library}.cu"
+    text = (_build.CSRC / src).read_text()
+    found = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+    assert found, f"{entry} is not exported by {src}"
+    params = [" ".join(p.split()[:-1]).replace(" *", "*")
+              for p in found.group(1).split(",")]
+    assert _build.LIBRARIES[library][entry] == [_C_TYPES[p] for p in params]
 
 
 # --------------------------------------------------------------------------

@@ -23,10 +23,10 @@ from repro_torch.core import (GPData, KernelMVM, KernelMVMFunction,
                               cg_solve_tridiag, get_engine, lk_operator,
                               make_mll, make_mll_iterative, mll_cholesky,
                               rademacher_probes)
-from repro_torch.core import engines as engines_mod
 from repro_torch.core import slq
 from repro_torch.data import sample_task
 from repro_torch.kernels import lk_mvm_two_stage_plain
+from repro_torch.kernels.lk_mvm import MVMLaunch
 
 
 def _t(a):
@@ -152,8 +152,8 @@ def test_stacked_solve_logdet_matches_reference_and_warm_start_gives_none():
 # the differentiable kernel MVM (K5)
 # --------------------------------------------------------------------------
 def test_kernel_mvm_function_gradcheck_on_the_oracle_route():
-    """fast=None: the sweeps go to the float64 oracle, so finite differences
-    check the closed-form backward in K1, K2, u and noise."""
+    """launch=None: the sweeps go to the float64 oracle, so finite
+    differences check the closed-form backward in K1, K2, u and noise."""
     K1, K2, mask, _ = _spd_operator(n=5, m=4)
     rng = np.random.default_rng(1)
     u = rng.standard_normal((2, 5, 4)) * mask
@@ -162,7 +162,7 @@ def test_kernel_mvm_function_gradcheck_on_the_oracle_route():
                                                  requires_grad=True)]
     assert torch.autograd.gradcheck(
         lambda K1, K2, mask, u, noise: KernelMVMFunction.apply(
-            K1, K2, mask, u, noise, None, True), args)
+            K1, K2, mask, u, noise, None), args)
 
 
 @pytest.mark.parametrize("shape", [(1, 5, 3), (3, 13, 16), (2, 30, 21)])
@@ -202,8 +202,8 @@ def test_kernel_mvm_computes_du_only_when_asked(monkeypatch):
     """One sweep forward; the backward sweeps again (du = A(g)) only when u
     needs a gradient, so the MLL's h(theta) costs exactly two sweeps."""
     calls = []
-    real = engines_mod._sweep
-    monkeypatch.setattr(engines_mod, "_sweep",
+    real = MVMLaunch.__call__
+    monkeypatch.setattr(MVMLaunch, "__call__",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     K1, K2, mask, noise = _spd_operator()
     rng = np.random.default_rng(0)

@@ -234,17 +234,20 @@ def test_posterior_cache_identity_and_solve_count(fitted):
 
 
 def test_kernel_slot_engine_goes_through_the_kernel_wrapper(fitted, monkeypatch):
-    """Every CG iteration of the cuda engine is one call of lk_mvm_fused; the
-    true residuals (start, end, replacements) go through the float64 MVM."""
+    """Every CG iteration of the cuda engine is one call of the operator's
+    launch of the fused kernel, over float32 operands and a 0-d noise
+    tensor; the true residuals (start, end, replacements) go through the
+    float64 MVM."""
     import repro_torch.kernels.lk_mvm as mod
     calls = []
-    real = mod.lk_mvm_fused
+    real = mod.MVMLaunch.__call__
 
-    def counting(K1, K2, mask, u, noise=0.0, **kw):
-        calls.append((K1.dtype, u.dtype, tuple(u.shape), type(noise)))
-        return real(K1, K2, mask, u, noise, **kw)
+    def counting(launch, u):
+        calls.append((launch.route, launch.K1.dtype, u.dtype,
+                      tuple(u.shape), type(launch.noise)))
+        return real(launch, u)
 
-    monkeypatch.setattr(mod, "lk_mvm_fused", counting)
+    monkeypatch.setattr(mod.MVMLaunch, "__call__", counting)
     _, state, _ = _pair(fitted, "cuda")
     launches = lk_mvm_fused.launches
     post = posterior(state, device="cpu")
@@ -252,8 +255,8 @@ def test_kernel_slot_engine_goes_through_the_kernel_wrapper(fitted, monkeypatch)
     info = post.solve_info
     assert len(calls) == int(info.iters) > 0
     assert float(info.rel_residual.max()) <= state.config.cg_tol
-    assert set(calls) == {(torch.float32, torch.float64, (S + 1, N, M),
-                           torch.Tensor)}
+    assert set(calls) == {("fused", torch.float32, torch.float64,
+                           (S + 1, N, M), torch.Tensor)}
     assert lk_mvm_fused.launches == launches      # CPU: no kernel launch
 
 
